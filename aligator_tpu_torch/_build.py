@@ -98,3 +98,27 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = _loaded[name] = ctypes.CDLL(str(_library_path(name)))
     return lib
+
+
+def c_function(name: str, symbol: str, n_int: int, n_ptr: int):
+    """The C function ``symbol`` of ``csrc/<name>.cu`` taking ``n_int`` ints
+    then ``n_ptr`` pointers (the stream last) and returning a CUDA error
+    code."""
+    fn = getattr(load(name), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * n_int + [ctypes.c_void_p] * n_ptr
+    return fn
+
+
+def run(fn, device, *args, what: str) -> None:
+    """Call a C launcher with ``args`` and the current stream of ``device``;
+    raise if it refuses the dimensions (it returns -1) or returns a CUDA
+    error."""
+    import torch
+
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err == -1:
+        raise ValueError(f"{what} kernel does not take these dimensions")
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")

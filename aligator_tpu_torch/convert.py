@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ._device import resolve
+from .examples.medium_dims import linear_problem
 from .examples.se2_car import se2_problem
 from .gar.lqr_problem import LQRKnots, LQRProblem
 
@@ -28,6 +29,24 @@ def lqr_problem_from_numpy(arrays, device="cuda") -> LQRProblem:
 
     knots = LQRKnots(**{k: t(k) for k in KNOT_FIELDS})
     return LQRProblem(knots=knots, G0=t("G0"), g0=t("g0"))
+
+
+def linear_problem_from_numpy(params, nsteps: int, device="cuda"):
+    """A linear-quadratic problem (:func:`~.examples.medium_dims.linear_problem`)
+    from its leaves: ``A (nx, nx)``, ``B (nx, nu)``, ``c (nx,)``, the stage
+    weights ``Q``, ``R``, the terminal weight ``Q_term``, ``x0 (B, nx)`` (or
+    ``(nx,)``) and, where the problem has a control box, ``u_lower`` and
+    ``u_upper``."""
+    dev = resolve(device)
+
+    def t(name):
+        return torch.tensor(np.asarray(params[name]), device=dev)
+
+    u_box = None
+    if "u_lower" in params:
+        u_box = (t("u_lower"), t("u_upper"))
+    return linear_problem(t("A"), t("B"), t("c"), t("Q"), t("R"),
+                          t("Q_term"), t("x0"), nsteps, u_box=u_box)
 
 
 def se2_problem_from_numpy(params, nsteps: int = 50, device="cuda",

@@ -9,7 +9,7 @@ from .lqr_problem import (
     split_solution,
 )
 from .riccati import RiccatiFactors, backward, forward, solve, solve_and_gains
-from . import fused_riccati
+from . import fused_riccati, fused_stage, spd_solve
 
 __all__ = [
     "LQRKnots",
@@ -24,4 +24,6 @@ __all__ = [
     "solve",
     "solve_and_gains",
     "fused_riccati",
+    "fused_stage",
+    "spd_solve",
 ]

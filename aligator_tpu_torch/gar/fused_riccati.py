@@ -8,7 +8,7 @@ problems and returns the solution and the per-stage gains:
   ``csrc/fused_riccati.cu`` (one thread per scenario, the whole solve in one
   launch) and unpacks the outputs; a shape the kernel is not instantiated
   for raises;
-* for CPU tensors it runs :func:`solve_plain`, the batched PyTorch backward,
+* for CPU tensors it runs :func:`solve_plain`, the plain PyTorch backward,
   initial and forward solve of :mod:`.riccati`, which computes the same
   function.
 
@@ -16,8 +16,6 @@ problems and returns the solution and the per-stage gains:
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 from torch import Tensor
@@ -76,10 +74,10 @@ def _offsets(sizes: dict):
 
 def solve_plain(problem: LQRProblem, mudyn, mueq,
                 assume_explicit: bool = True):
-    """Plain PyTorch version of the fused solve. Returns ``(xs, us, vs, lams,
-    gains)`` like :func:`solve`."""
-    factors = riccati.backward(problem, mudyn, mueq, assume_explicit)
-    return (*riccati.forward(factors), factors.gains())
+    """Plain PyTorch version of the fused solve, on any device. Returns
+    ``(xs, us, vs, lams, gains)`` like :func:`solve`."""
+    factors = riccati.backward_plain(problem, mudyn, mueq, assume_explicit)
+    return (*riccati.forward_plain(factors), factors.gains())
 
 
 def solve(problem: LQRProblem, mudyn, mueq, assume_explicit: bool = True):
@@ -156,24 +154,12 @@ def launch(feats: Tensor, g0f: Tensor, mu: Tensor, problem: LQRProblem,
     gains = torch.empty((T, G, Bsz), dtype=dt, device=dev)
     if Bsz == 0:
         return out, gains
-    fn = _c_function(dt)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(nx, nu, nc, int(bool(assume_explicit)), Bsz, T,
-                 feats.data_ptr(), g0f.data_ptr(), mu.data_ptr(),
-                 out.data_ptr(), gains.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_riccati kernel launch failed: CUDA error {err}")
+    fn = _build.c_function(_SOURCE, _C_FUNCS[dt], 6, 6)
+    _build.run(fn, dev, nx, nu, nc, int(bool(assume_explicit)), Bsz, T,
+               feats.data_ptr(), g0f.data_ptr(), mu.data_ptr(),
+               out.data_ptr(), gains.data_ptr(), what="fused_riccati")
     LAUNCHES += 1
     return out, gains
-
-
-def _c_function(dtype):
-    lib = _build.load(_SOURCE)
-    fn = getattr(lib, _C_FUNCS[dtype])
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 6
-    return fn
 
 
 def unpack(problem: LQRProblem, out: Tensor, gains: Tensor):

@@ -1,8 +1,7 @@
 """Batched serial proximal Riccati solver (no parametric θ blocks).
 
-PyTorch counterpart of ``aligator_tpu/gar/riccati.py``: the backward sweep
-runs as a Python loop over stages on ``(B, ...)`` tensors, one scenario per
-batch entry, where the JAX package runs a ``lax.scan`` under ``vmap``.
+PyTorch counterpart of ``aligator_tpu/gar/riccati.py``, one scenario per
+batch entry where the JAX package runs a ``lax.scan`` under ``vmap``:
 
 * the per-stage reduced KKT ``[[R̂, D'], [D, -μ_eq I]]`` is solved by Schur
   elimination of the multiplier, ``(R̂ + D'D/μ_eq) u = ...``, which is SPD
@@ -11,9 +10,24 @@ batch entry, where the JAX package runs a ``lax.scan`` under ``vmap``.
   ``I + μ_dyn·P̃`` with ``P̃ = E^{-T} P E^{-1}``; with ``assume_explicit``
   ``E = -I`` and the E-factorization is skipped.
 
-:func:`solve_and_gains` is the solver-facing entry point: problems inside
-the fused kernel's domain go to :mod:`.fused_riccati`, the others take the
-batched loop of this module.
+Routing by shape, as the JAX package routes its batches to its kernels
+(``riccati.py:394-506`` there, without the TPU terms):
+
+* :func:`solve_and_gains`: problems in the small-dim fused solve's domain go
+  to :mod:`.fused_riccati` (K1) whole;
+* :func:`sweep` (the backward sweep): explicit dynamics with
+  ``12 <= nx <= 44`` go to :func:`.fused_stage.sweep` (K3), the others to
+  the per-stage loop of this module, whose Schur and reduced-KKT solves go
+  through :func:`.spd_solve.spd_solve` (K2);
+* :func:`forward`: ``nx >= 12`` goes to :func:`.fused_stage.forward` (K4),
+  smaller problems to the PyTorch loop :func:`.fused_stage.forward_loop`.
+
+Each kernel wrapper takes its plain PyTorch version for CPU tensors; a CUDA
+tensor never reaches a ``*_plain`` function on these routes. The terminal
+and initial-stage solves are torch Cholesky on every device, as the JAX
+package computes them outside any kernel. :func:`backward_plain` and
+:func:`forward_plain` are the plain PyTorch solve on every device (the
+plain version of K1).
 """
 
 from __future__ import annotations
@@ -23,7 +37,8 @@ from dataclasses import dataclass
 import torch
 from torch import Tensor
 
-from .._linalg import mv
+from .._linalg import chol_solve, mv
+from . import fused_stage, spd_solve
 from .lqr_problem import LQRKnots, LQRProblem, batch_param
 
 GAIN_FIELDS = ("kff", "K", "zff", "Z", "lff", "L", "yff", "Afb")
@@ -55,24 +70,15 @@ def _sym(M: Tensor) -> Tensor:
     return 0.5 * (M + M.mT)
 
 
-def _spd_solve(M: Tensor, rhs: Tensor) -> Tensor:
-    """Solve M X = rhs for SPD M; a factorization that fails (M not
-    positive definite) gives NaN for that scenario, as the kernel does,
-    instead of raising for the whole batch."""
-    L, info = torch.linalg.cholesky_ex(M)
-    L = torch.where((info != 0)[..., None, None], torch.nan, L)
-    return torch.cholesky_solve(rhs, L)
-
-
 def _reduced_kkt_solve(Rhat, D, mueq, rhs_u_vec, rhs_c_vec, rhs_u_mat,
-                       rhs_c_mat):
+                       rhs_c_mat, spd=chol_solve):
     """Feedforward and feedback solves of ``[[R̂, D'], [D, -μ_eq I]]`` against
-    one Cholesky factorization. ``mueq`` is ``(B, 1, 1)``.
+    one factorization by ``spd``. ``mueq`` is ``(B, 1, 1)``.
     Returns (u_vec, ν_vec, U_mat, NU_mat)."""
     W = Rhat + (D.mT @ D) / mueq
     Bu = torch.cat([rhs_u_vec[..., None], rhs_u_mat], -1)
     Bc = torch.cat([rhs_c_vec[..., None], rhs_c_mat], -1)
-    U = _spd_solve(_sym(W), Bu + (D.mT @ Bc) / mueq)
+    U = spd(_sym(W), Bu + (D.mT @ Bc) / mueq)
     NU = (D @ U - Bc) / mueq
     return U[..., 0], NU[..., 0], U[..., 1:], NU[..., 1:]
 
@@ -89,9 +95,10 @@ def _terminal_solve(kn: LQRKnots, mueq: Tensor) -> dict:
 
 
 def _stage_kernel(kn: LQRKnots, t: int, P_n, p_n, mudyn, mueq,
-                  assume_explicit: bool) -> dict:
+                  assume_explicit: bool, spd) -> dict:
     """One backward Riccati stage at index ``t`` given the next stage's value
-    function ``(P_n, p_n)``. ``mudyn``/``mueq`` are ``(B, 1, 1)``."""
+    function ``(P_n, p_n)``, with the SPD solves by ``spd``.
+    ``mudyn``/``mueq`` are ``(B, 1, 1)``."""
     Q, S, R = kn.Q[:, t], kn.S[:, t], kn.R[:, t]
     q, r = kn.q[:, t], kn.r[:, t]
     A, Bm, f = kn.A[:, t], kn.B[:, t], kn.f[:, t]
@@ -108,7 +115,7 @@ def _stage_kernel(kn: LQRKnots, t: int, P_n, p_n, mudyn, mueq,
         ptilde = -mv(Einv.mT, p_n)
 
     schur = _sym(eye + mudyn * Ptilde)
-    sol = _spd_solve(
+    sol = spd(
         schur, torch.cat([Ptilde, (ptilde + mv(Ptilde, f))[..., None]], -1)
     )
     Vxx = _sym(sol[..., :nx])
@@ -123,7 +130,7 @@ def _stage_kernel(kn: LQRKnots, t: int, P_n, p_n, mudyn, mueq,
     rhat = r + mv(Bm.mT, vx)
 
     kff, zff, K, Z = _reduced_kkt_solve(
-        Rhat, D, mueq, -rhat, -d, -Shat.mT, -C
+        Rhat, D, mueq, -rhat, -d, -Shat.mT, -C, spd
     )
 
     md = mudyn[..., 0]
@@ -141,29 +148,53 @@ def _stage_kernel(kn: LQRKnots, t: int, P_n, p_n, mudyn, mueq,
                 Pmat=P_c, pvec=p_c)
 
 
-def sweep(kn: LQRKnots, mudyn: Tensor, mueq: Tensor,
-          assume_explicit: bool = False) -> dict:
-    """Backward sweep over the knots (no initial-stage solve). ``mudyn`` and
-    ``mueq`` are ``(B,)``. Returns the stacked per-stage factors, T entries;
-    the dynamics-propagation gains at the last index are zero."""
+def _sweep_loop(kn: LQRKnots, P, p, mudyn, mueq, assume_explicit: bool,
+                spd) -> dict:
+    """Per-stage loop over stages ``N-1 .. 0`` from the terminal value
+    ``(P, p)``, SPD solves by ``spd``; factors as :func:`fused_stage.sweep`
+    returns them (zero at index N)."""
     md = mudyn[:, None, None]
     me = mueq[:, None, None]
-    term = _terminal_solve(kn, me)
-    P, p = term["Pmat"], term["pvec"]
-    stages = []
+    out = fused_stage.factor_buffers(kn.Q, kn.horizon, kn.nu, kn.nc)
     for t in range(kn.horizon - 1, -1, -1):
-        st = _stage_kernel(kn, t, P, p, md, me, assume_explicit)
+        st = _stage_kernel(kn, t, P, p, md, me, assume_explicit, spd)
         P, p = st["Pmat"], st["pvec"]
-        stages.append(st)
-    stages.reverse()
+        for k, v in st.items():
+            out[k][:, t] = v
+    return out
 
-    zero_vec = torch.zeros_like(term["pvec"])
-    zero_mat = torch.zeros_like(term["Pmat"])
-    term = dict(term, lff=zero_vec, L=zero_mat, yff=zero_vec, Afb=zero_mat)
-    return {
-        k: torch.stack([s[k] for s in stages] + [term[k]], 1)
-        for k in GAIN_FIELDS + ("Pmat", "pvec")
-    }
+
+def _sweep(kn: LQRKnots, mudyn: Tensor, mueq: Tensor, assume_explicit: bool,
+           plain: bool) -> dict:
+    term = _terminal_solve(kn, mueq[:, None, None])
+    P, p = term["Pmat"], term["pvec"]
+    if plain:
+        out = _sweep_loop(kn, P, p, mudyn, mueq, assume_explicit, chol_solve)
+    elif fused_stage.sweep_eligible(kn.nx, kn.nu, assume_explicit):
+        out = fused_stage.sweep(kn, P, p, mudyn, mueq)
+    else:
+        out = _sweep_loop(kn, P, p, mudyn, mueq, assume_explicit,
+                          spd_solve.spd_solve)
+    N = kn.horizon
+    for k in ("kff", "K", "zff", "Z", "Pmat", "pvec"):
+        out[k][:, N] = term[k]
+    return out
+
+
+def sweep(kn: LQRKnots, mudyn: Tensor, mueq: Tensor,
+          assume_explicit: bool = False) -> dict:
+    """Backward sweep over the knots (no initial-stage solve), routed by
+    shape (module docstring). ``mudyn`` and ``mueq`` are ``(B,)``. Returns
+    the stacked per-stage factors, T entries; the dynamics-propagation gains
+    at the last index are zero."""
+    return _sweep(kn, mudyn, mueq, assume_explicit, plain=False)
+
+
+def sweep_plain(kn: LQRKnots, mudyn: Tensor, mueq: Tensor,
+                assume_explicit: bool = False) -> dict:
+    """:func:`sweep` as the per-stage loop with torch Cholesky solves, on
+    every device."""
+    return _sweep(kn, mudyn, mueq, assume_explicit, plain=True)
 
 
 def _initial_solve(P0, p0, G0, g0, mudyn):
@@ -172,44 +203,56 @@ def _initial_solve(P0, p0, G0, g0, mudyn):
     md = mudyn[:, None, None]
     W = _sym(P0 + (G0.mT @ G0) / md)
     rhs = -p0 - mv(G0.mT, g0) / md[..., 0]
-    x0 = _spd_solve(W, rhs[..., None])[..., 0]
+    x0 = chol_solve(W, rhs[..., None])[..., 0]
     lam0 = (mv(G0, x0) + g0) / md[..., 0]
     return x0, lam0
 
 
-def backward(problem: LQRProblem, mudyn, mueq,
-             assume_explicit: bool = False) -> RiccatiFactors:
-    """Backward sweep over the full horizon plus the initial-stage solve."""
+def _backward(problem: LQRProblem, mudyn, mueq, assume_explicit: bool,
+              plain: bool) -> RiccatiFactors:
     md = batch_param(mudyn, problem)
     me = batch_param(mueq, problem)
-    stages = sweep(problem.knots, md, me, assume_explicit)
+    stages = _sweep(problem.knots, md, me, assume_explicit, plain)
     x0, lam0 = _initial_solve(
         stages["Pmat"][:, 0], stages["pvec"][:, 0], problem.G0, problem.g0, md
     )
     return RiccatiFactors(**stages, x0=x0, lam0=lam0)
 
 
+def backward(problem: LQRProblem, mudyn, mueq,
+             assume_explicit: bool = False) -> RiccatiFactors:
+    """Backward sweep over the full horizon (routed, :func:`sweep`) plus the
+    initial-stage solve."""
+    return _backward(problem, mudyn, mueq, assume_explicit, plain=False)
+
+
+def backward_plain(problem: LQRProblem, mudyn, mueq,
+                   assume_explicit: bool = False) -> RiccatiFactors:
+    """:func:`backward` with :func:`sweep_plain`."""
+    return _backward(problem, mudyn, mueq, assume_explicit, plain=True)
+
+
+def forward_plain(factors: RiccatiFactors):
+    """Forward substitution in plain PyTorch, on every device (with
+    :func:`backward_plain`, the plain version of K1). Returns ``(xs, us,
+    vs, lams)``, each ``(B, N+1, ·)``."""
+    return fused_stage.forward_loop(factors.gains(), factors.x0, factors.lam0)
+
+
 def forward(factors: RiccatiFactors):
-    """Forward substitution. Returns ``(xs, us, vs, lams)``, each
-    ``(B, N+1, ·)``."""
-    T = factors.kff.shape[1]
-    x = factors.x0
-    xs, us, vs, lams = [], [], [], [factors.lam0]
-    for t in range(T):
-        xs.append(x)
-        us.append(factors.kff[:, t] + mv(factors.K[:, t], x))
-        vs.append(factors.zff[:, t] + mv(factors.Z[:, t], x))
-        if t < T - 1:
-            lams.append(factors.lff[:, t] + mv(factors.L[:, t], x))
-            x = factors.yff[:, t] + mv(factors.Afb[:, t], x)
-    return (
-        torch.stack(xs, 1), torch.stack(us, 1), torch.stack(vs, 1),
-        torch.stack(lams, 1),
-    )
+    """Forward substitution: through :func:`fused_stage.forward` (K4) when
+    ``nx >= 12``, else the PyTorch loop :func:`fused_stage.forward_loop`
+    (as the JAX package scans it in XLA). Returns ``(xs, us, vs, lams)``,
+    each ``(B, N+1, ·)``."""
+    nu, nx = factors.K.shape[-2:]
+    gains = factors.gains()
+    if fused_stage.forward_eligible(nx, nu):
+        return fused_stage.forward(gains, factors.x0, factors.lam0)
+    return fused_stage.forward_loop(gains, factors.x0, factors.lam0)
 
 
 def solve(problem: LQRProblem, mudyn, mueq, assume_explicit: bool = False):
-    """Backward + forward in one call. Returns (xs, us, vs, lams)."""
+    """Backward + forward in one call, routed. Returns (xs, us, vs, lams)."""
     return forward(backward(problem, mudyn, mueq, assume_explicit))
 
 
@@ -219,9 +262,9 @@ def solve_and_gains(problem: LQRProblem, mudyn, mueq,
     per-stage ``kff K zff Z lff L yff Afb``.
 
     Problems inside the fused kernel's domain (:func:`fused_riccati.available`)
-    go to :func:`fused_riccati.solve`: the CUDA kernel for CUDA tensors, its
-    plain PyTorch version for CPU tensors. The others take the batched loop
-    of this module.
+    go to :func:`fused_riccati.solve` (K1); the others take :func:`backward`
+    and :func:`forward`, routed to K3, K2 and K4 by shape. Each kernel
+    wrapper takes its plain version for CPU tensors.
     """
     from . import fused_riccati  # fused_riccati builds on this module
 

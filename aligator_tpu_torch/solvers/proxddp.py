@@ -18,11 +18,15 @@ that scenario alone. Each masked loop ends on ``mask.any()``, one host sync
 per iteration.
 
 What this port covers: linear rollout, the serial LQ solve
-(:func:`~aligator_tpu_torch.gar.riccati.solve_and_gains`, which sends
-small-dim problems to the fused CUDA kernel), the three multiplier update
-modes, the three step-acceptance strategies, the BCL schedule and the
-regularization schedule, with Gauss-Newton Hessians. The other options of
-the JAX configuration raise ``NotImplementedError``.
+(:func:`~aligator_tpu_torch.gar.riccati.solve_and_gains`, which routes by
+shape: small-dim problems to the fused solve K1, explicit dynamics with
+12 <= nx <= 44 to the fused backward sweep K3, the rest to the per-stage
+loop with the SPD solve K2, and forward sweeps at nx >= 12 to K4), the
+three multiplier update modes, the three step-acceptance strategies, the
+BCL schedule and the regularization schedule, with Gauss-Newton Hessians.
+The other options of the JAX configuration raise ``NotImplementedError``;
+its ``lq_spd_lanes``, ``lq_stage_fused`` and ``lq_scan_unroll`` knobs have
+no counterpart, since the routing follows the shape alone.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 from torch import Tensor
 
 from .._linalg import infnorm, mtv
+from .._linalg import select as _where
 from ..core import problem as problem_mod
 from ..core.manifolds import VectorSpace
 from ..core.problem import ProblemData, TrajOptProblem
@@ -160,19 +165,6 @@ class _State:
     filter_valid: Tensor  # (B, F)
     K: Tensor
     kff: Tensor
-
-
-def _where(mask: Tensor, new, old):
-    """Per-scenario select of a tensor, a tuple of tensors or a _State."""
-    if isinstance(new, _State):
-        return _State(**{
-            f.name: _where(mask, getattr(new, f.name), getattr(old, f.name))
-            for f in dataclasses.fields(_State)
-        })
-    if isinstance(new, tuple):
-        return tuple(_where(mask, a, b) for a, b in zip(new, old))
-    m = mask.reshape(mask.shape + (1,) * (new.ndim - 1))
-    return torch.where(m, new, old)
 
 
 def _check_supported(cfg: ProxDDPConfig):

@@ -5,19 +5,30 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order;
 any failed check raises and the script exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the CUDA kernels of ``aligator_tpu_torch/csrc`` with nvcc;
-3. kernels: each kernel held against its plain PyTorch version on the card,
-   at the main path's shape (fp32) and at the test shapes (fp64), and timed
-   beside its memory/compute bound;
-4. the main path: batched SE(2)-car ProxDDP (N=50, batch 32768, fp32, the
-   ``bench.py`` configuration) on the card, with the kernels' launch counts
-   read around it, the converged fraction, solves/s, a device-time
+2. build: the CUDA kernels of ``aligator_tpu_torch/csrc`` with nvcc, one
+   process per source, in parallel;
+3. kernels: each kernel (K1 fused Riccati, K2 SPD solve, K3 fused backward
+   sweep, K4 forward substitution) held against its plain PyTorch version on
+   the card, at the main paths' shapes (fp32) and at the test shapes (fp64),
+   and timed beside its memory/compute bound and, where one PyTorch call
+   computes the same function, that call;
+4. the SE(2)-car path: batched ProxDDP (N=50, batch 32768, fp32, the
+   ``bench.py`` configuration) on the card, with the plain versions patched
+   to raise and the kernels' launch counts read around it, the converged
+   fraction, solves/s, a device-time
    breakdown, and the first 256 scenarios solved again on the CPU;
-5. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
+5. the medium-dim paths, fp32 at the bench configurations: humanoid-dims
+   ProxDDP (nx=36, N=100, batch 1024; K3 and K4), dense LQR-56 ProxDDP
+   (batch 256; K2 and K4) and LQR-56 FDDP (K2). Each runs with the plain
+   versions patched to raise, its launch counts read around it and checked
+   against the route, then prints its converged fraction and solves/s and
+   solves its first 16 scenarios again on the CPU;
+6. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -44,6 +55,23 @@ FP64_TOL = 1e-9  # the same, float64
 CPU_CHECK_SCENARIOS = 256
 CPU_TRAJ_TOL = 1e-3  # fp32 card vs fp32 CPU solve, max abs over xs and us
 MIN_FRAC_CONVERGED = 0.99
+
+# medium-dim paths (bench.py:156-213, bench_lqr.py:22-81)
+HUMANOID_BATCH = 1024
+LQR_BATCH = 256
+MEDIUM_NSTEPS = 100
+MEDIUM_CPU_SCENARIOS = 16
+# fp32 card vs fp32 CPU solve of the same scenarios, max |Δ| over xs and us
+# relative to max(1, max |xs|, max |us|): the K3/K2 sums run in another order
+# than the CPU's, over 100 stages and up to 4 Newton steps
+MEDIUM_CPU_TRAJ_TOL = 1e-3
+# kernel vs plain version, max error relative to max(1, output scale)
+K2_FP32_TOL = 1e-4  # well-conditioned SPD systems (eigenvalues >= 1)
+# K3/K4 at the main shapes with random convex knots over 100 stages and
+# mu_eq down to 1e-3: both float32 results are compared with the float64
+# plain sweep for context
+K3_FP32_TOL = 1e-3
+K4_FP32_TOL = 1e-4
 
 
 def check(cond, msg):
@@ -230,6 +258,299 @@ def _compare(got, ref, err=rel_err):
     return errs
 
 
+def avg_time_ms(fn, reps):
+    """Mean device time per call of ``fn`` over ``reps`` back-to-back calls,
+    CUDA events (host overhead shows where it starves the device)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, reps, kernel_name):
+    """Device time per launch of the CUDA kernel named ``kernel_name`` over
+    ``reps`` calls of ``fn`` (torch.profiler): the kernel alone, without
+    the wrapper's host time. Falls back to CUDA events over the whole call
+    if the profiler records no device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and kernel_name in ev.key:
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "self_cuda_time_total", 0)
+            total_us += dev_us
+            count += ev.count
+    if count == 0 or total_us == 0:
+        print(f"[kernel] profiler saw no {kernel_name}: timing whole calls")
+        return avg_time_ms(fn, reps)
+    check(count == reps, f"{kernel_name}: {count} launches profiled, {reps} made")
+    return total_us / count / 1e3
+
+
+def bound(nbytes, flops):
+    bytes_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / H100_FP32_FLOP_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def _gen(seed):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def spd_batch(M, n, r, dtype, seed):
+    """SPD systems A = G G'/n + I and right-hand sides, drawn on the card."""
+    g = _gen(seed)
+    G = torch.randn((M, n, n), generator=g, device="cuda", dtype=torch.float64)
+    A = G @ G.mT / n + torch.eye(n, device="cuda", dtype=torch.float64)
+    R = torch.randn((M, n, r), generator=g, device="cuda", dtype=torch.float64)
+    return A.to(dtype), R.to(dtype)
+
+
+def convex_knots(B, N, nx, nu, nc, dtype, seed):
+    """Random convex LQ knots with the law of
+    ``lqr_problem.random_convex_problem`` (E = -I), drawn on the card (the
+    main shapes are too large to draw on the host quickly), plus a random
+    SPD terminal value and per-scenario mu (mu_eq log-uniform in [1e-3,
+    1e-1], mu_dyn = 1e-3 mu_eq as the solver scales it)."""
+    from aligator_tpu_torch.gar.lqr_problem import LQRKnots
+
+    g = _gen(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda", dtype=torch.float64)
+
+    T, n = N + 1, nx + nu
+    root = randn(B, T, n, n + 2)
+    joint = root @ root.mT / (n + 2)
+    del root
+    eye = torch.eye(nx, device="cuda", dtype=torch.float64)
+    a = dict(
+        Q=joint[..., :nx, :nx], S=joint[..., :nx, nx:],
+        R=joint[..., nx:, nx:] + 0.1 * torch.eye(nu, device="cuda", dtype=torch.float64),
+        q=randn(B, T, nx), r=randn(B, T, nu), A=randn(B, T, nx, nx) / math.sqrt(nx),
+        B=randn(B, T, nx, nu) / math.sqrt(nu), E=-eye.expand(B, T, nx, nx),
+        f=0.1 * randn(B, T, nx), C=randn(B, T, nc, nx), D=randn(B, T, nc, nu),
+        d=randn(B, T, nc),
+    )
+    kn = LQRKnots(**{k: v.to(dtype).contiguous() for k, v in a.items()})
+    del a, joint
+    G = randn(B, nx, nx)
+    P = (G @ G.mT / nx + eye).to(dtype)
+    p = randn(B, nx).to(dtype)
+    mue = 10 ** (torch.rand(B, generator=g, device="cuda", dtype=torch.float64) * 2 - 3)
+    return kn, P, p, (1e-3 * mue).to(dtype), mue.to(dtype)
+
+
+def k2_phase():
+    from aligator_tpu_torch.gar import spd_solve as sp
+
+    for i, (n, r) in enumerate(((12, 1), (24, 13), (56, 57), (22, 57), (64, 64))):
+        A, R = spd_batch(130, n, r, torch.float64, SEED + i)
+        err = rel_err(sp.spd_solve(A, R), sp.spd_solve_plain(A, R))
+        print(f"[kernel] spd_solve fp64 M=130 n={n} r={r}: max rel err {err:.3e} "
+              f"(tol {FP64_TOL:g})")
+        check(err <= FP64_TOL, f"spd_solve fp64 n={n} r={r}: {err}")
+
+    # the LQR-56 per-stage pair: the Schur solve and the reduced KKT
+    tot = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0,
+               flops=0.0, max_abs_err=0.0)
+    for i, (M, n, r) in enumerate(((LQR_BATCH, 56, 57), (LQR_BATCH, 22, 57))):
+        A, R = spd_batch(M, n, r, torch.float32, SEED + 10 + i)
+        X = sp.spd_solve(A, R)
+        ref = sp.spd_solve_plain(A, R)
+        ref64 = sp.spd_solve_plain(A.double(), R.double())
+        torch.cuda.synchronize()
+        err = rel_err(X, ref)
+        print(f"[kernel] spd_solve fp32 M={M} n={n} r={r}: vs plain {err:.2e} "
+              f"(tol {K2_FP32_TOL:g}); vs fp64 plain: kernel "
+              f"{rel_err(X.double(), ref64):.2e}, plain {rel_err(ref.double(), ref64):.2e}")
+        check(torch.isfinite(X).all().item(), "non-finite spd_solve output")
+        check(err <= K2_FP32_TOL, f"spd_solve fp32 n={n}: {err}")
+        ms = kernel_ms(lambda: sp.launch(A, R), 200, "spd_solve_kernel")
+        call_ms = avg_time_ms(lambda: sp.spd_solve(A, R), 200)
+        plain_ms = avg_time_ms(lambda: sp.spd_solve_plain(A, R), 50)
+        lib_ms = avg_time_ms(lambda: torch.linalg.solve(A, R), 50)
+        nbytes = 4 * M * (n * n + 2 * n * r)
+        flops = M * (n ** 3 / 3 + 2 * n * n * r)
+        bms, by = bound(nbytes, flops)
+        print(f"[kernel] spd_solve fp32 M={M} n={n} r={r}: kernel {ms:.4f} ms "
+              f"(wrapper call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+              f"torch.linalg.solve {lib_ms:.4f} ms; bound {bms:.4f} ms ({by}: "
+              f"{nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
+        for k, v in (("ms", ms), ("call_ms", call_ms), ("plain_ms", plain_ms),
+                     ("library_ms", lib_ms), ("nbytes", nbytes), ("flops", flops)):
+            tot[k] += v
+        tot["max_abs_err"] = max(tot["max_abs_err"], abs_err(X, ref))
+    bms, by = bound(tot["nbytes"], tot["flops"])
+    print(f"[kernel] spd_solve, one LQR-56 stage (both solves): kernel "
+          f"{tot['ms']:.4f} ms, bound {bms:.4f} ms ({by})")
+    return dict(
+        name="spd_solve", route="cuda", source="aligator_tpu_torch/csrc/spd_solve.cu",
+        replaces="aligator_tpu/gar/pallas_spd.py:33", max_abs_err=tot["max_abs_err"],
+        ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=bms, bound_by=by,
+        library_ms=tot["library_ms"],
+    ), dict(wrapper_call_ms=tot["call_ms"])
+
+
+def k3_flops_per_stage(n, m, c):
+    """Flops of one K3 stage per scenario, counted from the kernel's loops
+    (a multiply-add is 2)."""
+    n1 = n + 1
+    return (n ** 3 / 3 + 2 * n * n * n1  # Schur factor and solve
+            + 2 * n * n * n1 + 2 * n * m * n1  # [A'V | A'vx], [B'V | B'vx]
+            + 2 * n ** 3 + 2 * n * n * m  # Qhat, Shat
+            + 2 * m * m * (n + c) + 2 * m * n * (n + c + 1)  # reduced KKT
+            + m ** 3 / 3 + 2 * m * m * n1  # its factor and solve
+            + 2 * c * m * n1 + 2 * n * m * n1 + 2 * n * n * n1  # Z, panels
+            + 2 * n * n1 * (m + c)  # value update
+            + 2 * n ** 3 + 6 * n * n)  # L, Afb, lff, yff
+
+
+def k3_phase():
+    from aligator_tpu_torch.gar import fused_stage as fs
+
+    for i, (N, nx, nu, nc) in enumerate(((6, 13, 4, 3), (4, 16, 5, 0),
+                                         (5, 36, 12, 12), (3, 44, 20, 0))):
+        kn, P, p, md, me = convex_knots(100, N, nx, nu, nc, torch.float64, SEED + i)
+        got = fs.sweep(kn, P, p, md, me)
+        ref = fs.sweep_plain(kn, P, p, md, me)
+        err = max(rel_err(got[k], ref[k]) for k in fs.FACTOR_FIELDS)
+        print(f"[kernel] fused_stage sweep fp64 B=100 (N,nx,nu,nc)={(N, nx, nu, nc)}: "
+              f"max rel err {err:.3e} (tol {FP64_TOL:g})")
+        check(err <= FP64_TOL, f"fused_stage sweep fp64 {err}")
+        one = fs.stage({k: getattr(kn, k)[:, N - 1] for k in fs.STAGE_FIELDS},
+                       P, p, md, me)
+        err = max(rel_err(one[k], ref[k][:, N - 1]) for k in fs.FACTOR_FIELDS)
+        check(err <= FP64_TOL, f"fused_stage stage fp64 {err}")
+
+    B, N, nx, nu, nc = HUMANOID_BATCH, MEDIUM_NSTEPS, 36, 12, 12
+    kn, P, p, md, me = convex_knots(B, N, nx, nu, nc, torch.float32, SEED + 20)
+    got = fs.sweep(kn, P, p, md, me)
+    ref = fs.sweep_plain(kn, P, p, md, me)
+    torch.cuda.synchronize()
+    errs = {k: rel_err(got[k], ref[k]) for k in fs.FACTOR_FIELDS}
+    worst = max(errs.values())
+    print(f"[kernel] fused_stage sweep fp32 B={B} N={N} (nx,nu,nc)={(nx, nu, nc)}: "
+          f"vs plain {worst:.2e} ({max(errs, key=errs.get)}; tol {K3_FP32_TOL:g})")
+    kn64 = dataclasses.replace(kn, **{f.name: getattr(kn, f.name).double()
+                                      for f in dataclasses.fields(kn)})
+    ref64 = fs.sweep_plain(kn64, P.double(), p.double(), md.double(), me.double())
+    for name, res in (("kernel", got), ("plain", ref)):
+        e = max(rel_err(res[k].double(), ref64[k]) for k in fs.FACTOR_FIELDS)
+        print(f"[kernel] fused_stage sweep fp32 {name} vs fp64 plain: {e:.2e}")
+    del kn64, ref64
+    check(all(torch.isfinite(v).all().item() for v in got.values()),
+          "non-finite fused_stage output")
+    check(worst <= K3_FP32_TOL, f"fused_stage sweep fp32 {worst}")
+    max_abs = max(abs_err(got[k], ref[k]) for k in fs.FACTOR_FIELDS)
+    del got, ref
+
+    ms = kernel_ms(lambda: fs.sweep(kn, P, p, md, me), 5, "sweep_kernel")
+    plain_ms = avg_time_ms(lambda: fs.sweep_plain(kn, P, p, md, me), 2)
+    stage_words = (2 * nx * nx + 2 * nx * nu + nu * nu + 2 * nx + nu
+                   + nc * (nx + nu + 1))
+    factor_words = (nu * (nx + 1) + nc * (nx + 1) + 2 * nx + 3 * nx * nx + nx)
+    nbytes = 4 * B * (N * (stage_words + factor_words) + nx * nx + nx + 2)
+    flops = B * N * k3_flops_per_stage(nx, nu, nc)
+    bms, by = bound(nbytes, flops)
+    print(f"[kernel] fused_stage sweep fp32 B={B} N={N}: kernel {ms:.4f} ms "
+          f"({ms / N * 1e3:.2f} us per stage), plain {plain_ms:.3f} ms; bound "
+          f"{bms:.4f} ms ({by}: {nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP)")
+    return dict(
+        name="fused_stage_sweep", route="cuda",
+        source="aligator_tpu_torch/csrc/fused_stage.cu",
+        replaces="aligator_tpu/gar/pallas_stage.py:140", max_abs_err=max_abs,
+        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+    )
+
+
+def random_gains(B, T, nx, nu, nc, dtype, seed):
+    g = _gen(seed)
+    shapes = dict(kff=(nu,), K=(nu, nx), zff=(nc,), Z=(nc, nx), lff=(nx,),
+                  L=(nx, nx), yff=(nx,), Afb=(nx, nx))
+    gains = {k: (torch.randn((B, T) + s, generator=g, device="cuda",
+                             dtype=torch.float64) / math.sqrt(nx)).to(dtype)
+             for k, s in shapes.items()}
+    x0 = torch.randn((B, nx), generator=g, device="cuda", dtype=torch.float64)
+    lam0 = torch.randn((B, nx), generator=g, device="cuda", dtype=torch.float64)
+    return gains, x0.to(dtype), lam0.to(dtype)
+
+
+def k4_phase():
+    from aligator_tpu_torch.gar import fused_stage as fs
+
+    for i, (nx, nu, nc) in enumerate(((13, 4, 3), (13, 4, 0), (36, 12, 12), (56, 22, 0))):
+        gains, x0, lam0 = random_gains(100, 11, nx, nu, nc, torch.float64, SEED + i)
+        err = max(rel_err(a, b) for a, b in zip(fs.forward(gains, x0, lam0),
+                                                fs.forward_plain(gains, x0, lam0)))
+        print(f"[kernel] fused_stage forward fp64 B=100 T=11 (nx,nu,nc)="
+              f"{(nx, nu, nc)}: max rel err {err:.3e} (tol {FP64_TOL:g})")
+        check(err <= FP64_TOL, f"fused_stage forward fp64 {err}")
+
+    out = {}
+    T = MEDIUM_NSTEPS + 1
+    for i, (B, nx, nu, nc) in enumerate(((HUMANOID_BATCH, 36, 12, 12),
+                                         (LQR_BATCH, 56, 22, 0))):
+        gains, x0, lam0 = random_gains(B, T, nx, nu, nc, torch.float32, SEED + 10 + i)
+        got = fs.forward(gains, x0, lam0)
+        ref = fs.forward_plain(gains, x0, lam0)
+        g64 = {k: v.double() for k, v in gains.items()}
+        ref64 = fs.forward_plain(g64, x0.double(), lam0.double())
+        torch.cuda.synchronize()
+        err = max(rel_err(a, b) for a, b in zip(got, ref))
+        print(f"[kernel] fused_stage forward fp32 B={B} T={T} (nx,nu,nc)={(nx, nu, nc)}: "
+              f"vs plain {err:.2e} (tol {K4_FP32_TOL:g}); vs fp64 plain: kernel "
+              f"{max(rel_err(a.double(), b) for a, b in zip(got, ref64)):.2e}, plain "
+              f"{max(rel_err(a.double(), b) for a, b in zip(ref, ref64)):.2e}")
+        check(all(torch.isfinite(t).all().item() for t in got), "non-finite forward")
+        check(err <= K4_FP32_TOL, f"fused_stage forward fp32 {err}")
+        ms = kernel_ms(lambda: fs.forward(gains, x0, lam0), 20, "forward_kernel")
+        plain_ms = avg_time_ms(lambda: fs.forward_plain(gains, x0, lam0), 3)
+        # the library yardstick: one stage as one batched GEMM plus bias over
+        # the stacked [K; Z; L; Afb], times the T stages
+        W = torch.cat([gains["K"][:, 0], gains["Z"][:, 0], gains["L"][:, 0],
+                       gains["Afb"][:, 0]], 1)
+        bias = torch.cat([gains[k][:, 0] for k in ("kff", "zff", "lff", "yff")],
+                         1)[..., None]
+        xcol = x0[..., None]
+        stage_lib_ms = avg_time_ms(lambda: torch.baddbmm(bias, W, xcol), 200)
+        rows_t, rows_dyn = nu + nc, 2 * nx
+        nbytes = 4 * B * (T * rows_t * (nx + 1) + (T - 1) * rows_dyn * (nx + 1)
+                          + 2 * nx + T * (2 * nx + nu + nc))
+        flops = 2 * B * nx * (T * rows_t + (T - 1) * rows_dyn)
+        bms, by = bound(nbytes, flops)
+        print(f"[kernel] fused_stage forward fp32 B={B} T={T}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms, baddbmm {stage_lib_ms:.4f} ms per stage "
+              f"({T * stage_lib_ms:.4f} ms for T stages); bound {bms:.4f} ms ({by}: "
+              f"{nbytes / 1e9:.4f} GB)")
+        out[(B, nx)] = dict(ms=ms, plain_ms=plain_ms, library_ms=T * stage_lib_ms,
+                            bound_ms=bms, bound_by=by, max_abs_err=max(
+                                abs_err(a, b) for a, b in zip(got, ref)))
+    main = out[(HUMANOID_BATCH, 36)]
+    return dict(
+        name="fused_stage_forward", route="cuda",
+        source="aligator_tpu_torch/csrc/fused_stage.cu",
+        replaces="aligator_tpu/gar/pallas_stage.py:440",
+        max_abs_err=max(v["max_abs_err"] for v in out.values()),
+        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    ), {f"B={B} nx={nx}": {k: v[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        for (B, nx), v in out.items()}
+
+
 # ---------------------------------------------------------------- phase 4
 
 
@@ -245,10 +566,9 @@ def bench_x0s(batch):
     ).astype(np.float32)
 
 
-def slice_phase(kernel_names):
+def slice_phase():
     import aligator_tpu_torch as at
     from aligator_tpu_torch.examples.se2_car import create_se2_problem
-    from aligator_tpu_torch.gar import fused_riccati
 
     cfg = at.solvers.ProxDDPConfig(
         tol=1e-3, mu_init=1e-3, max_iters=4, max_al_iters=4, rollout="linear",
@@ -258,22 +578,24 @@ def slice_phase(kernel_names):
     problem = create_se2_problem(nsteps=NSTEPS, dtype=torch.float32, device="cuda")
     problem = dataclasses.replace(problem, x0=torch.tensor(x0s, device="cuda"))
 
-    # the counted run: launch counts read just around the main path
-    fused_riccati.LAUNCHES = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = at.solvers.solve(problem, cfg)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = {"fused_riccati": fused_riccati.LAUNCHES}
+    # the counted run: launch counts read just around the main path, with
+    # the plain versions patched to raise
+    with plain_versions_raise():
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = at.solvers.solve(problem, cfg)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = launch_counts()
     steps = int(res.newton_steps.max().item())
     print(f"[slice] first solve {first_s:.3f} s, launches {launches}, "
           f"iterations with a Newton step {steps}")
-    for name in kernel_names:
-        check(launches[name] >= 1, f"kernel {name} was not launched on the main path")
-    check(launches["fused_riccati"] == steps,
-          "fused_riccati launches differ from the Newton iterations")
+    # K1 once per Newton iteration, so at least once
     check(1 <= steps <= cfg.max_iters, f"Newton iterations {steps}")
+    want = {"fused_riccati": steps, "spd_solve": 0, "fused_stage_sweep": 0,
+            "fused_stage_forward": 0}
+    check(launches == want, f"SE(2) launches {launches} != {want}")
 
     finite = torch.isfinite(res.us).flatten(1).all(1) & torch.isfinite(res.xs).flatten(1).all(1)
     conv = finite & (res.prim_infeas <= cfg.tol) & (res.dual_infeas <= cfg.tol)
@@ -297,7 +619,7 @@ def slice_phase(kernel_names):
     print(f"[slice] batch times (s) {[round(t, 4) for t in times]}; "
           f"median {med:.4f} s -> {BATCH / med:.1f} solves/s")
 
-    breakdown = profile_solve(problem, cfg)
+    breakdown = profile_solve(lambda: at.solvers.solve(problem, cfg))
 
     # the first scenarios again on the CPU, plain path
     n = CPU_CHECK_SCENARIOS
@@ -319,16 +641,15 @@ def slice_phase(kernel_names):
                           batch_s=med, breakdown=breakdown)
 
 
-def profile_solve(problem, cfg):
-    """Device time by kernel over one solve (torch.profiler), and the share
-    of the solve's wall time the device was busy."""
-    import aligator_tpu_torch as at
+def profile_solve(run, tag="profile"):
+    """Device time by kernel over one call of ``run`` (a solve;
+    torch.profiler), and the share of its wall time the device was busy."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        at.solvers.solve(problem, cfg)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -342,13 +663,194 @@ def profile_solve(problem, cfg):
             rows.append((dev_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    print(f"[profile] one solve: wall {wall_ms:.1f} ms (profiled), device busy "
+    print(f"[{tag}] one solve: wall {wall_ms:.1f} ms (profiled), device busy "
           f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), "
           f"{sum(r[1] for r in rows)} kernel launches")
     for ms, count, key in rows[:12]:
-        print(f"[profile]   {ms:9.3f} ms {count:6d}x  {key[:90]}")
+        print(f"[{tag}]   {ms:9.3f} ms {count:6d}x  {key[:90]}")
     return dict(wall_ms=wall_ms, busy_ms=busy_ms,
                 top=[(round(ms, 3), c, k[:60]) for ms, c, k in rows[:5]])
+
+
+# ---------------------------------------------------------------- phase 5
+
+
+PLAIN_VERSIONS = (
+    ("spd_solve", "spd_solve_plain"), ("fused_stage", "sweep_plain"),
+    ("fused_stage", "stage_plain"), ("fused_stage", "forward_plain"),
+    ("riccati", "backward_plain"), ("riccati", "forward_plain"),
+    ("fused_riccati", "solve_plain"),
+)
+
+
+@contextlib.contextmanager
+def plain_versions_raise():
+    """Replace every plain version by a function that raises: a card solve
+    inside the block must not reach one."""
+    import importlib
+
+    saved = []
+    for mod_name, fn_name in PLAIN_VERSIONS:
+        mod = importlib.import_module(f"aligator_tpu_torch.gar.{mod_name}")
+        saved.append((mod, fn_name, getattr(mod, fn_name)))
+
+        def boom(*args, _name=f"{mod_name}.{fn_name}", **kwargs):
+            raise AssertionError(f"{_name} was reached on the card")
+
+        setattr(mod, fn_name, boom)
+    try:
+        yield
+    finally:
+        for mod, fn_name, fn in saved:
+            setattr(mod, fn_name, fn)
+
+
+def launch_counts():
+    from aligator_tpu_torch.gar import fused_riccati, fused_stage, spd_solve
+
+    return {"fused_riccati": fused_riccati.LAUNCHES,
+            "spd_solve": spd_solve.LAUNCHES,
+            "fused_stage_sweep": fused_stage.STAGE_LAUNCHES,
+            "fused_stage_forward": fused_stage.FORWARD_LAUNCHES}
+
+
+def reset_counts():
+    from aligator_tpu_torch.gar import fused_riccati, fused_stage, spd_solve
+
+    fused_riccati.LAUNCHES = spd_solve.LAUNCHES = 0
+    fused_stage.STAGE_LAUNCHES = fused_stage.FORWARD_LAUNCHES = 0
+
+
+def medium_path(label, make, x0s, solve, expected, min_frac=None,
+                expect_iters=None, timed=5):
+    """Drive one medium-dim path on the card at full batch, then its first
+    scenarios on the CPU. ``make(device, x0s)`` builds the problem, ``solve``
+    runs the solver, ``expected(result)`` gives the launch counts the route
+    implies."""
+    problem = make("cuda", x0s)
+    with plain_versions_raise():
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve(problem)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = launch_counts()
+        want = expected(res)
+        print(f"[{label}] first solve {first_s:.3f} s, launches {launches}, "
+              f"expected {want}")
+        check(launches == want, f"{label}: launches {launches} != {want}")
+        for name, n in want.items():
+            check(n == 0 or launches[name] >= 1, f"{label}: {name} not launched")
+
+        finite = (torch.isfinite(res.us).flatten(1).all(1)
+                  & torch.isfinite(res.xs).flatten(1).all(1))
+        check(bool(finite.all()), f"{label}: non-finite solutions")
+        conv = finite & res.conv
+        frac = conv.float().mean().item()
+        hist = torch.bincount(res.num_iters.long()).tolist()
+        print(f"[{label}] frac_converged {frac:.6f}; num_iters histogram {hist}; "
+              f"max prim {res.prim_infeas.max().item():.3e} "
+              f"max dual {res.dual_infeas.max().item():.3e}")
+        if min_frac is not None:
+            check(frac >= min_frac, f"{label}: frac_converged {frac} < {min_frac}")
+        if expect_iters is not None:
+            check(bool((res.num_iters == expect_iters).all()),
+                  f"{label}: num_iters {hist}")
+
+        # solves/s as bench.py counts it: median of timed batches after the
+        # warm-up above, each ended by a host readback
+        times = []
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            r = solve(problem)
+            float(r.us.sum() + r.prim_infeas.sum() + r.dual_infeas.sum())
+            times.append(time.perf_counter() - t0)
+        breakdown = profile_solve(lambda: solve(problem), f"{label} profile")
+    batch = x0s.shape[0]
+    med = statistics.median(times)
+    print(f"[{label}] batch times (s) {[round(t, 4) for t in times]}; median "
+          f"{med:.4f} s -> {batch / med:.1f} solves/s")
+
+    n = MEDIUM_CPU_SCENARIOS
+    t0 = time.perf_counter()
+    rc = solve(make("cpu", x0s[:n]))
+    cpu_s = time.perf_counter() - t0
+    same_iters = bool((rc.num_iters == res.num_iters[:n].cpu()).all())
+    same_conv = bool((rc.conv == res.conv[:n].cpu()).all())
+    scale = max(1.0, rc.xs.abs().max().item(), rc.us.abs().max().item())
+    dx = (rc.xs - res.xs[:n].cpu()).abs().max().item() / scale
+    du = (rc.us - res.us[:n].cpu()).abs().max().item() / scale
+    print(f"[{label}] cpu check ({n} scenarios, {cpu_s:.1f} s): num_iters equal "
+          f"{same_iters}, conv equal {same_conv}, rel max|dxs| {dx:.3e}, "
+          f"max|dus| {du:.3e} (tol {MEDIUM_CPU_TRAJ_TOL:g})")
+    check(same_iters and same_conv, f"{label}: card and CPU iteration counts differ")
+    check(max(dx, du) <= MEDIUM_CPU_TRAJ_TOL, f"{label}: card and CPU trajectories differ")
+    return launches, dict(frac_converged=frac, solves_per_sec=batch / med,
+                          batch_s=med, batch_times=times, num_iters_hist=hist,
+                          max_prim=res.prim_infeas.max().item(),
+                          max_dual=res.dual_infeas.max().item(),
+                          first_solve_s=first_s, breakdown=breakdown)
+
+
+def medium_phases():
+    import aligator_tpu_torch as at
+    from aligator_tpu_torch.examples import medium_dims
+
+    N = MEDIUM_NSTEPS
+    out, counts = {}, {}
+
+    rng = np.random.default_rng(3)
+    hx0 = np.zeros(36)
+    hx0[0] = 0.5
+    hx0s = (hx0 + 0.1 * rng.standard_normal((HUMANOID_BATCH, 36))).astype(np.float32)
+
+    def make_humanoid(dev, x0s):
+        prob = medium_dims.make_humanoid_dims_problem(N, torch.float32, dev)
+        return dataclasses.replace(prob, x0=torch.tensor(x0s, device=dev))
+
+    hcfg = at.solvers.ProxDDPConfig(tol=1e-3, mu_init=1e-3, max_iters=4,
+                                    max_al_iters=4, rollout="linear", ls_max_steps=6)
+
+    def humanoid_counts(res):
+        steps = int(res.newton_steps.max().item())
+        return {"fused_riccati": 0, "spd_solve": 0, "fused_stage_sweep": steps,
+                "fused_stage_forward": steps}
+
+    counts["humanoid"], out["humanoid"] = medium_path(
+        "humanoid", make_humanoid, hx0s, lambda p: at.solvers.solve(p, hcfg),
+        humanoid_counts, min_frac=MIN_FRAC_CONVERGED)
+
+    rng = np.random.default_rng(7)
+    lx0s = (1.0 + 0.1 * rng.standard_normal((LQR_BATCH, 56))).astype(np.float32)
+
+    def make_lqr(dev, x0s):
+        prob = medium_dims.make_dense_lqr(56, 22, N, torch.float32, dev)
+        return dataclasses.replace(prob, x0=torch.tensor(x0s, device=dev))
+
+    pcfg = at.solvers.ProxDDPConfig(tol=1e-7, mu_init=1e-9, max_iters=2,
+                                    rollout="linear")
+
+    def prox_counts(res):
+        steps = int(res.newton_steps.max().item())
+        return {"fused_riccati": 0, "spd_solve": 2 * N * steps,
+                "fused_stage_sweep": 0, "fused_stage_forward": steps}
+
+    counts["lqr56_proxddp"], out["lqr56_proxddp"] = medium_path(
+        "lqr56_proxddp", make_lqr, lx0s, lambda p: at.solvers.solve(p, pcfg),
+        prox_counts, expect_iters=2)
+
+    fcfg = at.solvers.FDDPConfig(tol=1e-7, max_iters=2)
+
+    def fddp_counts(res):
+        iters = int(res.num_iters.max().item())
+        return {"fused_riccati": 0, "spd_solve": N * (iters + 1),
+                "fused_stage_sweep": 0, "fused_stage_forward": 0}
+
+    counts["lqr56_fddp"], out["lqr56_fddp"] = medium_path(
+        "lqr56_fddp", make_lqr, lx0s, lambda p: at.solvers.fddp.solve(p, fcfg),
+        fddp_counts, expect_iters=2)
+    return counts, out
 
 
 # ---------------------------------------------------------------- main
@@ -360,15 +862,25 @@ def main():
         return 1
     import aligator_tpu_torch  # noqa: F401  (fails outside the repository)
 
+    t_start = time.perf_counter()
     smi = device_phase()
     build_phase()
-    kernel, layout_times = kernel_phase()
-    launches, result = slice_phase(["fused_riccati"])
-    kernel["launches"] = launches[kernel["name"]]
+    k1, layout_times = kernel_phase()
+    k2, k2_extra = k2_phase()
+    k3 = k3_phase()
+    k4, k4_shapes = k4_phase()
+    se2_counts, result = slice_phase()
+    medium_counts, medium = medium_phases()
+    # each kernel's launches: the sum over the paths' counted runs
+    for k in (k1, k2, k3, k4):
+        k["launches"] = se2_counts[k["name"]] + sum(
+            c[k["name"]] for c in medium_counts.values())
     print(json.dumps({"slice": result, "fused_riccati_layout": layout_times,
-                      "card": smi}))
+                      "medium": medium, "medium_launches": medium_counts,
+                      "spd_solve": k2_extra, "fused_stage_forward": k4_shapes,
+                      "script_s": time.perf_counter() - t_start, "card": smi}))
     print(smi)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

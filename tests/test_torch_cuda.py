@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card, and
+the slices that run them against the same solves on the CPU.
 
 These tests import no JAX, so they also run where JAX is not installed:
 
@@ -14,8 +15,10 @@ import pytest
 import torch
 
 import aligator_tpu_torch as at
+from aligator_tpu_torch.examples import medium_dims
 from aligator_tpu_torch.examples.se2_car import create_se2_problem
-from aligator_tpu_torch.gar import fused_riccati, lqr_problem
+from aligator_tpu_torch.gar import (fused_riccati, fused_stage, lqr_problem,
+                                    riccati, spd_solve)
 
 
 @pytest.fixture
@@ -88,3 +91,200 @@ def test_se2_proxddp_card_matches_cpu(cuda_device, u_bound):
     for name in ("xs", "us", "vs", "lams"):
         torch.testing.assert_close(getattr(gpu, name).cpu(), getattr(cpu, name),
                                    rtol=0, atol=1e-9)
+
+
+# ---------------------------------------------------------------- K2, K3, K4
+
+# max |kernel - plain| / max(1, max |plain|): float64 sums in another order;
+# float32 on well-conditioned systems (eigenvalues of A in [0.1, ~5])
+TOL = {torch.float64: 1e-9, torch.float32: 1e-4}
+
+
+def _rel(got, ref):
+    if ref.numel() == 0:
+        return 0.0
+    return ((got - ref).abs().max() / ref.abs().max().clamp(min=1.0)).item()
+
+
+def _spd_batch(rng, M, n, r, dtype, device):
+    G = rng.standard_normal((M, n, n))
+    A = G @ G.swapaxes(-1, -2) / n + 0.1 * np.eye(n)
+    R = rng.standard_normal((M, n, r))
+    return (torch.tensor(A, dtype=dtype, device=device),
+            torch.tensor(R, dtype=dtype, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,r", [(56, 57), (22, 57), (12, 1), (64, 64)])
+def test_spd_solve_matches_plain(cuda_device, dtype, n, r):
+    M = 130
+    A, R = _spd_batch(np.random.default_rng(n), M, n, r, dtype, cuda_device)
+    A[7, 3, 3] = -1.0  # not positive definite: NaN in that system only
+    before = spd_solve.LAUNCHES
+    X = spd_solve.spd_solve(A, R)
+    torch.cuda.synchronize()
+    assert spd_solve.LAUNCHES == before + 1
+    ref = spd_solve.spd_solve_plain(A, R)
+    ok = torch.arange(M, device=cuda_device) != 7
+    assert torch.isnan(X[7]).all() and torch.isnan(ref[7]).all()
+    assert torch.isfinite(X[ok]).all()
+    assert _rel(X[ok], ref[ok]) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_spd_solve_rejects_oversized_systems(cuda_device):
+    A, R = _spd_batch(np.random.default_rng(0), 2, 65, 3, torch.float64,
+                      cuda_device)
+    with pytest.raises(ValueError, match="n, r <= 64"):
+        spd_solve.spd_solve(A, R)
+
+
+def _sweep_inputs(rng, B, N, nx, nu, nc, dtype, device):
+    kn = lqr_problem.random_convex_problem(rng, B, N, nx, nu, nc, dtype=dtype,
+                                           device=device).knots
+    G = rng.standard_normal((B, nx, nx))
+    P = G @ G.swapaxes(-1, -2) / nx + np.eye(nx)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    mus = 10 ** rng.uniform(-3, -1, (2, B))
+    return kn, t(P), t(rng.standard_normal((B, nx))), t(mus[0]), t(mus[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dims", [(6, 13, 4, 3), (4, 16, 5, 0), (5, 36, 12, 12),
+                                  (3, 44, 20, 0)])
+def test_fused_sweep_matches_plain(cuda_device, dtype, dims):
+    N, nx, nu, nc = dims
+    B = 100
+    kn, P, p, md, me = _sweep_inputs(np.random.default_rng(nx), B, N, nx, nu,
+                                     nc, dtype, cuda_device)
+    P[3] = -1e4 * torch.eye(nx, dtype=dtype, device=cuda_device)  # Schur fails
+    before = fused_stage.STAGE_LAUNCHES
+    got = fused_stage.sweep(kn, P, p, md, me)
+    torch.cuda.synchronize()
+    assert fused_stage.STAGE_LAUNCHES == before + 1
+    ref = fused_stage.sweep_plain(kn, P, p, md, me)
+    ok = torch.arange(B, device=cuda_device) != 3
+    for k in fused_stage.FACTOR_FIELDS:
+        assert (got[k][:, N] == 0).all(), k
+        if got[k][3].numel():
+            assert torch.isnan(got[k][3, :N]).all(), k
+        assert torch.isfinite(got[k][ok]).all(), k
+        assert _rel(got[k][ok], ref[k][ok]) <= 10 * TOL[dtype], k
+    one = fused_stage.stage({f: getattr(kn, f)[:, N - 1] for f in fused_stage.STAGE_FIELDS},
+                            P, p, md, me)
+    for k in fused_stage.FACTOR_FIELDS:
+        assert _rel(one[k][ok], ref[k][ok, N - 1]) <= 10 * TOL[dtype], k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nx,nu,nc", [(36, 12, 12), (56, 22, 0), (13, 4, 3)])
+def test_fused_forward_matches_plain(cuda_device, dtype, nx, nu, nc):
+    B, T = 100, 11
+    rng = np.random.default_rng(nx)
+    shapes = dict(kff=(nu,), K=(nu, nx), zff=(nc,), Z=(nc, nx), lff=(nx,),
+                  L=(nx, nx), yff=(nx,), Afb=(nx, nx))
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=cuda_device)
+
+    gains = {k: t(rng.standard_normal((B, T) + s) / np.sqrt(nx))
+             for k, s in shapes.items()}
+    x0, lam0 = t(rng.standard_normal((B, nx))), t(rng.standard_normal((B, nx)))
+    before = fused_stage.FORWARD_LAUNCHES
+    got = fused_stage.forward(gains, x0, lam0)
+    torch.cuda.synchronize()
+    assert fused_stage.FORWARD_LAUNCHES == before + 1
+    ref = fused_stage.forward_plain(gains, x0, lam0)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert _rel(g, r) <= TOL[dtype]
+
+
+# ---------------------------------------------------------------- slices
+
+
+@pytest.fixture
+def plain_versions_raise(monkeypatch):
+    """Patch every plain version to raise: a card solve must not reach one."""
+    def install():
+        for mod, name in PLAIN_VERSIONS:
+            def boom(*args, _name=name, **kwargs):
+                raise AssertionError(f"{_name} reached on the card")
+            monkeypatch.setattr(mod, name, boom)
+    return install
+
+
+PLAIN_VERSIONS = (
+    (spd_solve, "spd_solve_plain"), (fused_stage, "sweep_plain"),
+    (fused_stage, "stage_plain"), (fused_stage, "forward_plain"),
+    (riccati, "backward_plain"), (riccati, "forward_plain"),
+    (fused_riccati, "solve_plain"),
+)
+
+
+def _launches():
+    return dict(k2=spd_solve.LAUNCHES, k3=fused_stage.STAGE_LAUNCHES,
+                k4=fused_stage.FORWARD_LAUNCHES, k1=fused_riccati.LAUNCHES)
+
+
+def _card_and_cpu(make, solve, cuda_device, plain_versions_raise):
+    cpu = solve(make("cpu"))
+    plain_versions_raise()
+    before = _launches()
+    gpu = solve(make(cuda_device))
+    torch.cuda.synchronize()
+    counts = {k: v - before[k] for k, v in _launches().items()}
+    for name in ("num_iters", "conv"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+    for name in ("xs", "us"):
+        torch.testing.assert_close(getattr(gpu, name).cpu(), getattr(cpu, name),
+                                   rtol=0, atol=1e-9)
+    return gpu, counts
+
+
+@pytest.mark.cuda
+def test_humanoid_proxddp_card_matches_cpu(cuda_device, plain_versions_raise):
+    rng = np.random.default_rng(3)
+    x0s = rng.standard_normal((8, 36)) * 0.1
+    x0s[:, 0] += 0.5
+
+    def make(dev):
+        prob = medium_dims.make_humanoid_dims_problem(12, torch.float64, dev)
+        return dataclasses.replace(prob, x0=torch.tensor(x0s, device=dev))
+
+    cfg = at.solvers.ProxDDPConfig(tol=1e-3, mu_init=1e-3, max_iters=4,
+                                   max_al_iters=4, ls_max_steps=6)
+    gpu, counts = _card_and_cpu(make, lambda p: at.solvers.solve(p, cfg),
+                                cuda_device, plain_versions_raise)
+    steps = int(gpu.newton_steps.max())
+    assert counts == dict(k2=0, k3=steps, k4=steps, k1=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["proxddp", "fddp"])
+def test_dense_lqr_card_matches_cpu(cuda_device, plain_versions_raise, solver):
+    N = 10
+    x0s = 1.0 + 0.1 * np.random.default_rng(7).standard_normal((6, 56))
+
+    def make(dev):
+        prob = medium_dims.make_dense_lqr(56, 22, N, torch.float64, dev)
+        return dataclasses.replace(prob, x0=torch.tensor(x0s, device=dev))
+
+    if solver == "proxddp":
+        cfg = at.solvers.ProxDDPConfig(tol=1e-7, mu_init=1e-9, max_iters=2)
+        gpu, counts = _card_and_cpu(make, lambda p: at.solvers.solve(p, cfg),
+                                    cuda_device, plain_versions_raise)
+        steps = int(gpu.newton_steps.max())
+        assert counts == dict(k2=2 * N * steps, k3=0, k4=steps, k1=0)
+    else:
+        cfg = at.solvers.FDDPConfig(tol=1e-7, max_iters=2)
+        gpu, counts = _card_and_cpu(make, lambda p: at.solvers.fddp.solve(p, cfg),
+                                    cuda_device, plain_versions_raise)
+        iters = int(gpu.num_iters.max())
+        assert counts == dict(k2=N * (iters + 1), k3=0, k4=0, k1=0)
