@@ -1,10 +1,11 @@
 """aligator_tpu_torch — the PyTorch/CUDA port of aligator_tpu.
 
 Batched constrained trajectory optimization on one NVIDIA GPU: every
-solver-facing tensor carries a leading batch axis (one scenario per entry),
-and the fused small-dim Riccati solve runs as a hand-written CUDA kernel
-(``gar/fused_riccati.py``, ``csrc/fused_riccati.cu``) with a plain PyTorch
-version beside it for CPU tensors. Entry points that create tensors take
+solver-facing tensor carries a leading batch axis (one scenario per entry).
+Each Pallas TPU kernel of the JAX package has a hand-written CUDA kernel
+here (``csrc/``: K1 fused Riccati, K2 SPD solve, K3/K4 medium-dim sweeps,
+K5 contact-dynamics derivative rows), with a plain PyTorch version beside
+it for CPU tensors. Entry points that create tensors take
 ``device=`` (default ``"cuda"``) and raise when CUDA is requested but absent.
 """
 

@@ -14,7 +14,9 @@ import torch
 from ._device import resolve
 from .examples.medium_dims import linear_problem
 from .examples.se2_car import se2_problem
+from .examples.talos_walk import talos_walk_problem
 from .gar.lqr_problem import LQRKnots, LQRProblem
+from .modelling.multibody import model as rbd
 
 KNOT_FIELDS = ("Q", "S", "R", "q", "r", "A", "B", "E", "f", "C", "D", "d")
 
@@ -63,4 +65,48 @@ def se2_problem_from_numpy(params, nsteps: int = 50, device="cuda",
         x0=t("x0"), w_x=t("w_x"), w_u=t("w_u"),
         w_term=t("w_term"), target=t("target"), timestep=t("timestep"),
         nsteps=nsteps, u_bound=u_bound,
+    )
+
+
+def robot_model_from_numpy(params, dtype=None, device="cuda") -> rbd.RobotModel:
+    """A :class:`~.modelling.multibody.model.RobotModel` from its leaves
+    ``jplac_p jplac_q axes mass com inertia gravity fplac_p fplac_q`` and its
+    topology ``joint_types parents frame_parents frame_names`` (sequences);
+    ``dtype`` defaults to the arrays' own."""
+    dev = resolve(device)
+    leaves = {k: torch.tensor(np.asarray(params[k]), dtype=dtype, device=dev)
+              for k in rbd.LEAVES}
+    return rbd.RobotModel(
+        **leaves,
+        joint_types=tuple(str(t) for t in params["joint_types"]),
+        parents=tuple(int(i) for i in params["parents"]),
+        frame_parents=tuple(int(i) for i in params["frame_parents"]),
+        frame_names=tuple(str(n) for n in params["frame_names"]),
+    )
+
+
+def talos_problem_from_numpy(params, dtype=None, device="cuda"):
+    """The Talos-walk problem (:func:`~.examples.talos_walk.talos_walk_problem`)
+    from its leaves: the robot model's (:func:`robot_model_from_numpy`),
+    ``x_ref (nx,)``, ``x0 (B, nx)``, ``state_weights``, ``control_weights``,
+    ``term_weights``, the schedule ``active (N, 2)``, ``swing_weights (2,
+    N, 3, 3)``, ``swing_targets (2, N, 3)``, ``swing_frames (2,)``,
+    ``actuation (nv, nu)``, ``u_lower``, ``u_upper``, ``timestep``,
+    ``contact_frames``, ``contact_dims``, ``kd`` and ``prox_mu``."""
+    dev = resolve(device)
+
+    def t(name):
+        return torch.tensor(np.asarray(params[name]), dtype=dtype, device=dev)
+
+    return talos_walk_problem(
+        robot_model_from_numpy(params, dtype, dev), x_ref=t("x_ref"), x0=t("x0"),
+        state_weights=t("state_weights"), control_weights=t("control_weights"),
+        term_weights=t("term_weights"), active=t("active"),
+        swing_weights=t("swing_weights"), swing_targets=t("swing_targets"),
+        swing_frames=tuple(int(f) for f in params["swing_frames"]),
+        actuation=t("actuation"), timestep=t("timestep"),
+        contact_frames=tuple(int(f) for f in params["contact_frames"]),
+        contact_dims=tuple(int(d) for d in params["contact_dims"]),
+        kd=float(params["kd"]), prox_mu=float(params["prox_mu"]),
+        u_box=(t("u_lower"), t("u_upper")),
     )

@@ -9,8 +9,10 @@ from .costs import (
     QuadraticStateCost,
 )
 from .dynamics import ExplicitDynamics, LinearDiscreteDynamics
-from .functions import ControlErrorResidual, StageFunction, StateErrorResidual
-from .manifolds import Manifold, VectorSpace, batched_jacfwd
+from .functions import (ControlErrorResidual, StageFunction, StateErrorResidual,
+                        stage_param)
+from .manifolds import (CartesianProduct, Manifold, TangentBundle, VectorSpace,
+                        batched_jacfwd)
 from .problem import (
     ProblemData,
     StageModel,

@@ -15,7 +15,8 @@ import torch
 from torch import Tensor
 
 from .._linalg import mv
-from .functions import ControlErrorResidual, StageFunction, StateErrorResidual
+from .functions import (ControlErrorResidual, StageFunction, StateErrorResidual,
+                        stage_param)
 from .manifolds import Manifold
 
 
@@ -114,25 +115,26 @@ class QuadraticResidualCost(Cost):
     ``gauss_newton=False`` the Hessian is the exact autodiff Hessian."""
 
     residual: StageFunction
-    weights: Tensor  # (nr, nr)
+    weights: Tensor  # (nr, nr), or (N, nr, nr) varying over the stages
     gauss_newton: bool = True
 
     def value(self, space, x, u):
         r = self.residual.value(space, x, u)
-        return 0.5 * (r * mv(self.weights, r)).sum(-1)
+        return 0.5 * (r * mv(stage_param(self.weights, x, 2), r)).sum(-1)
 
     def gradients(self, space, x, u):
         r = self.residual.value(space, x, u)
         Jx, Ju = self.residual.jacobians(space, x, u)
-        Wr = mv(self.weights, r)
+        Wr = mv(stage_param(self.weights, x, 2), r)
         return mv(Jx.mT, Wr), mv(Ju.mT, Wr)
 
     def hessians(self, space, x, u):
         if not self.gauss_newton:
             return Cost.hessians(self, space, x, u)
         Jx, Ju = self.residual.jacobians(space, x, u)
-        WJx = self.weights @ Jx
-        WJu = self.weights @ Ju
+        W = stage_param(self.weights, x, 2)
+        WJx = W @ Jx
+        WJu = W @ Ju
         return Jx.mT @ WJx, Jx.mT @ WJu, Ju.mT @ WJu
 
 

@@ -15,6 +15,25 @@ from torch import Tensor
 from .manifolds import Manifold, batched_jacfwd
 
 
+def stage_param(leaf: Tensor, x: Tensor, ndim: int) -> Tensor:
+    """A stage parameter of ``ndim`` dims per stage, checked against the
+    input ``x`` it meets.
+
+    A leaf with one more leading axis of size N varies over the N stages (a
+    contact schedule, a swing-foot weight): it broadcasts against the ``(B,
+    N, ·)`` blocks of the problem's evaluation. Any other input, such as
+    one stage's ``(B, ·)`` state, raises rather than broadcast the stage
+    axis against the batch axis."""
+    if leaf.ndim <= ndim:
+        return leaf
+    if leaf.ndim == ndim + 1 and x.ndim >= 3 and x.shape[-2] == leaf.shape[0]:
+        return leaf
+    raise ValueError(
+        f"a stage-varying parameter of shape {tuple(leaf.shape)} needs a (B, "
+        f"{leaf.shape[0]}, ·) input over the whole horizon, got {tuple(x.shape)}"
+    )
+
+
 class StageFunction:
     """Residual r(x, u). Subclasses implement ``value`` and ``dim``;
     ``jacobians`` has an exact forward-mode autodiff default."""

@@ -107,3 +107,130 @@ class VectorSpace(Manifold):
 
     def __hash__(self):
         return hash(("VectorSpace", self.nx))
+
+
+def _block_diag(blocks, lead, dtype, device) -> Tensor:
+    """``(..., n, n)`` block-diagonal matrix of square ``blocks``, each
+    ``(..., n_i, n_i)`` (broadcast to the leading dims ``lead``)."""
+    n = sum(b.shape[-1] for b in blocks)
+    out = torch.zeros(lead + (n, n), dtype=dtype, device=device)
+    i = 0
+    for b in blocks:
+        k = b.shape[-1]
+        out[..., i:i + k, i:i + k] = b
+        i += k
+    return out
+
+
+class CartesianProduct(Manifold):
+    """Product of manifolds (``aligator_tpu/core/manifolds.py:121``).
+
+    Nested products are flattened and adjacent vector spaces merged into one
+    block: a free-flyer robot's 1 + 22 components become SE(3) × R²², which
+    computes the same maps with two blocks per chart Jacobian instead of 23.
+    """
+
+    def __init__(self, *components: Manifold):
+        flat = []
+        for c in components:
+            for m in (c.components if isinstance(c, CartesianProduct) else (c,)):
+                if (flat and type(m) is VectorSpace
+                        and type(flat[-1]) is VectorSpace):
+                    flat[-1] = VectorSpace(flat[-1].nx + m.nx)
+                else:
+                    flat.append(m)
+        self.components = tuple(flat)
+        self.nx = sum(c.nx for c in self.components)
+        self.ndx = sum(c.ndx for c in self.components)
+
+    def _split(self, x, attr):
+        out, i = [], 0
+        for c in self.components:
+            n = getattr(c, attr)
+            out.append(x[..., i:i + n])
+            i += n
+        return out
+
+    def neutral(self, dtype=None, device=None):
+        return torch.cat([c.neutral(dtype, device) for c in self.components], -1)
+
+    def integrate(self, x, v):
+        return torch.cat([
+            c.integrate(xc, vc) for c, xc, vc in
+            zip(self.components, self._split(x, "nx"), self._split(v, "ndx"))
+        ], -1)
+
+    def difference(self, x0, x1):
+        return torch.cat([
+            c.difference(a, b) for c, a, b in
+            zip(self.components, self._split(x0, "nx"), self._split(x1, "nx"))
+        ], -1)
+
+    def jintegrate(self, x, v, arg):
+        blocks = [c.jintegrate(xc, vc, arg) for c, xc, vc in
+                  zip(self.components, self._split(x, "nx"), self._split(v, "ndx"))]
+        lead = torch.broadcast_shapes(x.shape[:-1], v.shape[:-1])
+        return _block_diag(blocks, lead, x.dtype, x.device)
+
+    def jdifference(self, x0, x1, arg):
+        blocks = [c.jdifference(a, b, arg) for c, a, b in
+                  zip(self.components, self._split(x0, "nx"), self._split(x1, "nx"))]
+        lead = torch.broadcast_shapes(x0.shape[:-1], x1.shape[:-1])
+        return _block_diag(blocks, lead, x0.dtype, x0.device)
+
+    def __eq__(self, other):
+        return (type(other) is CartesianProduct
+                and other.components == self.components)
+
+    def __hash__(self):
+        return hash(("CartesianProduct", self.components))
+
+
+class TangentBundle(Manifold):
+    """Phase space (q, v) over a base manifold
+    (``aligator_tpu/core/manifolds.py:216``): configuration on ``base``,
+    velocity in its tangent. The chart Jacobians are block-diagonal, the
+    base's block and ±I for the velocity."""
+
+    def __init__(self, base: Manifold):
+        self.base = base
+        self.nx = base.nx + base.ndx
+        self.ndx = 2 * base.ndx
+
+    def neutral(self, dtype=None, device=None):
+        return torch.cat([self.base.neutral(dtype, device),
+                          torch.zeros(self.base.ndx, dtype=dtype, device=device)])
+
+    def integrate(self, x, v):
+        nq, nv = self.base.nx, self.base.ndx
+        q = self.base.integrate(x[..., :nq], v[..., :nv])
+        return torch.cat([q, x[..., nq:] + v[..., nv:]], -1)
+
+    def difference(self, x0, x1):
+        nq, nv = self.base.nx, self.base.ndx
+        dq = self.base.difference(x0[..., :nq], x1[..., :nq])
+        return torch.cat([dq, x1[..., nq:] - x0[..., nq:]], -1)
+
+    def _with_velocity_block(self, Jq, lead, sign, dtype, device):
+        nv = self.base.ndx
+        eye = sign * torch.eye(nv, dtype=dtype, device=device)
+        return _block_diag([Jq, eye.expand(lead + (nv, nv))], lead, dtype, device)
+
+    def jintegrate(self, x, v, arg):
+        nq, nv = self.base.nx, self.base.ndx
+        Jq = self.base.jintegrate(x[..., :nq], v[..., :nv], arg)
+        lead = torch.broadcast_shapes(x.shape[:-1], v.shape[:-1])
+        return self._with_velocity_block(Jq, lead, 1.0, x.dtype, x.device)
+
+    def jdifference(self, x0, x1, arg):
+        nq = self.base.nx
+        Jq = self.base.jdifference(x0[..., :nq], x1[..., :nq], arg)
+        lead = torch.broadcast_shapes(x0.shape[:-1], x1.shape[:-1])
+        return self._with_velocity_block(Jq, lead, -1.0 if arg == 0 else 1.0,
+                                         x0.dtype, x0.device)
+
+    def __eq__(self, other):
+        return type(other) is TangentBundle and other.base == self.base
+
+    def __hash__(self):
+        return hash(("TangentBundle", self.base))

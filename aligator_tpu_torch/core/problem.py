@@ -3,6 +3,9 @@
 PyTorch counterpart of ``aligator_tpu/core/problem.py``. A
 :class:`TrajOptProblem` holds ONE stage model shared by all N stages and a
 batch of initial states ``x0 (B, nx)``: each batch entry is one scenario.
+A parameter that varies over the stages (a contact schedule, a swing-cost
+weight) is a leaf with a leading N axis, checked by
+:func:`~.functions.stage_param` against the ``(B, N, ·)`` block it meets.
 Trajectories are ``xs (B, N+1, nx)`` and ``us (B, N, nu)``; stage functions
 evaluate on the whole ``(B, N)`` block at once, and autodiff Jacobians run
 over the flattened (batch × stage) axis (:func:`~.manifolds.batched_jacfwd`),

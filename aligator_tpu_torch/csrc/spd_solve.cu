@@ -5,7 +5,9 @@
 // Cholesky of A in place, then forward and backward substitution of all
 // right-hand sides at once. The medium-dim Riccati loop calls it for the
 // Schur system I + mu_dyn P (n = nx) and the reduced KKT (n = nu), FDDP for
-// its Quu solve; r = nx + 1 there.
+// its Quu solve; r = nx + 1 there. The contact-dynamics derivatives solve the
+// mass matrix (n = nv = 28) and the Delassus matrix (n = nc = 12) against
+// the 3 nv = 84 tangent directions at once.
 //
 // Bound on an H100: at the LQR-56 shapes (M = 256, n = 56 or 22, r = 57) the
 // call reads A and R and writes X, 3 to 7 MB in fp32, and does n^3/3 + n^2 r
@@ -15,13 +17,13 @@
 //
 // Design: the TPU kernel put 128 systems on the vector lanes; here each
 // system gets one block of 256 threads, with A and R copied into shared
-// memory (dynamic, n^2 + n r + n words: 65 KB at n = r = 64 in fp64, above
-// the 48 KB default, so the launcher opts in). Warps take rows and lanes
+// memory (dynamic, n^2 + n r + n words: 97 KB at n = 64, r = 128 in fp64,
+// above the 48 KB default, so the launcher opts in). Warps take rows and lanes
 // columns of each step's update (csrc/block_linalg.cuh). Global reads and
 // writes are contiguous per system and coalesced.
 //
 // C interface (one function per scalar type): returns -1 for n or r out of
-// range, otherwise cudaGetLastError() after the launch.
+// range (n <= 64, r <= 128), otherwise cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 
@@ -32,7 +34,8 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxDim = 64;
+constexpr int kMaxN = 64;
+constexpr int kMaxR = 128;
 
 template <typename S>
 __global__ void __launch_bounds__(kThreads)
@@ -63,7 +66,7 @@ spd_solve_kernel(const int n, const int r, const S* __restrict__ A,
 template <typename S>
 int launch(int M, int n, int r, const S* A, const S* R, S* X,
            cudaStream_t stream) {
-  if (n < 1 || n > kMaxDim || r < 1 || r > kMaxDim || M < 1) return -1;
+  if (n < 1 || n > kMaxN || r < 1 || r > kMaxR || M < 1) return -1;
   const size_t smem = sizeof(S) * static_cast<size_t>(n * n + n * r + n);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(

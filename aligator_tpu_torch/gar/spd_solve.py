@@ -7,12 +7,15 @@ n)`` and ``R (..., n, r)``:
 
 * CPU tensors take :func:`spd_solve_plain` (torch Cholesky);
 * CUDA tensors take the kernel of ``csrc/spd_solve.cu`` (one thread block
-  per system), for ``n, r <= MAX_DIM`` in float32 or float64; anything
-  else raises.
+  per system), for ``n <= MAX_N`` and ``r <= MAX_R`` in float32 or float64;
+  anything else raises.
 
 A system whose factorization fails (A not positive definite) gives NaN in
 its own solution only. The callers are the Schur and reduced-KKT solves of
-the per-stage Riccati loop (:mod:`.riccati`) and the Quu solve of FDDP.
+the per-stage Riccati loop (:mod:`.riccati`), the Quu solve of FDDP and the
+contact-KKT solves of the multibody derivatives (mass matrix and Delassus
+matrix against 3 nv right-hand sides, in one launch each so that each
+matrix is factored once).
 ``LAUNCHES`` counts kernel launches made by :func:`spd_solve`.
 """
 
@@ -25,7 +28,7 @@ from .. import _build
 from .._linalg import chol_solve
 
 LAUNCHES = 0
-MAX_DIM = 64  # keep in sync with kMaxDim in csrc/spd_solve.cu
+MAX_N, MAX_R = 64, 128  # keep in sync with kMaxN, kMaxR in csrc/spd_solve.cu
 _SOURCE = "spd_solve"
 _C_FUNCS = {torch.float32: "spd_solve_f32", torch.float64: "spd_solve_f64"}
 
@@ -60,9 +63,9 @@ def launch(A: Tensor, R: Tensor) -> Tensor:
             f"spd_solve kernel takes float32/float64 A and R on one device, "
             f"got {A.dtype} on {A.device} and {R.dtype} on {R.device}"
         )
-    if not (1 <= n <= MAX_DIM and r <= MAX_DIM):
-        raise ValueError(f"spd_solve kernel takes n, r <= {MAX_DIM}, got "
-                         f"n={n}, r={r}")
+    if not (1 <= n <= MAX_N and r <= MAX_R):
+        raise ValueError(f"spd_solve kernel takes n <= {MAX_N} and r <= {MAX_R}, "
+                         f"got n={n}, r={r}")
     X = torch.empty_like(R, memory_format=torch.contiguous_format)
     M = X.numel() // (n * r) if r else 0
     if M == 0:

@@ -1,6 +1,8 @@
 """modelling — state spaces and dynamics models."""
 
-from .dynamics.ode import ODE, IntegratorEuler
+from .dynamics.ode import ODE, IntegratorEuler, IntegratorSemiImplEuler
 from .spaces.se2 import SE2, SO2
+from .spaces.se3 import SE3, SO3
 
-__all__ = ["ODE", "IntegratorEuler", "SE2", "SO2"]
+__all__ = ["ODE", "IntegratorEuler", "IntegratorSemiImplEuler", "SE2", "SO2",
+           "SE3", "SO3"]

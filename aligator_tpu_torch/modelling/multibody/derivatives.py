@@ -1,0 +1,245 @@
+"""Analytic rigid-body and contact-dynamics derivatives, batched.
+
+PyTorch counterpart of ``aligator_tpu/modelling/multibody/derivatives.py``
+(world contacts). With every spatial quantity at the world origin, the
+derivatives under a right-perturbation ``q ⊕ δ e_j`` are closed
+cross-product forms over the static masks ``A (nbody, nv)`` and ``D (nv,
+nv)``:
+
+    ∂S_k/∂q_j  = D[k,j] · S_j ×ₘ S_k
+    ∂V_b/∂q_j  = A[b,j] · S_j ×ₘ (V_b − V_{π(j)})
+    ∂I_b/∂q_j  = A[b,j] · (S_j ×* I_b − I_b S_j ×)
+
+so ∂τ/∂q and ∂τ/∂v follow by the product rule as einsums, with no
+recursion over joints and no autodiff through a factorization.
+:func:`constrained_fd_derivatives` turns the derivative rows of
+``fd_rows.fd_rows`` (K5) into the Jacobians of the contact-constrained
+forward dynamics with one joint KKT solve through
+:func:`~aligator_tpu_torch.gar.spd_solve.spd_solve` (K2), as the JAX package
+sends them to its SPD kernel.
+
+Conventions: spatial vectors are (linear, angular) 6-vectors at the world
+origin; tangent coordinates are the manifold's local (right) convention.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import Tensor
+
+from ...gar import spd_solve
+from ..spaces.se3 import _hat, cross
+from . import model as rbd
+from .model import inertia_apply, motion_cross, motion_cross_force
+
+
+def cross_motion_matrix(S: Tensor) -> Tensor:
+    """(…,6) motion vector → (…,6,6) matrix of m ↦ S ×ₘ m:
+    [[ŵ, v̂], [0, ŵ]]."""
+    hw, hv = _hat(S[..., 3:]), _hat(S[..., :3])
+    return torch.cat([torch.cat([hw, hv], -1),
+                      torch.cat([torch.zeros_like(hw), hw], -1)], -2)
+
+
+def spatial_inertia6(m: Tensor, c: Tensor, I_c: Tensor) -> Tensor:
+    """Explicit 6×6 spatial inertia at the world origin from (mass, world
+    com, world-rotated I about the com): p = m v − m ĉ w,
+    L = m ĉ v + (I_c − m ĉ ĉ) w. Broadcasts."""
+    chat = _hat(c)
+    eye3 = torch.eye(3, dtype=c.dtype, device=c.device)
+    mI = m[..., None, None] * eye3
+    mchat = m[..., None, None] * chat
+    return torch.cat([torch.cat([mI.expand(chat.shape), -mchat], -1),
+                      torch.cat([mchat, I_c - mchat @ chat], -1)], -2)
+
+
+def parent_velocity(model, X: Tensor) -> Tensor:
+    """``X[..., π(j), :]`` for every dof j (zero where π(j) is the world),
+    from a per-body ``X (..., nb, 6)``."""
+    tab = rbd.tables(model, X)
+    return X[..., tab["dof_parent"], :] * tab["has_parent"]
+
+
+def rnea_tensors(model, q: Tensor, v: Tensor, a: Tensor, kin=None) -> dict:
+    """The shared derivative tensor pass of the JAX ``rnea_tensors``, over
+    leading dims: primal S (..., nv, 6), Vb/Accb (..., nb, 6), I6 (..., nb,
+    6, 6), f (..., nb, 6), F (..., nv, 6), the q-direction derivative
+    tensors dV/dAcc and v-direction dVv/dAccv (..., nv, nb, 6) indexed
+    ``[j, b]``, ∂τ/∂q and ∂τ/∂v (..., nv, nv) with rows the τ component,
+    and the masks A, D and the pair table SxS (..., nv, nv, 6). Forms
+    ``dI6`` (..., nv, nb, 6, 6) explicitly."""
+    dt = q.dtype
+    if kin is None:
+        kin = rbd.kinematics(model, q, v)
+    tab = rbd.tables(model, q)
+    nv = model.nv
+    A = kin["A"]  # (nb, nv)
+    S = kin["Phi"]
+    Vb = kin["V"]
+    D = tab["D"]
+    maskjb = A.T[:, :, None]  # (nv, nb, 1)
+    Vpar = parent_velocity(model, Vb)
+    Vdof = Vb[..., tab["dof_joint"], :]
+
+    Ca = torch.einsum("bk,...k,...ks->...bs", A, a, S)
+    Capar = parent_velocity(model, Ca)
+    Sv = S * v[..., None]
+    beta = motion_cross(Vdof, Sv)
+    Accb = Ca + torch.einsum("bk,...ks->...bs", A, beta) + rbd.gravity_offset(model, q)
+
+    Sj = S[..., :, None, :]
+    SxS = motion_cross(Sj, S[..., None, :, :])  # [j, k]
+    dV = maskjb * motion_cross(Sj, Vb[..., None, :, :] - Vpar[..., :, None, :])
+    dAcc = maskjb * motion_cross(Sj, Ca[..., None, :, :] - Capar[..., :, None, :])
+    X1 = motion_cross(Sj, Vdof[..., None, :, :] - Vpar[..., :, None, :])
+    X2 = motion_cross(X1, Sv[..., None, :, :])
+    X3 = motion_cross(Vdof[..., None, :, :].expand(X1.shape),
+                      SxS * v[..., None, :, None])
+    G = D.T[:, :, None] * (X2 + X3)  # [j, k]
+    dAcc = dAcc + torch.einsum("bk,...jks->...jbs", A, G)
+
+    dVv = maskjb * S[..., :, None, :]
+    eye = torch.eye(nv, dtype=dt, device=q.device)
+    Gv = (D.T[:, :, None] * SxS * v[..., None, :, None]
+          + eye[:, :, None] * motion_cross(Vdof, S)[..., None, :, :])
+    dAccv = torch.einsum("bk,...jks->...jbs", A, Gv)
+
+    m_w, c_w, I_w = rbd.world_inertia(model, kin["R"], kin["p"])
+    I6 = spatial_inertia6(m_w, c_w, I_w)
+    h = inertia_apply(m_w, c_w, I_w, Vb)
+    f = inertia_apply(m_w, c_w, I_w, Accb) + motion_cross_force(Vb, h)
+
+    cmS = cross_motion_matrix(S)
+    cfS = -cmS.mT
+    dI6 = maskjb[..., None] * (
+        torch.einsum("...jst,...btu->...jbsu", cfS, I6)
+        - torch.einsum("...bst,...jtu->...jbsu", I6, cmS))
+
+    def i6(x):  # I6_b applied to x[..., j, b, :]
+        return torch.einsum("...bsu,...jbu->...jbs", I6, x)
+
+    hb = h[..., None, :, :]
+    df = (torch.einsum("...jbsu,...bu->...jbs", dI6, Accb) + i6(dAcc)
+          + motion_cross_force(dV, hb)
+          + motion_cross_force(Vb[..., None, :, :],
+                               torch.einsum("...jbsu,...bu->...jbs", dI6, Vb) + i6(dV)))
+    dfv = (i6(dAccv) + motion_cross_force(dVv, hb)
+           + motion_cross_force(Vb[..., None, :, :], i6(dVv)))
+
+    F = torch.einsum("bk,...bs->...ks", A, f)
+    dtau_dq = (D * torch.einsum("...jks,...ks->...jk", SxS, F).mT
+               + torch.einsum("bk,...jbs,...ks->...kj", A, df, S))
+    dtau_dv = torch.einsum("bk,...jbs,...ks->...kj", A, dfv, S)
+    return {"kin": kin, "S": S, "Vb": Vb, "Accb": Accb, "I6": I6, "f": f, "F": F,
+            "dV": dV, "dAcc": dAcc, "dVv": dVv, "dAccv": dAccv,
+            "dtau_dq": dtau_dq, "dtau_dv": dtau_dv, "A": A, "D": D, "SxS": SxS}
+
+
+def point_derivative_rows(tensors: dict, body: int, p_c: Tensor, dim: int,
+                          kp: float, kd: float, has_prefs: bool):
+    """Directional derivatives of the contact-acceleration rows ``J a + γ +
+    corr`` of one contact (body, world point ``p_c (..., 3)``): returns
+    rows_q, rows_v (..., dim, nv) and dp (..., nv, 3). The linear rows are
+    the material-point classical acceleration α = Acc_lin + Acc_ang × p +
+    ω × ṗ, the angular rows (6D) Acc_ang."""
+    S, Vb, Accb, A = tensors["S"], tensors["Vb"], tensors["Accb"], tensors["A"]
+    dV, dAcc = tensors["dV"][..., body, :], tensors["dAcc"][..., body, :]
+    dVv, dAccv = tensors["dVv"][..., body, :], tensors["dAccv"][..., body, :]
+    ab = A[body]
+    omega, VL = Vb[..., body, 3:], Vb[..., body, :3]
+    AccA = Accb[..., body, 3:]
+    pdot = VL + cross(omega, p_c)
+    pc = p_c[..., None, :]
+
+    dp = ab[:, None] * (S[..., :3] + cross(S[..., 3:], pc))
+    dom, dVL = dV[..., 3:], dV[..., :3]
+    dAccL, dAccA = dAcc[..., :3], dAcc[..., 3:]
+    dpdot = dVL + cross(dom, pc) + cross(omega[..., None, :], dp)
+    dalpha_q = (dAccL + cross(dAccA, pc) + cross(AccA[..., None, :], dp)
+                + cross(dom, pdot[..., None, :]) + cross(omega[..., None, :], dpdot))
+    domv, dVLv = dVv[..., 3:], dVv[..., :3]
+    dAccLv, dAccAv = dAccv[..., :3], dAccv[..., 3:]
+    dpdotv = dVLv + cross(domv, pc)
+    dalpha_v = (dAccLv + cross(dAccAv, pc) + cross(domv, pdot[..., None, :])
+                + cross(omega[..., None, :], dpdotv))
+
+    lin_q = dalpha_q + kd * dpdot
+    if has_prefs:
+        lin_q = lin_q + kp * dp
+    lin_v = dalpha_v + kd * dpdotv
+    if dim == 3:
+        return lin_q.mT, lin_v.mT, dp
+    rows_q = torch.cat([lin_q.mT, (dAccA + kd * dom).mT], -2)
+    rows_v = torch.cat([lin_v.mT, (dAccAv + kd * domv).mT], -2)
+    return rows_q, rows_v, dp
+
+
+def fd_rows_inputs(model, q: Tensor, v: Tensor, a: Tensor, contact_frames,
+                   kin=None) -> dict:
+    """The per-instance primal pieces the derivative-rows kernel reads (the
+    JAX ``_prep_lane_inputs``): S, Vpar, Vdof, Capar (..., nv, 6); Vb, Ca,
+    Accb, h = I6 Vb, y = I6 Accb (..., nb, 6); I6 (..., nb, 6, 6); the
+    contact points pc (..., ncont, 3)."""
+    if kin is None:
+        kin = rbd.kinematics(model, q, v)
+    A, S, Vb = kin["A"], kin["Phi"], kin["V"]
+    Ca = torch.einsum("bk,...k,...ks->...bs", A, a, S)
+    Vdof = Vb[..., rbd.tables(model, q)["dof_joint"], :]
+    beta = motion_cross(Vdof, S * v[..., None])
+    Accb = Ca + torch.einsum("bk,...ks->...bs", A, beta) + rbd.gravity_offset(model, q)
+    m_w, c_w, I_w = rbd.world_inertia(model, kin["R"], kin["p"])
+    pcs = torch.stack([rbd.frame_placement(model, q, f, kin=kin)[1]
+                       for f in contact_frames], -2)
+    return dict(S=S, Vb=Vb, Vpar=parent_velocity(model, Vb), Vdof=Vdof, Ca=Ca,
+                Capar=parent_velocity(model, Ca), Accb=Accb,
+                h=inertia_apply(m_w, c_w, I_w, Vb), y=inertia_apply(m_w, c_w, I_w, Accb),
+                I6=spatial_inertia6(m_w, c_w, I_w), pcs=pcs)
+
+
+def constrained_fd_tensors(model, q, v, tau, contact_frames, active, prox_mu=1e-8,
+                           kp=0.0, kd=0.0, p_refs=None, contact_dims=None) -> dict:
+    """Primal constrained solve (``contact.cfd_internals``) plus the
+    derivative rows at fixed (a*, λ*): ra1_q, ra1_v (..., nv, nv) of
+    ∂(RNEA + Jᵀλ)/∂(q, v) and r2_q, r2_v (..., nc, nv) of ∂(J a + γ)/∂(q,
+    v), from :func:`.fd_rows.fd_rows` (K5 on the card, its plain version on
+    the CPU)."""
+    from . import contact, fd_rows
+
+    if contact_dims is None:
+        contact_dims = (3,) * len(contact_frames)
+    out = contact.cfd_internals(model, q, v, tau, contact_frames, active,
+                                prox_mu=prox_mu, kp=kp, kd=kd, p_refs=p_refs,
+                                contact_dims=contact_dims)
+    act = torch.broadcast_to(active.to(q.dtype), q.shape[:-1] + active.shape[-1:])
+    rows = fd_rows.fd_rows(model, q, v, out["a"], out["lam"], act,
+                           tuple(contact_frames), tuple(contact_dims), kd=float(kd),
+                           kp=float(kp), has_prefs=p_refs is not None,
+                           kin=out["kin"])
+    out.update(zip(("ra1_q", "ra1_v", "r2_q", "r2_v"), rows))
+    return out
+
+
+def constrained_fd_derivatives(model, q, v, tau, contact_frames, active,
+                               prox_mu=1e-8, kp=0.0, kd=0.0, p_refs=None,
+                               contact_dims=None):
+    """Analytic Jacobians of ``contact.constrained_fwd_dynamics``: returns
+    ``(a, forces, da_dq, da_dv, da_dtau, df_dq, df_dv, df_dtau)`` with
+    q-derivatives in local tangent coordinates. The 3nv tangent directions
+    (q, v, τ) share one joint KKT solve: ``M X = R1`` and ``G dλ = J X − R2``
+    through :func:`~aligator_tpu_torch.gar.spd_solve.spd_solve` (K2 on the
+    card, n = nv and nc, r = 3 nv)."""
+    out = constrained_fd_tensors(model, q, v, tau, contact_frames, active,
+                                 prox_mu=prox_mu, kp=kp, kd=kd, p_refs=p_refs,
+                                 contact_dims=contact_dims)
+    Jc, MinvJt = out["Jc"], out["MinvJt"]
+    nv = model.nv
+    lead = q.shape[:-1]
+    eye = torch.eye(nv, dtype=q.dtype, device=q.device).expand(lead + (nv, nv))
+    R1 = torch.cat([-out["ra1_q"], -out["ra1_v"], eye], -1)
+    R2 = torch.cat([-out["r2_q"], -out["r2_v"], torch.zeros_like(Jc)], -1)
+    X = spd_solve.spd_solve(out["M"], R1)
+    dlam = spd_solve.spd_solve(out["G"], Jc @ X - R2)
+    Dm = X - MinvJt @ dlam
+    return (out["a"], -out["lam"],
+            Dm[..., :nv], Dm[..., nv:2 * nv], Dm[..., 2 * nv:],
+            -dlam[..., :nv], -dlam[..., nv:2 * nv], -dlam[..., 2 * nv:])

@@ -1,0 +1,136 @@
+"""Contact-dynamics derivative rows: CUDA kernel K5 and its plain version.
+
+Replaces the Pallas TPU kernel ``make_fd_rows_kernel``
+(``aligator_tpu/modelling/multibody/pallas_tensors.py:87``, entry point
+``fd_rows_lanes``). For every instance (scenario × stage) it computes, at
+the primal solution (a*, λ*) of the contact dynamics:
+
+* ``ra1_q, ra1_v (nv, nv)``: ∂(RNEA + Jᵀλ)/∂(q, v);
+* ``r2_q, r2_v (nc, nv)``: ∂(J a + γ)/∂(q, v), masked by contact activity.
+
+:func:`fd_rows` routes by device: CPU tensors take :func:`fd_rows_plain`
+(the batched port of ``derivatives._fd_rows_std``, which forms the
+inertia-transport tensor dI₆ explicitly); CUDA tensors take the kernel of
+``csrc/fd_rows.cu`` in float32 or float64, fed by
+:func:`.derivatives.fd_rows_inputs`, or raise. The contact configuration
+(body, dim and offset of each contact, kd, kp) is a runtime table of the
+kernel, so one build serves every robot. ``LAUNCHES`` counts launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+from torch import Tensor
+
+from ... import _build
+from ..spaces.se3 import cross
+from . import model as rbd
+from .contact import contact_offsets
+from .derivatives import fd_rows_inputs, point_derivative_rows, rnea_tensors
+
+LAUNCHES = 0
+MAX_CONTACTS = 8  # keep in sync with kMaxContacts in csrc/fd_rows.cu
+_SOURCE = "fd_rows"
+_C_FUNCS = {torch.float32: "fd_rows_f32", torch.float64: "fd_rows_f64"}
+INPUTS = ("S", "v", "Vb", "Vpar", "Vdof", "Ca", "Capar", "Accb", "h", "y", "I6",
+          "lam", "pcs", "act")
+
+
+def fd_rows_plain(model, q: Tensor, v: Tensor, a: Tensor, lam: Tensor,
+                  active: Tensor, contact_frames, contact_dims, kd: float,
+                  kp: float = 0.0, has_prefs: bool = False, kin=None):
+    """Plain PyTorch version over leading dims: the tensor pass of
+    :func:`.derivatives.rnea_tensors`, the per-contact acceleration rows and
+    the Jᵀλ transport. ``active`` is ``(..., ncont)``. Returns ``(ra1_q,
+    ra1_v, r2_q, r2_v)``."""
+    if kin is None:
+        kin = rbd.kinematics(model, q, v)
+    t = rnea_tensors(model, q, v, a, kin=kin)
+    S, A, D, SxS = t["S"], t["A"], t["D"], t["SxS"]
+    dJtl_q = torch.zeros_like(t["dtau_dq"])
+    rows_q, rows_v = [], []
+    for k, (fid, dim, off) in enumerate(zip(contact_frames, contact_dims,
+                                            contact_offsets(contact_dims))):
+        body = model.frame_parents[fid]
+        _, p_c = rbd.frame_placement(model, q, fid, kin=kin)
+        rq, rv, dp = point_derivative_rows(t, body, p_c, dim, kp, kd, has_prefs)
+        act_k = active[..., k, None, None].to(q.dtype)
+        rows_q.append(rq * act_k)
+        rows_v.append(rv * act_k)
+        # ∂q(Jᵀλ) at a fixed world wrench: axis transport plus the motion of
+        # the application point
+        w_f = lam[..., off:off + 3]
+        w_tau = lam[..., off + 3:off + 6] if dim == 6 else torch.zeros_like(w_f)
+        F_c = torch.cat([w_f, cross(p_c, w_f) + w_tau], -1)
+        s1 = torch.einsum("...jks,...s->...jk", SxS, F_c)
+        ab = A[body][:, None]
+        dpxw = cross(dp, w_f[..., None, :])
+        dJtl_q = dJtl_q + ab * (D * s1.mT) + ab * (S[..., 3:] @ dpxw.mT)
+    return (t["dtau_dq"] + dJtl_q, t["dtau_dv"], torch.cat(rows_q, -2),
+            torch.cat(rows_v, -2))
+
+
+def fd_rows(model, q: Tensor, v: Tensor, a: Tensor, lam: Tensor, active: Tensor,
+            contact_frames, contact_dims, kd: float, kp: float = 0.0,
+            has_prefs: bool = False, kin=None):
+    """The derivative rows; CPU tensors take :func:`fd_rows_plain`, CUDA
+    tensors the kernel."""
+    dev = q.device
+    if dev.type == "cpu":
+        return fd_rows_plain(model, q, v, a, lam, active, contact_frames,
+                             contact_dims, kd, kp, has_prefs, kin)
+    if dev.type != "cuda":
+        raise ValueError(f"fd_rows: unsupported device {dev}")
+    inputs = fd_rows_inputs(model, q, v, a, contact_frames, kin=kin)
+    inputs.update(v=v, lam=lam, act=active)
+    bodies = tuple(model.frame_parents[f] for f in contact_frames)
+    return launch(model, inputs, bodies, contact_dims, kd, kp if has_prefs else 0.0)
+
+
+def launch(model, inputs: dict, contact_bodies, contact_dims, kd: float, kp: float):
+    """Launch the kernel on the inputs of :func:`.derivatives.fd_rows_inputs`
+    plus ``v``, ``lam`` and ``act`` (each with the same leading dims);
+    ``kp`` multiplies the position rows (0 without position references)."""
+    global LAUNCHES
+    S = inputs["S"]
+    lead, (nv, six) = S.shape[:-2], S.shape[-2:]
+    nb = inputs["Vb"].shape[-2]
+    ncont, nc = len(contact_bodies), int(sum(contact_dims))
+    dtype, dev = S.dtype, S.device
+    if dtype not in _C_FUNCS or dev.type != "cuda":
+        raise ValueError(f"fd_rows kernel takes float32/float64 CUDA tensors, got "
+                         f"{dtype} on {dev}")
+    if not 1 <= ncont <= MAX_CONTACTS or any(d not in (3, 6) for d in contact_dims):
+        raise ValueError(f"fd_rows kernel takes 1 to {MAX_CONTACTS} contacts of "
+                         f"dim 3 or 6, got {tuple(contact_dims)}")
+    want = dict(S=(nv, 6), v=(nv,), Vb=(nb, 6), Vpar=(nv, 6), Vdof=(nv, 6),
+                Ca=(nb, 6), Capar=(nv, 6), Accb=(nb, 6), h=(nb, 6), y=(nb, 6),
+                I6=(nb, 6, 6), lam=(nc,), pcs=(ncont, 3), act=(ncont,))
+    K = int(np.prod(lead, dtype=np.int64))
+    flat = []
+    for name in INPUTS:
+        x = inputs[name]
+        if (x.shape != lead + want[name] or x.dtype != dtype or x.device != dev):
+            raise ValueError(f"fd_rows: {name} is {tuple(x.shape)} {x.dtype} on "
+                             f"{x.device}, want {tuple(lead + want[name])} {dtype}")
+        flat.append(x.reshape((K,) + want[name]).contiguous())
+    tab = rbd.tables(model, S)
+    A, D = tab["A"].contiguous(), tab["D"].contiguous()
+    if A.shape != (nb, nv) or six != 6:
+        raise ValueError(f"fd_rows: masks {tuple(A.shape)} do not match nb={nb}, nv={nv}")
+    out = [S.new_empty((K, nv, nv)), S.new_empty((K, nv, nv)),
+           S.new_empty((K, nc, nv)), S.new_empty((K, nc, nv))]
+    if K:
+        table = (ctypes.c_int * (1 + 2 * MAX_CONTACTS))(
+            ncont, *contact_bodies, *([0] * (MAX_CONTACTS - ncont)),
+            *contact_dims, *([0] * (MAX_CONTACTS - ncont)))
+        gains = (ctypes.c_double * 2)(float(kd), float(kp))
+        # pointers: the two host tables, the inputs, the masks, the outputs
+        fn = _build.c_function(_SOURCE, _C_FUNCS[dtype], 3, 2 + len(flat) + 2 + 4 + 1)
+        _build.run(fn, dev, K, nv, nb, ctypes.addressof(table), ctypes.addressof(gains),
+                   *(x.data_ptr() for x in flat + [A, D] + out), what="fd_rows")
+        LAUNCHES += 1
+    return tuple(o.reshape(lead + o.shape[1:]) for o in out)

@@ -8,10 +8,10 @@ any failed check raises and the script exits non-zero:
 2. build: the CUDA kernels of ``aligator_tpu_torch/csrc`` with nvcc, one
    process per source, in parallel;
 3. kernels: each kernel (K1 fused Riccati, K2 SPD solve, K3 fused backward
-   sweep, K4 forward substitution) held against its plain PyTorch version on
-   the card, at the main paths' shapes (fp32) and at the test shapes (fp64),
-   and timed beside its memory/compute bound and, where one PyTorch call
-   computes the same function, that call;
+   sweep, K4 forward substitution, K5 contact-dynamics derivative rows) held
+   against its plain PyTorch version on the card, at the main paths' shapes
+   (fp32) and at the test shapes (fp64), and timed beside its memory/compute
+   bound and, where one PyTorch call computes the same function, that call;
 4. the SE(2)-car path: batched ProxDDP (N=50, batch 32768, fp32, the
    ``bench.py`` configuration) on the card, with the plain versions patched
    to raise and the kernels' launch counts read around it, the converged
@@ -23,7 +23,14 @@ any failed check raises and the script exits non-zero:
    versions patched to raise, its launch counts read around it and checked
    against the route, then prints its converged fraction and solves/s and
    solves its first 16 scenarios again on the CPU;
-6. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
+6. the whole-body Talos-walk path (``bench_talos.py`` protocol: N=32, fp32,
+   ProxDDP 4x4 budget; K5, K2 and K4) at batch 16 and 256, with the plain
+   versions patched to raise, launch counts checked per Newton step, solves/s
+   and a breakdown; then 2 scenarios solved on the card and again on the
+   CPU in fp64 and checked, and 2 scenarios solved on the card in fp32 step
+   by step against the JAX package's fp32 solve of them (a committed
+   reference: which Newton steps are rejected, infeasibilities per step);
+7. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -72,6 +79,20 @@ K2_FP32_TOL = 1e-4  # well-conditioned SPD systems (eigenvalues >= 1)
 # plain sweep for context
 K3_FP32_TOL = 1e-3
 K4_FP32_TOL = 1e-4
+K5_FP32_TOL = 1e-3
+
+# whole-body path (bench_talos.py:43-89)
+TALOS_T_DS, TALOS_T_SS = 4, 10  # N = 32
+TALOS_BATCHES = (16, 256)
+TALOS_CPU_SCENARIOS = 2
+# card vs CPU, both float64, max |Δ| over xs and us relative to their scale.
+# In float32 the reduced KKT of a Newton step can come out indefinite (its
+# condition number is above 1/eps of float32), so which step is rejected
+# depends on the order of the sums: the card's float32 solve is held
+# against the JAX package's float32 solve instead, step by step, its
+# infeasibilities within this relative error
+TALOS_CPU_TRAJ_TOL = 1e-6
+TALOS_FP32_TOL = 1e-4
 
 
 def check(cond, msg):
@@ -276,8 +297,12 @@ def avg_time_ms(fn, reps):
 def kernel_ms(fn, reps, kernel_name):
     """Device time per launch of the CUDA kernel named ``kernel_name`` over
     ``reps`` calls of ``fn`` (torch.profiler): the kernel alone, without
-    the wrapper's host time. Falls back to CUDA events over the whole call
-    if the profiler records no device time for it."""
+    the wrapper's host time, averaged over the launches the profiler
+    recorded. The profiler's activity buffer can drop a record now and
+    then, so up to a tenth of the launches may be missing; more than
+    ``reps`` means the name matched another kernel. Falls back to CUDA
+    events over the whole call if the profiler records no device time
+    for it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -297,7 +322,11 @@ def kernel_ms(fn, reps, kernel_name):
     if count == 0 or total_us == 0:
         print(f"[kernel] profiler saw no {kernel_name}: timing whole calls")
         return avg_time_ms(fn, reps)
-    check(count == reps, f"{kernel_name}: {count} launches profiled, {reps} made")
+    check(reps - max(1, reps // 10) <= count <= reps,
+          f"{kernel_name}: {count} launches profiled, {reps} made")
+    if count < reps:
+        print(f"[kernel] {kernel_name}: the profiler recorded {count} of {reps} "
+              "launches; time averaged over those")
     return total_us / count / 1e3
 
 
@@ -358,7 +387,8 @@ def convex_knots(B, N, nx, nu, nc, dtype, seed):
 def k2_phase():
     from aligator_tpu_torch.gar import spd_solve as sp
 
-    for i, (n, r) in enumerate(((12, 1), (24, 13), (56, 57), (22, 57), (64, 64))):
+    for i, (n, r) in enumerate(((12, 1), (24, 13), (56, 57), (22, 57), (64, 64),
+                                (28, 84), (12, 84), (64, 128))):
         A, R = spd_batch(130, n, r, torch.float64, SEED + i)
         err = rel_err(sp.spd_solve(A, R), sp.spd_solve_plain(A, R))
         print(f"[kernel] spd_solve fp64 M=130 n={n} r={r}: max rel err {err:.3e} "
@@ -398,12 +428,30 @@ def k2_phase():
     bms, by = bound(tot["nbytes"], tot["flops"])
     print(f"[kernel] spd_solve, one LQR-56 stage (both solves): kernel "
           f"{tot['ms']:.4f} ms, bound {bms:.4f} ms ({by})")
+    contact = {}
+    M = TALOS_BATCHES[0] * (2 * TALOS_T_SS + 3 * TALOS_T_DS)  # K = B N
+    for i, (n, r) in enumerate(((28, 84), (12, 84))):
+        A, R = spd_batch(M, n, r, torch.float32, SEED + 30 + i)
+        X = sp.spd_solve(A, R)
+        ref = sp.spd_solve_plain(A, R)
+        err = rel_err(X, ref)
+        check(err <= K2_FP32_TOL, f"spd_solve fp32 n={n} r={r}: {err}")
+        ms = kernel_ms(lambda: sp.launch(A, R), 100, "spd_solve_kernel")
+        plain_ms = avg_time_ms(lambda: sp.spd_solve_plain(A, R), 20)
+        lib_ms = avg_time_ms(lambda: torch.linalg.solve(A, R), 20)
+        nbytes = 4 * M * (n * n + 2 * n * r)
+        bms_c, by_c = bound(nbytes, M * (n ** 3 / 3 + 2 * n * n * r))
+        print(f"[kernel] spd_solve fp32 contact KKT M={M} n={n} r={r}: vs plain "
+              f"{err:.2e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.linalg.solve {lib_ms:.4f} ms; bound {bms_c:.4f} ms ({by_c})")
+        contact[f"n={n} r={r}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                       bound_ms=bms_c, max_abs_err=abs_err(X, ref))
     return dict(
         name="spd_solve", route="cuda", source="aligator_tpu_torch/csrc/spd_solve.cu",
         replaces="aligator_tpu/gar/pallas_spd.py:33", max_abs_err=tot["max_abs_err"],
         ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=bms, bound_by=by,
         library_ms=tot["library_ms"],
-    ), dict(wrapper_call_ms=tot["call_ms"])
+    ), dict(wrapper_call_ms=tot["call_ms"], contact_kkt=contact)
 
 
 def k3_flops_per_stage(n, m, c):
@@ -551,6 +599,155 @@ def k4_phase():
         for (B, nx), v in out.items()}
 
 
+def k5_flops(model, bodies, dims, active):
+    """Flops that K5's function needs on these inputs, summed over the
+    ``active.shape[0]`` instances: the kernel's
+    arithmetic (a multiply-add is 2) counted only where it is not a product
+    with zero, and no product with a 0/1 mask. A[b, k] marks the dofs that
+    move body b, D[k, j] the dof pairs with joint(j) ⪯ joint(k): a pair
+    table entry is needed where D is 1, a body's contraction over k, its
+    per-direction algebra and its accumulator entries where A[b] (and D) are
+    1. An inactive contact (``active`` (K, ncont) is 0) has zero rows and a
+    zero force, so it costs nothing."""
+    from aligator_tpu_torch.modelling.multibody import model as rbd
+
+    top = rbd.topology(model.joint_types, model.parents)
+    A, D = top["A"] != 0, top["D"] != 0
+    nv = A.shape[1]
+    pairs = int(D.sum())
+
+    def support(b):
+        a = A[b]
+        dirs = a | D[a].any(0)  # directions j whose derivatives are nonzero
+        na, nj, npair = int(a.sum()), int(dirs.sum()), int(D[a].sum())
+        # dAG, dAvG: per (j, component) and pair, an add and a multiply-add
+        return na, nj, 18 * npair + 6 * na, npair
+
+    # pair tables SxS and G (144 a pair), CVS, and the subtree term
+    flops = 144 * pairs + 30 * nv + 12 * pairs
+    for b in range(A.shape[0]):
+        na, nj, contraction, _ = support(b)
+        # 798 a direction: the 6-vector algebra of df, dfv; f_b; the two
+        # accumulators (a dot6 and an add each, per (k, j)); F
+        flops += contraction + 798 * nj + 36 + 24 * na * nj + 6 * na
+    total = float(flops) * active.shape[0]
+    act = (active != 0).sum(0).tolist()  # instances with each contact active
+    for c, (b, dim) in enumerate(zip(bodies, dims)):
+        na, nj, contraction, npair = support(b)
+        per_dir = 243 if dim == 6 else 231  # kp = 0: no kp·dp term
+        # pdot and F_c; per (k, j) the J' lam transport (6) and, where D is
+        # 1, the SxS . F_c term (12)
+        one = contraction + per_dir * nj + 24 + 3 * (dim == 6) + 6 * na * nj + 12 * npair
+        total += float(one) * act[c]
+    return total
+
+
+def k5_inputs(model, x0s, active, N, dq, dv, seed):
+    """K = B N instances at the main path's shapes: the Talos states around
+    the batch of initial states (q ⊕ dq, v + dv from a seed), the schedule's
+    contact activity and random torques."""
+    g = _gen(seed)
+    B, nq, nv = x0s.shape[0], model.nq, model.nv
+    dt = x0s.dtype
+
+    def randn(*shape, scale):
+        return scale * torch.randn(shape, generator=g, device="cuda",
+                                   dtype=torch.float64).to(dt)
+
+    q = model.configuration_space().integrate(
+        x0s[:, None, :nq].expand(B, N, nq), randn(B, N, nv, scale=dq))
+    v = x0s[:, None, nq:] + randn(B, N, nv, scale=dv)
+    act = active.expand(B, N, active.shape[-1])
+    tau = randn(B, N, nv, scale=5.0)
+    return q, v, tau, act
+
+
+def k5_phase():
+    from aligator_tpu_torch.examples.talos_walk import create_talos_walk_problem
+    from aligator_tpu_torch.modelling.multibody import contact, fd_rows, humanoid, quadruped
+
+    def rows_check(model, q, v, tau, act, frames, dims, kd, dtype, tol, label):
+        out = contact.cfd_internals(model, q, v, tau, frames, act, prox_mu=1e-9,
+                                    kd=kd, contact_dims=dims)
+        args = (model, q, v, out["a"], out["lam"], act, frames, dims)
+        got = fd_rows.fd_rows(*args, kd=kd)
+        ref = fd_rows.fd_rows_plain(*args, kd=kd)
+        torch.cuda.synchronize()
+        errs = [rel_err(g_, r_) for g_, r_ in zip(got, ref)]
+        print(f"[kernel] fd_rows {label} K={q.shape[:-1].numel()}: max rel err "
+              f"{max(errs):.3e} (tol {tol:g})")
+        check(all(torch.isfinite(t).all().item() for t in got), f"fd_rows {label} non-finite")
+        check(max(errs) <= tol, f"fd_rows {label}: {errs}")
+        return args, got, ref
+
+    # the test shapes, fp64: the humanoid's 2x6D and the quadruped's 4x3D
+    # contacts, an inactive contact in every third instance
+    rng = np.random.default_rng(SEED)
+    for name in ("humanoid", "quadruped"):
+        if name == "humanoid":
+            m = humanoid.make_humanoid(device="cuda")
+            q0 = humanoid.half_sitting(m)
+            frames, dims, kd = (m.frame_id("left_sole"), m.frame_id("right_sole")), (6, 6), 50.0
+        else:
+            m = quadruped.make_quadruped(device="cuda")
+            q0 = quadruped.standing_configuration(m)
+            frames, dims, kd = tuple(m.frame_id(f"foot{k}") for k in range(4)), (3,) * 4, 10.0
+        K, nv = 37, m.nv
+        t = lambda a: torch.tensor(a, device="cuda")  # noqa: E731
+        q = m.configuration_space().integrate(q0[None], t(0.05 * rng.standard_normal((K, nv))))
+        act = np.ones((K, len(frames)))
+        act[::3, 0] = 0.0
+        rows_check(m, q, t(0.2 * rng.standard_normal((K, nv))),
+                   t(2.0 * rng.standard_normal((K, nv))), t(act), frames, dims, kd,
+                   torch.float64, FP64_TOL, f"fp64 {name} {len(dims)}x{dims[0]}D")
+
+    # the main path's shape: Talos, K = B N = 512 instances, fp32
+    B = TALOS_BATCHES[0]
+    problem, model, sched = create_talos_walk_problem(TALOS_T_DS, TALOS_T_SS,
+                                                      dtype=torch.float32, device="cuda")
+    N = problem.nsteps
+    x0s = torch.tensor(talos_x0s(problem.x0[0].cpu().numpy(), model.nq, B), device="cuda")
+    q, v, tau, act = k5_inputs(model, x0s, sched, N, 0.05, 0.2, SEED + 40)
+    ode = problem.stages.dynamics.ode
+    args, got, ref = rows_check(model, q, v, tau, act, ode.contact_frames,
+                                ode.contact_dims, ode.kd, torch.float32, K5_FP32_TOL,
+                                f"fp32 talos B={B} N={N}")
+    args64 = (model.to(torch.float64),) + tuple(a.double() for a in args[1:6]) + args[6:]
+    ref64 = fd_rows.fd_rows_plain(*args64, kd=ode.kd)
+    for label, res in (("kernel", got), ("plain", ref)):
+        e = max(rel_err(a.double(), b) for a, b in zip(res, ref64))
+        print(f"[kernel] fd_rows fp32 {label} vs fp64 plain: {e:.2e}")
+    max_abs = max(abs_err(a, b) for a, b in zip(got, ref))
+    del ref64
+
+    from aligator_tpu_torch.modelling.multibody.derivatives import fd_rows_inputs
+
+    inputs = fd_rows_inputs(model, q, v, args[3], ode.contact_frames)
+    inputs.update(v=v, lam=args[4], act=act)
+    bodies = tuple(model.frame_parents[f] for f in ode.contact_frames)
+    launch = lambda: fd_rows.launch(model, inputs, bodies, ode.contact_dims,  # noqa: E731
+                                    ode.kd, 0.0)
+    ms = kernel_ms(launch, 20, "fd_rows_kernel")
+    call_ms = avg_time_ms(lambda: fd_rows.fd_rows(*args, kd=ode.kd), 20)
+    plain_ms = avg_time_ms(lambda: fd_rows.fd_rows_plain(*args, kd=ode.kd), 5)
+    K, nv, nb = B * N, model.nv, model.njoints
+    ncont, nc = len(bodies), sum(ode.contact_dims)
+    in_words = 4 * nv * 6 + nv + 5 * nb * 6 + nb * 36 + nc + 4 * ncont
+    out_words = 2 * nv * nv + 2 * nc * nv
+    nbytes = 4 * (K * (in_words + out_words) + nb * nv + nv * nv)
+    flops = k5_flops(model, bodies, ode.contact_dims, act.reshape(K, ncont).cpu())
+    bms, by = bound(nbytes, flops)
+    print(f"[kernel] fd_rows fp32 K={K}: kernel {ms:.4f} ms (wrapper call with its "
+          f"input preparation {call_ms:.4f} ms), plain {plain_ms:.4f} ms; bound "
+          f"{bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    return dict(
+        name="fd_rows", route="cuda", source="aligator_tpu_torch/csrc/fd_rows.cu",
+        replaces="aligator_tpu/modelling/multibody/pallas_tensors.py:87",
+        max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=None,
+    ), dict(wrapper_call_ms=call_ms, K=K, flops_per_instance=flops / K)
+
+
 # ---------------------------------------------------------------- phase 4
 
 
@@ -594,7 +791,7 @@ def slice_phase():
     # K1 once per Newton iteration, so at least once
     check(1 <= steps <= cfg.max_iters, f"Newton iterations {steps}")
     want = {"fused_riccati": steps, "spd_solve": 0, "fused_stage_sweep": 0,
-            "fused_stage_forward": 0}
+            "fused_stage_forward": 0, "fd_rows": 0}
     check(launches == want, f"SE(2) launches {launches} != {want}")
 
     finite = torch.isfinite(res.us).flatten(1).all(1) & torch.isfinite(res.xs).flatten(1).all(1)
@@ -647,7 +844,9 @@ def profile_solve(run, tag="profile"):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only: host-side op events are not read, and at the
+    # whole-body path's ~10^5 ops a solve their processing took minutes
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -655,7 +854,7 @@ def profile_solve(run, tag="profile"):
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # host-side ops; their device time is their kernels'
+            continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0)
@@ -676,10 +875,10 @@ def profile_solve(run, tag="profile"):
 
 
 PLAIN_VERSIONS = (
-    ("spd_solve", "spd_solve_plain"), ("fused_stage", "sweep_plain"),
-    ("fused_stage", "stage_plain"), ("fused_stage", "forward_plain"),
-    ("riccati", "backward_plain"), ("riccati", "forward_plain"),
-    ("fused_riccati", "solve_plain"),
+    ("gar.spd_solve", "spd_solve_plain"), ("gar.fused_stage", "sweep_plain"),
+    ("gar.fused_stage", "stage_plain"), ("gar.fused_stage", "forward_plain"),
+    ("gar.riccati", "backward_plain"), ("gar.riccati", "forward_plain"),
+    ("gar.fused_riccati", "solve_plain"), ("modelling.multibody.fd_rows", "fd_rows_plain"),
 )
 
 
@@ -691,7 +890,7 @@ def plain_versions_raise():
 
     saved = []
     for mod_name, fn_name in PLAIN_VERSIONS:
-        mod = importlib.import_module(f"aligator_tpu_torch.gar.{mod_name}")
+        mod = importlib.import_module(f"aligator_tpu_torch.{mod_name}")
         saved.append((mod, fn_name, getattr(mod, fn_name)))
 
         def boom(*args, _name=f"{mod_name}.{fn_name}", **kwargs):
@@ -707,26 +906,29 @@ def plain_versions_raise():
 
 def launch_counts():
     from aligator_tpu_torch.gar import fused_riccati, fused_stage, spd_solve
+    from aligator_tpu_torch.modelling.multibody import fd_rows
 
     return {"fused_riccati": fused_riccati.LAUNCHES,
             "spd_solve": spd_solve.LAUNCHES,
             "fused_stage_sweep": fused_stage.STAGE_LAUNCHES,
-            "fused_stage_forward": fused_stage.FORWARD_LAUNCHES}
+            "fused_stage_forward": fused_stage.FORWARD_LAUNCHES,
+            "fd_rows": fd_rows.LAUNCHES}
 
 
 def reset_counts():
     from aligator_tpu_torch.gar import fused_riccati, fused_stage, spd_solve
+    from aligator_tpu_torch.modelling.multibody import fd_rows
 
-    fused_riccati.LAUNCHES = spd_solve.LAUNCHES = 0
+    fused_riccati.LAUNCHES = spd_solve.LAUNCHES = fd_rows.LAUNCHES = 0
     fused_stage.STAGE_LAUNCHES = fused_stage.FORWARD_LAUNCHES = 0
 
 
 def medium_path(label, make, x0s, solve, expected, min_frac=None,
-                expect_iters=None, timed=5):
-    """Drive one medium-dim path on the card at full batch, then its first
-    scenarios on the CPU. ``make(device, x0s)`` builds the problem, ``solve``
-    runs the solver, ``expected(result)`` gives the launch counts the route
-    implies."""
+                expect_iters=None, timed=5, cpu_scenarios=MEDIUM_CPU_SCENARIOS):
+    """Drive one path on the card at full batch, then its first
+    ``cpu_scenarios`` scenarios on the CPU. ``make(device, x0s)`` builds the
+    problem, ``solve`` runs the solver, ``expected(result)`` gives the
+    launch counts the route implies."""
     problem = make("cuda", x0s)
     with plain_versions_raise():
         reset_counts()
@@ -746,6 +948,8 @@ def medium_path(label, make, x0s, solve, expected, min_frac=None,
         finite = (torch.isfinite(res.us).flatten(1).all(1)
                   & torch.isfinite(res.xs).flatten(1).all(1))
         check(bool(finite.all()), f"{label}: non-finite solutions")
+        check(bool(torch.isfinite(res.prim_infeas).all() & torch.isfinite(res.dual_infeas).all()),
+              f"{label}: non-finite infeasibilities")
         conv = finite & res.conv
         frac = conv.float().mean().item()
         hist = torch.bincount(res.num_iters.long()).tolist()
@@ -772,20 +976,22 @@ def medium_path(label, make, x0s, solve, expected, min_frac=None,
     print(f"[{label}] batch times (s) {[round(t, 4) for t in times]}; median "
           f"{med:.4f} s -> {batch / med:.1f} solves/s")
 
-    n = MEDIUM_CPU_SCENARIOS
-    t0 = time.perf_counter()
-    rc = solve(make("cpu", x0s[:n]))
-    cpu_s = time.perf_counter() - t0
-    same_iters = bool((rc.num_iters == res.num_iters[:n].cpu()).all())
-    same_conv = bool((rc.conv == res.conv[:n].cpu()).all())
-    scale = max(1.0, rc.xs.abs().max().item(), rc.us.abs().max().item())
-    dx = (rc.xs - res.xs[:n].cpu()).abs().max().item() / scale
-    du = (rc.us - res.us[:n].cpu()).abs().max().item() / scale
-    print(f"[{label}] cpu check ({n} scenarios, {cpu_s:.1f} s): num_iters equal "
-          f"{same_iters}, conv equal {same_conv}, rel max|dxs| {dx:.3e}, "
-          f"max|dus| {du:.3e} (tol {MEDIUM_CPU_TRAJ_TOL:g})")
-    check(same_iters and same_conv, f"{label}: card and CPU iteration counts differ")
-    check(max(dx, du) <= MEDIUM_CPU_TRAJ_TOL, f"{label}: card and CPU trajectories differ")
+    n = cpu_scenarios
+    if n:
+        t0 = time.perf_counter()
+        rc = solve(make("cpu", x0s[:n]))
+        cpu_s = time.perf_counter() - t0
+        same_iters = bool((rc.num_iters == res.num_iters[:n].cpu()).all())
+        same_conv = bool((rc.conv == res.conv[:n].cpu()).all())
+        scale = max(1.0, rc.xs.abs().max().item(), rc.us.abs().max().item())
+        dx = (rc.xs - res.xs[:n].cpu()).abs().max().item() / scale
+        du = (rc.us - res.us[:n].cpu()).abs().max().item() / scale
+        print(f"[{label}] cpu check ({n} scenarios, {cpu_s:.1f} s): num_iters equal "
+              f"{same_iters}, conv equal {same_conv}, rel max|dxs| {dx:.3e}, "
+              f"max|dus| {du:.3e} (tol {MEDIUM_CPU_TRAJ_TOL:g})")
+        check(same_iters and same_conv, f"{label}: card and CPU iteration counts differ")
+        check(max(dx, du) <= MEDIUM_CPU_TRAJ_TOL,
+              f"{label}: card and CPU trajectories differ")
     return launches, dict(frac_converged=frac, solves_per_sec=batch / med,
                           batch_s=med, batch_times=times, num_iters_hist=hist,
                           max_prim=res.prim_infeas.max().item(),
@@ -815,7 +1021,7 @@ def medium_phases():
     def humanoid_counts(res):
         steps = int(res.newton_steps.max().item())
         return {"fused_riccati": 0, "spd_solve": 0, "fused_stage_sweep": steps,
-                "fused_stage_forward": steps}
+                "fused_stage_forward": steps, "fd_rows": 0}
 
     counts["humanoid"], out["humanoid"] = medium_path(
         "humanoid", make_humanoid, hx0s, lambda p: at.solvers.solve(p, hcfg),
@@ -834,7 +1040,7 @@ def medium_phases():
     def prox_counts(res):
         steps = int(res.newton_steps.max().item())
         return {"fused_riccati": 0, "spd_solve": 2 * N * steps,
-                "fused_stage_sweep": 0, "fused_stage_forward": steps}
+                "fused_stage_sweep": 0, "fused_stage_forward": steps, "fd_rows": 0}
 
     counts["lqr56_proxddp"], out["lqr56_proxddp"] = medium_path(
         "lqr56_proxddp", make_lqr, lx0s, lambda p: at.solvers.solve(p, pcfg),
@@ -845,12 +1051,137 @@ def medium_phases():
     def fddp_counts(res):
         iters = int(res.num_iters.max().item())
         return {"fused_riccati": 0, "spd_solve": N * (iters + 1),
-                "fused_stage_sweep": 0, "fused_stage_forward": 0}
+                "fused_stage_sweep": 0, "fused_stage_forward": 0, "fd_rows": 0}
 
     counts["lqr56_fddp"], out["lqr56_fddp"] = medium_path(
         "lqr56_fddp", make_lqr, lx0s, lambda p: at.solvers.fddp.solve(p, fcfg),
         fddp_counts, expect_iters=2)
     return counts, out
+
+
+# ---------------------------------------------------------------- phase 6
+
+
+def talos_x0s(x0, nq, batch):
+    """``batch`` copies of the nominal state ``x0`` with the velocities
+    perturbed by 0.01 N(0, 1) (numpy, SEED), as bench_talos.py perturbs
+    them; float32."""
+    rng = np.random.default_rng(SEED)
+    x0s = np.repeat(np.asarray(x0, np.float64)[None], batch, 0)
+    x0s[:, nq:] += 0.01 * rng.standard_normal((batch, x0s.shape[1] - nq))
+    return x0s.astype(np.float32)
+
+
+def talos_phases():
+    import aligator_tpu_torch as at
+    from aligator_tpu_torch.examples.talos_walk import create_talos_walk_problem
+
+    cfg = at.solvers.ProxDDPConfig(tol=1e-3, mu_init=1e-3, max_iters=4, max_al_iters=4,
+                                   rollout="linear", ls_max_steps=6,
+                                   force_initial_condition=True)
+    nominal, model, _ = create_talos_walk_problem(TALOS_T_DS, TALOS_T_SS,
+                                                  dtype=torch.float32, device="cpu")
+    N = nominal.nsteps
+
+    def make(dev, x0s, dtype=torch.float32):
+        prob, _, _ = create_talos_walk_problem(TALOS_T_DS, TALOS_T_SS, dtype=dtype,
+                                               device=dev)
+        return dataclasses.replace(prob, x0=torch.tensor(x0s, dtype=dtype, device=dev))
+
+    def counts(res):
+        # per outer iteration and once more for the final refresh: one
+        # derivative evaluation (K5 + the two contact-KKT K2 solves); per
+        # Newton step: the 2N K2 solves of the Riccati loop and one K4 sweep
+        loops = int(res.num_iters.max().item())
+        steps = int(res.newton_steps.max().item())
+        want = {"fused_riccati": 0, "spd_solve": 2 * (loops + 1) + 2 * N * steps,
+                "fused_stage_sweep": 0, "fused_stage_forward": steps,
+                "fd_rows": loops + 1}
+        got = launch_counts()
+        if steps:
+            print(f"[talos] outer iterations {loops}, Newton steps {steps}; per "
+                  f"Newton step, less the final refresh: K5 "
+                  f"{(got['fd_rows'] - 1) / steps:g}, K2 {(got['spd_solve'] - 2) / steps:g}, "
+                  f"K4 {got['fused_stage_forward'] / steps:g}, K1 "
+                  f"{got['fused_riccati']}, K3 {got['fused_stage_sweep']}")
+        return want
+
+    out, cnt = {}, {}
+    for batch in TALOS_BATCHES:
+        x0s = talos_x0s(nominal.x0[0].numpy(), model.nq, batch)
+        cnt[batch], out[batch] = medium_path(
+            f"talos{batch}", make, x0s, lambda p: at.solvers.solve(p, cfg), counts,
+            cpu_scenarios=0)
+        check(cnt[batch]["fd_rows"] >= 1, "K5 was not launched on the Talos path")
+    out["cpu_check"] = talos_cpu_check(make, x0s[:TALOS_CPU_SCENARIOS], cfg)
+    out["fp32_check"] = talos_fp32_check(make, cfg)
+    return cnt, out
+
+
+def talos_cpu_check(make, x0s, cfg):
+    """The first scenarios solved again on the CPU, float64 on both sides
+    (the card with the plain versions patched to raise)."""
+    import aligator_tpu_torch as at
+
+    def rel(a, b, scale):
+        return (a.cpu() - b.cpu()).abs().max().item() / scale
+
+    with plain_versions_raise():
+        gpu = at.solvers.solve(make("cuda", x0s, torch.float64), cfg)
+    t0 = time.perf_counter()
+    cpu = at.solvers.solve(make("cpu", x0s, torch.float64), cfg)
+    cpu_s = time.perf_counter() - t0
+    same = all(bool((getattr(cpu, k) == getattr(gpu, k).cpu()).all())
+               for k in ("num_iters", "al_iter", "conv"))
+    scale = max(1.0, cpu.xs.abs().max().item(), cpu.us.abs().max().item())
+    dx, du = rel(gpu.xs, cpu.xs, scale), rel(gpu.us, cpu.us, scale)
+    print(f"[talos] cpu check fp64 ({len(x0s)} scenarios, {cpu_s:.1f} s): "
+          f"num_iters/al_iter/conv equal {same}, rel max|dxs| {dx:.3e}, max|dus| "
+          f"{du:.3e} (tol {TALOS_CPU_TRAJ_TOL:g})")
+    check(same, "talos: card and CPU iteration counts differ")
+    check(max(dx, du) <= TALOS_CPU_TRAJ_TOL, "talos: card and CPU trajectories differ")
+    return dict(same_iters=same, rel_dxs=dx, rel_dus=du)
+
+
+def talos_fp32_check(make, cfg):
+    """The float32 solve on the card, step by step, against the JAX
+    package's float32 solve of the same 2 scenarios
+    (``tests/data/torch_talos_fp32_ref.npz``, written by
+    ``tools/torch_talos_fp32_fixture.py``): solved with 0..4 iterations, the
+    infeasibilities after each step and which steps the line search
+    rejected (iterate unchanged) must be the JAX package's."""
+    import pathlib
+
+    import aligator_tpu_torch as at
+
+    path = pathlib.Path(__file__).resolve().parent / "tests/data/torch_talos_fp32_ref.npz"
+    with np.load(path) as f:
+        ref = {k: f[k] for k in f.files}
+    prob = make("cuda", ref["x0"])
+    prim, dual, rejected, prev = [], [], [], None
+    with plain_versions_raise():
+        for k in range(cfg.max_iters + 1):
+            res = at.solvers.solve(prob, dataclasses.replace(cfg, max_iters=k))
+            prim.append(res.prim_infeas.cpu().numpy())
+            dual.append(res.dual_infeas.cpu().numpy())
+            if prev is not None:
+                rejected.append(((res.xs == prev.xs).flatten(1).all(1)
+                                 & (res.us == prev.us).flatten(1).all(1)).cpu().numpy())
+            prev = res
+    prim, dual, rejected = (np.stack(a, 1) for a in (prim, dual, rejected))
+    err = float(max(np.abs(prim - ref["prim"]).max() / np.abs(ref["prim"]).max(),
+                    np.abs(dual - ref["dual"]).max() / np.abs(ref["dual"]).max()))
+    same = (np.array_equal(res.num_iters.cpu().numpy(), ref["num_iters"])
+            and np.array_equal(res.al_iter.cpu().numpy(), ref["al_iter"]))
+    print(f"[talos] fp32 card vs JAX fp32 ({len(ref['x0'])} scenarios): rejected steps "
+          f"{rejected.tolist()} (JAX {ref['rejected'].tolist()}), prim per step "
+          f"{prim.tolist()}, rel err of prim/dual {err:.2e} (tol {TALOS_FP32_TOL:g}), "
+          f"num_iters/al_iter equal {same}")
+    check(same, "talos fp32: card and JAX iteration counts differ")
+    check(np.array_equal(rejected, ref["rejected"]),
+          "talos fp32: the card and JAX reject different Newton steps")
+    check(err <= TALOS_FP32_TOL, f"talos fp32: infeasibilities differ from JAX's: {err}")
+    return dict(rejected=rejected.tolist(), prim=prim.tolist(), rel_err=err)
 
 
 # ---------------------------------------------------------------- main
@@ -863,24 +1194,38 @@ def main():
     import aligator_tpu_torch  # noqa: F401  (fails outside the repository)
 
     t_start = time.perf_counter()
-    smi = device_phase()
-    build_phase()
-    k1, layout_times = kernel_phase()
-    k2, k2_extra = k2_phase()
-    k3 = k3_phase()
-    k4, k4_shapes = k4_phase()
-    se2_counts, result = slice_phase()
-    medium_counts, medium = medium_phases()
+    phase_s = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        phase_s[name] = time.perf_counter() - t0
+        print(f"[time] {name} {phase_s[name]:.1f} s (script {time.perf_counter() - t_start:.1f} s)")
+        return out
+
+    smi = timed("device", device_phase)
+    timed("build", build_phase)
+    k1, layout_times = timed("K1", kernel_phase)
+    k2, k2_extra = timed("K2", k2_phase)
+    k3 = timed("K3", k3_phase)
+    k4, k4_shapes = timed("K4", k4_phase)
+    k5, k5_extra = timed("K5", k5_phase)
+    se2_counts, result = timed("se2", slice_phase)
+    medium_counts, medium = timed("medium", medium_phases)
+    talos_counts, talos = timed("talos", talos_phases)
     # each kernel's launches: the sum over the paths' counted runs
-    for k in (k1, k2, k3, k4):
-        k["launches"] = se2_counts[k["name"]] + sum(
-            c[k["name"]] for c in medium_counts.values())
+    runs = [se2_counts, *medium_counts.values(), *talos_counts.values()]
+    for k in (k1, k2, k3, k4, k5):
+        k["launches"] = sum(c[k["name"]] for c in runs)
     print(json.dumps({"slice": result, "fused_riccati_layout": layout_times,
                       "medium": medium, "medium_launches": medium_counts,
+                      "talos": talos, "talos_launches": talos_counts,
                       "spd_solve": k2_extra, "fused_stage_forward": k4_shapes,
-                      "script_s": time.perf_counter() - t_start, "card": smi}))
+                      "fd_rows": k5_extra, "phase_s": phase_s,
+                      "script_s": time.perf_counter() - t_start,
+                      "card": smi}))
     print(smi)
-    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -15,10 +15,13 @@ import pytest
 import torch
 
 import aligator_tpu_torch as at
+from aligator_tpu_torch import convert
 from aligator_tpu_torch.examples import medium_dims
 from aligator_tpu_torch.examples.se2_car import create_se2_problem
 from aligator_tpu_torch.gar import (fused_riccati, fused_stage, lqr_problem,
                                     riccati, spd_solve)
+from aligator_tpu_torch.modelling.multibody import fd_rows, humanoid, quadruped
+from aligator_tpu_torch.modelling.multibody import model as rbd
 
 
 @pytest.fixture
@@ -116,7 +119,8 @@ def _spd_batch(rng, M, n, r, dtype, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n,r", [(56, 57), (22, 57), (12, 1), (64, 64)])
+@pytest.mark.parametrize("n,r", [(56, 57), (22, 57), (12, 1), (64, 64), (28, 84),
+                                 (12, 84), (64, 128)])
 def test_spd_solve_matches_plain(cuda_device, dtype, n, r):
     M = 130
     A, R = _spd_batch(np.random.default_rng(n), M, n, r, dtype, cuda_device)
@@ -134,10 +138,11 @@ def test_spd_solve_matches_plain(cuda_device, dtype, n, r):
 
 @pytest.mark.cuda
 def test_spd_solve_rejects_oversized_systems(cuda_device):
-    A, R = _spd_batch(np.random.default_rng(0), 2, 65, 3, torch.float64,
-                      cuda_device)
-    with pytest.raises(ValueError, match="n, r <= 64"):
-        spd_solve.spd_solve(A, R)
+    for n, r in ((65, 3), (12, 129)):
+        A, R = _spd_batch(np.random.default_rng(0), 2, n, r, torch.float64,
+                          cuda_device)
+        with pytest.raises(ValueError, match="n <= 64 and r <= 128"):
+            spd_solve.spd_solve(A, R)
 
 
 def _sweep_inputs(rng, B, N, nx, nu, nc, dtype, device):
@@ -206,6 +211,73 @@ def test_fused_forward_matches_plain(cuda_device, dtype, nx, nu, nc):
         assert _rel(g, r) <= TOL[dtype]
 
 
+# ---------------------------------------------------------------- K5
+
+
+def _fd_rows_inputs(robot, K, dtype, device, seed):
+    """A robot, its contact configuration and K random instances (q, v, a,
+    λ, activity with one contact inactive in every third instance)."""
+    rng = np.random.default_rng(seed)
+    if robot == "humanoid":
+        model = humanoid.make_humanoid()
+        q0 = humanoid.half_sitting(model)
+        frames, dims, kd = (model.frame_id("left_sole"), model.frame_id("right_sole")), (6, 6), 50.0
+    else:
+        model = quadruped.make_quadruped()
+        q0 = quadruped.standing_configuration(model)
+        frames, dims, kd = tuple(model.frame_id(f"foot{k}") for k in range(4)), (3,) * 4, 10.0
+    nv = model.nv
+    q = model.configuration_space().integrate(
+        q0[None], torch.tensor(0.05 * rng.standard_normal((K, nv))))
+    act = np.ones((K, len(frames)))
+    act[::3, 0] = 0.0
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    ins = (t(q), t(0.2 * rng.standard_normal((K, nv))), t(rng.standard_normal((K, nv))),
+           t(50.0 * rng.standard_normal((K, sum(dims)))), t(act))
+    return model.to(dtype, device), ins, frames, dims, kd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("robot", ["humanoid", "quadruped"])
+@pytest.mark.parametrize("kp", [0.0, 3.0])
+def test_fd_rows_matches_plain(cuda_device, dtype, robot, kp):
+    model, ins, frames, dims, kd = _fd_rows_inputs(robot, 37, dtype, cuda_device, 5)
+    before = fd_rows.LAUNCHES
+    got = fd_rows.fd_rows(model, *ins, frames, dims, kd=kd, kp=kp, has_prefs=kp != 0)
+    torch.cuda.synchronize()
+    assert fd_rows.LAUNCHES == before + 1
+    ref = fd_rows.fd_rows_plain(model, *ins, frames, dims, kd=kd, kp=kp,
+                                has_prefs=kp != 0)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert torch.isfinite(g).all()
+        assert _rel(g, r) <= {torch.float64: 1e-9, torch.float32: 1e-3}[dtype]
+    # the inactive contact's rows are zero
+    assert (got[2][::3, :dims[0]] == 0).all() and (got[3][::3, :dims[0]] == 0).all()
+
+
+@pytest.mark.cuda
+def test_fd_rows_rejects_what_it_does_not_take(cuda_device):
+    model, ins, frames, dims, kd = _fd_rows_inputs("quadruped", 4, torch.float64,
+                                                   cuda_device, 6)
+    with pytest.raises(ValueError, match="dim 3 or 6"):
+        fd_rows.fd_rows(model, *ins[:3], ins[3][:, :8], ins[4][:, :2], frames[:2],
+                        (4, 4), kd=kd)
+    # a 65-joint chain: nv = nb = 65 is above the launcher's bound of 64
+    chain = rbd.make_model(
+        [dict(type=rbd.REVOLUTE, parent=i - 1, axis=(0.0, 1.0, 0.0),
+              placement_p=(0.0, 0.0, -0.1), mass=1.0, com=(0.0, 0.0, -0.05),
+              inertia=np.eye(3) * 1e-2) for i in range(65)],
+        [dict(name="tip", parent=64)], device=cuda_device)
+    z = torch.zeros((2, 65), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError, match="does not take these dimensions"):
+        fd_rows.fd_rows(chain, z, z, z, z[:, :3], z[:, :1] + 1, (0,), (3,), kd=1.0)
+
+
 # ---------------------------------------------------------------- slices
 
 
@@ -224,13 +296,14 @@ PLAIN_VERSIONS = (
     (spd_solve, "spd_solve_plain"), (fused_stage, "sweep_plain"),
     (fused_stage, "stage_plain"), (fused_stage, "forward_plain"),
     (riccati, "backward_plain"), (riccati, "forward_plain"),
-    (fused_riccati, "solve_plain"),
+    (fused_riccati, "solve_plain"), (fd_rows, "fd_rows_plain"),
 )
 
 
 def _launches():
     return dict(k2=spd_solve.LAUNCHES, k3=fused_stage.STAGE_LAUNCHES,
-                k4=fused_stage.FORWARD_LAUNCHES, k1=fused_riccati.LAUNCHES)
+                k4=fused_stage.FORWARD_LAUNCHES, k1=fused_riccati.LAUNCHES,
+                k5=fd_rows.LAUNCHES)
 
 
 def _card_and_cpu(make, solve, cuda_device, plain_versions_raise):
@@ -263,7 +336,7 @@ def test_humanoid_proxddp_card_matches_cpu(cuda_device, plain_versions_raise):
     gpu, counts = _card_and_cpu(make, lambda p: at.solvers.solve(p, cfg),
                                 cuda_device, plain_versions_raise)
     steps = int(gpu.newton_steps.max())
-    assert counts == dict(k2=0, k3=steps, k4=steps, k1=0)
+    assert counts == dict(k2=0, k3=steps, k4=steps, k1=0, k5=0)
 
 
 @pytest.mark.cuda
@@ -281,10 +354,45 @@ def test_dense_lqr_card_matches_cpu(cuda_device, plain_versions_raise, solver):
         gpu, counts = _card_and_cpu(make, lambda p: at.solvers.solve(p, cfg),
                                     cuda_device, plain_versions_raise)
         steps = int(gpu.newton_steps.max())
-        assert counts == dict(k2=2 * N * steps, k3=0, k4=steps, k1=0)
+        assert counts == dict(k2=2 * N * steps, k3=0, k4=steps, k1=0, k5=0)
     else:
         cfg = at.solvers.FDDPConfig(tol=1e-7, max_iters=2)
         gpu, counts = _card_and_cpu(make, lambda p: at.solvers.fddp.solve(p, cfg),
                                     cuda_device, plain_versions_raise)
         iters = int(gpu.num_iters.max())
-        assert counts == dict(k2=N * (iters + 1), k3=0, k4=0, k1=0)
+        assert counts == dict(k2=N * (iters + 1), k3=0, k4=0, k1=0, k5=0)
+
+
+@pytest.mark.cuda
+def test_talos_walk_card_matches_cpu_and_jax_fixture(cuda_device, plain_versions_raise):
+    """The whole-body slice at N = 7, float64: the card solve (K5, K2 and K4,
+    with every plain version patched to raise) against the CPU solve and the
+    JAX package's solve stored in tests/data/torch_talos_ref.npz."""
+    import json
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent / "data" / "torch_talos_ref.npz"
+    with np.load(path) as f:
+        fix = {k: f[k] for k in f.files}
+    cfg = at.solvers.ProxDDPConfig(**json.loads(str(fix["config"])))
+    cpu = at.solvers.solve(convert.talos_problem_from_numpy(fix, device="cpu"), cfg)
+    plain_versions_raise()
+    before = _launches()
+    gpu = at.solvers.solve(convert.talos_problem_from_numpy(fix, device=cuda_device), cfg)
+    torch.cuda.synchronize()
+    counts = {k: v - before[k] for k, v in _launches().items()}
+    N = int(fix["nsteps"])
+    loops = int(gpu.num_iters.max())
+    steps = int(gpu.newton_steps.max())
+    # K5 and the two contact-KKT solves once per derivative evaluation (each
+    # outer iteration and the final refresh), 2N K2 solves and one K4
+    # forward sweep per Newton step
+    assert counts == dict(k5=loops + 1, k2=2 * (loops + 1) + 2 * N * steps,
+                          k4=steps, k1=0, k3=0)
+    for k in ("num_iters", "al_iter", "conv"):
+        assert np.array_equal(getattr(gpu, k).cpu().numpy(), fix[f"res_{k}"]), k
+        assert torch.equal(getattr(gpu, k).cpu(), getattr(cpu, k)), k
+    for k in ("xs", "us", "lams"):
+        got = getattr(gpu, k).cpu()
+        assert _rel(got, getattr(cpu, k)) < 1e-8, k
+        assert _rel(got, torch.tensor(fix[f"res_{k}"])) < 1e-8, k
