@@ -1,6 +1,6 @@
 // Dense linear algebra on small row-major matrices in shared memory, run by
-// all threads of one block together. Shared by spd_solve.cu (K2) and
-// fused_stage.cu (K3). Every function starts and ends with the block in
+// all threads of one block together, used by spd_solve.cu (K2); qnan is
+// also fused_stage.cu's. Every function starts and ends with the block in
 // step: callers __syncthreads() before reading what one wrote.
 
 #pragma once

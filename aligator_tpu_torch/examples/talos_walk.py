@@ -94,7 +94,7 @@ def create_talos_walk_problem(t_ds: int = 20, t_ss: int = 80, timestep: float = 
     The model and the schedule are computed in float64, then cast. Returns
     ``(problem, model, schedule)``."""
     dev = resolve(device)
-    model64 = make_humanoid()
+    model64 = make_humanoid(device="cpu")
     nv, nu = model64.nv, model64.nv - 6
     soles = tuple(model64.frame_id(s) for s in SOLES)
     q0 = half_sitting(model64)
@@ -118,7 +118,7 @@ def create_talos_walk_problem(t_ds: int = 20, t_ss: int = 80, timestep: float = 
     x0 = t(x0)
     u_box = None
     if bounds:
-        umax = t(effort_limits())
+        umax = t(effort_limits(device="cpu"))
         u_box = (-umax, umax)
     problem = talos_walk_problem(
         model64.to(dtype, dev), x_ref=x0, x0=x0,

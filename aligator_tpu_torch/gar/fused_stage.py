@@ -168,6 +168,25 @@ def stage(knot: dict, P: Tensor, p: Tensor, mudyn: Tensor,
     return {k: v[:, 0] for k, v in out.items()}
 
 
+def kernel_info(kernel: str, dtype, Bsz: int, T: int, nx: int, nu: int,
+                nc: int, device="cuda") -> dict:
+    """How a launch of ``kernel`` ("sweep": K3, "forward": K4) at these
+    dimensions sits on the card: shared memory bytes a block, resident
+    blocks per SM, registers a thread and threads a block (card only)."""
+    if dtype not in _SWEEP:
+        raise ValueError(f"fused_stage kernel takes float32/float64, got {dtype}")
+    fn = _build.c_function(_SOURCE, "fused_stage_info", 7, 1)
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        err = fn({"sweep": 0, "forward": 1}[kernel], int(dtype == torch.float64),
+                 Bsz, T, nx, nu, nc, out)
+    if err == -1:
+        raise ValueError(f"fused_stage {kernel} kernel does not take these dimensions")
+    if err != 0:
+        raise RuntimeError(f"fused_stage_info failed: CUDA error {err}")
+    return dict(zip(("smem_bytes", "blocks_per_sm", "registers", "threads"), out))
+
+
 def _as_kernel_input(t: Tensor, dtype, device) -> Tensor:
     if t.dtype != dtype or t.device != device:
         raise ValueError(f"fused_stage: expected {dtype} on {device}, got "

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from ..._device import resolve
 from .model import FREEFLYER, REVOLUTE, RobotModel, frame_placement, make_model
 
 X = (1.0, 0.0, 0.0)
@@ -32,8 +33,10 @@ def make_humanoid(pelvis_mass=15.0, hip_y_off=0.085, thigh_len=0.38,
                   shin_len=0.325, ankle_height=0.107, torso_height=0.2,
                   shoulder_y_off=0.1575, shoulder_height=0.157,
                   upper_arm_len=0.27, forearm_len=0.25, dtype=torch.float64,
-                  device="cpu") -> RobotModel:
-    """Build the nv = 28 humanoid (float64 on the CPU unless asked)."""
+                  device="cuda") -> RobotModel:
+    """Build the nv = 28 humanoid (float64, on the card unless
+    ``device="cpu"`` is asked for)."""
+    device = resolve(device)
     joints = [dict(type=FREEFLYER, parent=-1, mass=pelvis_mass,
                    com=(0.0, 0.0, 0.05),
                    inertia=_box_inertia(pelvis_mass, 0.25, 0.3, 0.2))]
@@ -109,8 +112,10 @@ def actuation_matrix(model: RobotModel) -> Tensor:
     return B
 
 
-def effort_limits(dtype=torch.float64, device="cpu") -> Tensor:
-    """Per-actuator torque limits (Talos-class magnitudes), order = v[6:]."""
+def effort_limits(dtype=torch.float64, device="cuda") -> Tensor:
+    """Per-actuator torque limits (Talos-class magnitudes), order = v[6:],
+    on the card unless ``device="cpu"`` is asked for."""
+    device = resolve(device)
     leg = [100.0, 160.0, 160.0, 300.0, 160.0, 100.0]
     torso = [78.0, 78.0]
     arm = [44.0, 44.0, 30.0, 30.0]

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from ..._device import resolve
 from ...core.manifolds import CartesianProduct, Manifold, TangentBundle, VectorSpace
 from ..spaces.se3 import SE3, cross, exp3_quat, quat_to_matrix
 
@@ -96,12 +97,14 @@ class RobotModel:
 
 
 def make_model(joints, frames=(), gravity=(0.0, 0.0, -9.81), dtype=torch.float64,
-               device="cpu") -> RobotModel:
+               device="cuda") -> RobotModel:
     """Build a RobotModel from joint descriptions (as the JAX ``make_model``):
     ``joints`` are dicts with keys type, parent, placement_p, placement_q
     (optional), axis (rev/prism), mass, com, inertia (about the com, in the
     joint frame); ``frames`` dicts with name, parent (joint index),
-    placement_p, placement_q (optional)."""
+    placement_p, placement_q (optional). On the card unless ``device="cpu"``
+    is asked for."""
+    device = resolve(device)
     ident_q = (0.0, 0.0, 0.0, 1.0)
 
     def stack(rows, shape):

@@ -11,12 +11,16 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from ..._device import resolve
 from .model import FREEFLYER, REVOLUTE, RobotModel, make_model
 
 
 def make_quadruped(base_mass=1.4, leg_mass=0.15, shank_mass=0.06, hip_x=0.19,
                    hip_y=0.1046, upper_len=0.16, lower_len=0.16,
-                   dtype=torch.float64, device="cpu") -> RobotModel:
+                   dtype=torch.float64, device="cuda") -> RobotModel:
+    """Build the nv = 14 quadruped (float64, on the card unless
+    ``device="cpu"`` is asked for)."""
+    device = resolve(device)
     joints = [dict(type=FREEFLYER, parent=-1, mass=base_mass, com=(0.0, 0.0, 0.0),
                    inertia=np.diag([0.0047, 0.0089, 0.0117]))]
     frames = []

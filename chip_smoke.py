@@ -12,6 +12,9 @@ any failed check raises and the script exits non-zero:
    against its plain PyTorch version on the card, at the main paths' shapes
    (fp32) and at the test shapes (fp64), and timed beside its memory/compute
    bound and, where one PyTorch call computes the same function, that call;
+   K3 and K4 also print their shared memory, registers and resident blocks
+   per SM at the main shapes, and K3 its time at batches of 132 to 1024
+   (1 to 7.8 scenarios for each of the 132 SMs);
 4. the SE(2)-car path: batched ProxDDP (N=50, batch 32768, fp32, the
    ``bench.py`` configuration) on the card, with the plain versions patched
    to raise and the kernels' launch counts read around it, the converged
@@ -507,14 +510,35 @@ def k3_phase():
     max_abs = max(abs_err(got[k], ref[k]) for k in fs.FACTOR_FIELDS)
     del got, ref
 
-    ms = kernel_ms(lambda: fs.sweep(kn, P, p, md, me), 5, "sweep_kernel")
+    info = fs.kernel_info("sweep", torch.float32, B, N + 1, nx, nu, nc)
+    print(f"[kernel] fused_stage sweep fp32 (nx,nu,nc)={(nx, nu, nc)}: "
+          f"{info['smem_bytes']} B of shared memory and {info['threads']} threads a "
+          f"block, {info['registers']} registers a thread, {info['blocks_per_sm']} "
+          f"resident blocks per SM")
+
+    def sweep_bound(Bs):
+        stage_words = (2 * nx * nx + 2 * nx * nu + nu * nu + 2 * nx + nu
+                       + nc * (nx + nu + 1))
+        factor_words = (nu * (nx + 1) + nc * (nx + 1) + 2 * nx + 3 * nx * nx + nx)
+        nbytes = 4 * Bs * (N * (stage_words + factor_words) + nx * nx + nx + 2)
+        flops = Bs * N * k3_flops_per_stage(nx, nu, nc)
+        return nbytes, flops, *bound(nbytes, flops)
+
+    # by batch: 1, 2, 4 and 7.8 blocks for each of the 132 SMs
+    by_batch = {}
+    for Bs in (132, 264, 528, B):
+        sub = dataclasses.replace(kn, **{f.name: getattr(kn, f.name)[:Bs]
+                                         for f in dataclasses.fields(kn)})
+        args = (sub, P[:Bs], p[:Bs], md[:Bs], me[:Bs])
+        ms_b = kernel_ms(lambda: fs.sweep(*args), 5, "sweep_kernel")
+        bms_b = sweep_bound(Bs)[2]
+        by_batch[Bs] = dict(ms=ms_b, bound_ms=bms_b)
+        print(f"[kernel] fused_stage sweep fp32 B={Bs} N={N}: kernel {ms_b:.4f} ms "
+              f"({ms_b / N * 1e3:.2f} us per stage), bound {bms_b:.4f} ms "
+              f"({ms_b / bms_b:.1f}x)")
+    ms = by_batch[B]["ms"]
     plain_ms = avg_time_ms(lambda: fs.sweep_plain(kn, P, p, md, me), 2)
-    stage_words = (2 * nx * nx + 2 * nx * nu + nu * nu + 2 * nx + nu
-                   + nc * (nx + nu + 1))
-    factor_words = (nu * (nx + 1) + nc * (nx + 1) + 2 * nx + 3 * nx * nx + nx)
-    nbytes = 4 * B * (N * (stage_words + factor_words) + nx * nx + nx + 2)
-    flops = B * N * k3_flops_per_stage(nx, nu, nc)
-    bms, by = bound(nbytes, flops)
+    nbytes, flops, bms, by = sweep_bound(B)
     print(f"[kernel] fused_stage sweep fp32 B={B} N={N}: kernel {ms:.4f} ms "
           f"({ms / N * 1e3:.2f} us per stage), plain {plain_ms:.3f} ms; bound "
           f"{bms:.4f} ms ({by}: {nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP)")
@@ -523,7 +547,7 @@ def k3_phase():
         source="aligator_tpu_torch/csrc/fused_stage.cu",
         replaces="aligator_tpu/gar/pallas_stage.py:140", max_abs_err=max_abs,
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
-    )
+    ), dict(occupancy=info, by_batch=by_batch)
 
 
 def random_gains(B, T, nx, nu, nc, dtype, seed):
@@ -541,7 +565,10 @@ def random_gains(B, T, nx, nu, nc, dtype, seed):
 def k4_phase():
     from aligator_tpu_torch.gar import fused_stage as fs
 
-    for i, (nx, nu, nc) in enumerate(((13, 4, 3), (13, 4, 0), (36, 12, 12), (56, 22, 0))):
+    # the test shapes, fp64: 13 gives slices that are not 16-byte aligned,
+    # (56, 22, 22) is the walk's, 160 a stage larger than the ring
+    for i, (nx, nu, nc) in enumerate(((13, 4, 3), (13, 4, 0), (36, 12, 12), (56, 22, 0),
+                                      (56, 22, 22), (160, 7, 2))):
         gains, x0, lam0 = random_gains(100, 11, nx, nu, nc, torch.float64, SEED + i)
         err = max(rel_err(a, b) for a, b in zip(fs.forward(gains, x0, lam0),
                                                 fs.forward_plain(gains, x0, lam0)))
@@ -566,6 +593,11 @@ def k4_phase():
               f"{max(rel_err(a.double(), b) for a, b in zip(ref, ref64)):.2e}")
         check(all(torch.isfinite(t).all().item() for t in got), "non-finite forward")
         check(err <= K4_FP32_TOL, f"fused_stage forward fp32 {err}")
+        info = fs.kernel_info("forward", torch.float32, B, T, nx, nu, nc)
+        print(f"[kernel] fused_stage forward fp32 B={B} (nx,nu,nc)={(nx, nu, nc)}: "
+              f"{info['smem_bytes']} B of shared memory and {info['threads']} threads a "
+              f"block, {info['registers']} registers a thread, {info['blocks_per_sm']} "
+              f"resident blocks per SM")
         ms = kernel_ms(lambda: fs.forward(gains, x0, lam0), 20, "forward_kernel")
         plain_ms = avg_time_ms(lambda: fs.forward_plain(gains, x0, lam0), 3)
         # the library yardstick: one stage as one batched GEMM plus bias over
@@ -584,9 +616,9 @@ def k4_phase():
         print(f"[kernel] fused_stage forward fp32 B={B} T={T}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.3f} ms, baddbmm {stage_lib_ms:.4f} ms per stage "
               f"({T * stage_lib_ms:.4f} ms for T stages); bound {bms:.4f} ms ({by}: "
-              f"{nbytes / 1e9:.4f} GB)")
+              f"{nbytes / 1e9:.4f} GB; kernel {ms / bms:.1f}x)")
         out[(B, nx)] = dict(ms=ms, plain_ms=plain_ms, library_ms=T * stage_lib_ms,
-                            bound_ms=bms, bound_by=by, max_abs_err=max(
+                            bound_ms=bms, bound_by=by, occupancy=info, max_abs_err=max(
                                 abs_err(a, b) for a, b in zip(got, ref)))
     main = out[(HUMANOID_BATCH, 36)]
     return dict(
@@ -595,7 +627,8 @@ def k4_phase():
         replaces="aligator_tpu/gar/pallas_stage.py:440",
         max_abs_err=max(v["max_abs_err"] for v in out.values()),
         **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-    ), {f"B={B} nx={nx}": {k: v[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    ), {f"B={B} nx={nx}": {k: v[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                             "occupancy")}
         for (B, nx), v in out.items()}
 
 
@@ -1207,7 +1240,7 @@ def main():
     timed("build", build_phase)
     k1, layout_times = timed("K1", kernel_phase)
     k2, k2_extra = timed("K2", k2_phase)
-    k3 = timed("K3", k3_phase)
+    k3, k3_extra = timed("K3", k3_phase)
     k4, k4_shapes = timed("K4", k4_phase)
     k5, k5_extra = timed("K5", k5_phase)
     se2_counts, result = timed("se2", slice_phase)
@@ -1220,7 +1253,8 @@ def main():
     print(json.dumps({"slice": result, "fused_riccati_layout": layout_times,
                       "medium": medium, "medium_launches": medium_counts,
                       "talos": talos, "talos_launches": talos_counts,
-                      "spd_solve": k2_extra, "fused_stage_forward": k4_shapes,
+                      "spd_solve": k2_extra, "fused_stage_sweep": k3_extra,
+                      "fused_stage_forward": k4_shapes,
                       "fd_rows": k5_extra, "phase_s": phase_s,
                       "script_s": time.perf_counter() - t_start,
                       "card": smi}))

@@ -161,13 +161,30 @@ def _sweep_inputs(rng, B, N, nx, nu, nc, dtype, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("dims", [(6, 13, 4, 3), (4, 16, 5, 0), (5, 36, 12, 12),
-                                  (3, 44, 20, 0)])
+                                  (3, 44, 20, 0),
+                                  # (N, nx, nu, nc, B): the edges of K3's domain,
+                                  # a batch of 1 and one that no tiling divides
+                                  (1, 12, 1, 0, 1), (2, 44, 1, 0, 1025),
+                                  (3, 36, 12, 12, 1025)])
 def test_fused_sweep_matches_plain(cuda_device, dtype, dims):
-    N, nx, nu, nc = dims
-    B = 100
+    _check_sweep(cuda_device, dtype, dims)
+
+
+@pytest.mark.cuda
+def test_fused_sweep_matches_plain_at_its_most_shared_memory(cuda_device):
+    """fp64 at 231,692 bytes of shared memory a block, of the 232,448 a
+    block may have (fp32 there is conditioning-limited: the fp32 plain
+    version itself is ~1e-3 from fp64)."""
+    _check_sweep(cuda_device, torch.float64, (2, 44, 79, 6, 5))
+
+
+def _check_sweep(cuda_device, dtype, dims):
+    N, nx, nu, nc, *rest = dims
+    B = rest[0] if rest else 100
     kn, P, p, md, me = _sweep_inputs(np.random.default_rng(nx), B, N, nx, nu,
                                      nc, dtype, cuda_device)
-    P[3] = -1e4 * torch.eye(nx, dtype=dtype, device=cuda_device)  # Schur fails
+    if B > 3:
+        P[3] = -1e4 * torch.eye(nx, dtype=dtype, device=cuda_device)  # Schur fails
     before = fused_stage.STAGE_LAUNCHES
     got = fused_stage.sweep(kn, P, p, md, me)
     torch.cuda.synchronize()
@@ -176,7 +193,7 @@ def test_fused_sweep_matches_plain(cuda_device, dtype, dims):
     ok = torch.arange(B, device=cuda_device) != 3
     for k in fused_stage.FACTOR_FIELDS:
         assert (got[k][:, N] == 0).all(), k
-        if got[k][3].numel():
+        if B > 3 and got[k][3].numel():
             assert torch.isnan(got[k][3, :N]).all(), k
         assert torch.isfinite(got[k][ok]).all(), k
         assert _rel(got[k][ok], ref[k][ok]) <= 10 * TOL[dtype], k
@@ -188,9 +205,16 @@ def test_fused_sweep_matches_plain(cuda_device, dtype, dims):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("nx,nu,nc", [(36, 12, 12), (56, 22, 0), (13, 4, 3)])
+@pytest.mark.parametrize("nx,nu,nc", [(36, 12, 12), (56, 22, 0), (13, 4, 3),
+                                      # (13, 4, 3) has slices that are not
+                                      # 16-byte aligned; the walk's nc = 22;
+                                      # nx = 160, a stage larger than K4's
+                                      # ring, with nc given as (nc, T, B)
+                                      (56, 22, 22), (160, 7, (2, 1, 1)),
+                                      (160, 7, (2, 3, 2))])
 def test_fused_forward_matches_plain(cuda_device, dtype, nx, nu, nc):
-    B, T = 100, 11
+    nc, *rest = nc if isinstance(nc, tuple) else (nc,)
+    T, B = rest if rest else (11, 100)
     rng = np.random.default_rng(nx)
     shapes = dict(kff=(nu,), K=(nu, nx), zff=(nc,), Z=(nc, nx), lff=(nx,),
                   L=(nx, nx), yff=(nx,), Afb=(nx, nx))
@@ -219,11 +243,11 @@ def _fd_rows_inputs(robot, K, dtype, device, seed):
     λ, activity with one contact inactive in every third instance)."""
     rng = np.random.default_rng(seed)
     if robot == "humanoid":
-        model = humanoid.make_humanoid()
+        model = humanoid.make_humanoid(device="cpu")
         q0 = humanoid.half_sitting(model)
         frames, dims, kd = (model.frame_id("left_sole"), model.frame_id("right_sole")), (6, 6), 50.0
     else:
-        model = quadruped.make_quadruped()
+        model = quadruped.make_quadruped(device="cpu")
         q0 = quadruped.standing_configuration(model)
         frames, dims, kd = tuple(model.frame_id(f"foot{k}") for k in range(4)), (3,) * 4, 10.0
     nv = model.nv

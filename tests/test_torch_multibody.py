@@ -144,7 +144,22 @@ def test_rigid_body_algorithms_match_jax(robot):
     if robot == "humanoid":
         from aligator_tpu_torch.modelling.multibody import humanoid
 
-        assert _rel_err(humanoid.half_sitting(humanoid.make_humanoid()), q0) < 1e-14
+        assert _rel_err(humanoid.half_sitting(humanoid.make_humanoid(device="cpu")), q0) < 1e-14
+
+
+@pytest.mark.parametrize("build", ["make_humanoid", "make_quadruped", "effort_limits"])
+def test_robot_models_default_to_the_card(monkeypatch, build):
+    """Without CUDA make_humanoid, make_quadruped and effort_limits raise
+    unless the caller asks for the CPU."""
+    from aligator_tpu_torch.modelling.multibody import humanoid, quadruped
+
+    fn = getattr(quadruped if build == "make_quadruped" else humanoid, build)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="finds no CUDA device"):
+        fn()
+    out = fn(device="cpu")
+    ref = out if build == "effort_limits" else out.mass
+    assert ref.device.type == "cpu" and ref.dtype == torch.float64
 
 
 # ---------------------------------------------------------------- contacts
