@@ -7,32 +7,52 @@
 //   ra1_q, ra1_v (nv x nv): d(RNEA + J' lam)/d(q, v),
 //   r2_q, r2_v   (nc x nv): d(J a + gamma)/d(q, v), masked by activity,
 // by the TPU kernel's algorithm: the pair tables SxS[j,k] = S_j x S_k and
-// G[j,k] (the velocity-product bias derivatives), then one pass over the
-// bodies that forms each body's force derivatives df_b[j], dfv_b[j] for all
-// directions j without materializing dI6, through the identity
+// G[j,k] (the velocity-product bias derivatives), then each body's force
+// derivatives df_b[j], dfv_b[j] for its directions j without
+// materializing dI6, through the identity
 //   (dI6/dq_j) w = A[b,j] (S_j x* (I6 w) - I6 (S_j x w)),
-// and accumulates d tau[k,j] += A[b,k] S_k . df_b[j]; then the subtree
+// summed into d tau[k,j] = sum_b A[b,k] S_k . df_b[j]; then the subtree
 // force term and, per contact, the acceleration rows and the J' lam
 // transport.
 //
 // Bound on an H100: at the Talos shapes (nv = 28, nb = 23, two 6D contacts,
 // K = 512 instances) the call reads about 2,450 and writes 2,240 words per
 // instance (9.2 MB in fp32 for K = 512, 2.7 us). The function needs about
-// 0.31 MFLOP per instance (0.16 GFLOP, 2.3 us at 67 TFLOP/s): a body moves
-// with about 9.5 of the 28 dofs, so most of the 2.1 MFLOP that the dense
-// loops below run are products with a zero of the masks A and D. Bytes
-// bound it.
+// 0.31 MFLOP per instance (0.16 GFLOP, 2.3 us at 67 TFLOP/s). Bytes bound it.
 //
-// Design: the TPU kernel put 128 instances on the vector lanes; here each
-// instance gets one block of 256 threads with every input, SxS and G
-// (nv^2 x 6 words each) and the two nv x nv accumulators in dynamic shared
-// memory (65 KB in fp32, 129 KB in fp64 at the Talos shapes, so the
-// launcher opts in above 48 KB). Threads take (j, k) pairs for the pair
-// tables and the accumulators, (j, component) pairs for the per-body
-// contractions over k, and directions j for the 6-vector algebra of each
-// body; each accumulator entry has one owner thread, so no atomics. Two
-// block barriers per body. Speed is left for later: the per-direction
-// phase keeps only nv of the 256 threads busy.
+// Design: the TPU kernel put 128 instances on the vector lanes and looped
+// densely over all dofs. Every term is a product with the masks A[b,k]
+// (dof k moves body b) and D[k,j] (joint(j) is joint(k) or its ancestor),
+// and a body moves with about 9.5 of Talos' 28 dofs, so this kernel walks
+// only the nonzeros, from index lists the host builds once per model
+// (fd_rows.py `support_lists`, layout in Index below): the pairs (j, k)
+// with D[k,j] = 1 (249 of 784 at Talos), the slots (b, j) with A[b,j] = 1
+// (219 of 644), each slot's pairs, each dof's bodies, and the entries (k,
+// j) of ra1 that some body's dofs hold both of (440 of 784), each with the
+// slots it sums. Each instance gets one block of 128 threads and four
+// phases, one barrier each:
+//   1. inputs into shared memory, all copies in flight at once (cp.async);
+//   2. a thread a pair: SxS and G (12 words a pair); CVS_k; f_b = y_b +
+//      Vb x* h_b; each contact's force F_c and point velocity;
+//   3. a thread a slot (b, j): the contractions over the slot's pairs, the
+//      6-vector algebra of direction j, df_b[j] and dfv_b[j] (12 words a
+//      slot) and, where b holds a contact, that contact's rows for j; then
+//      the subtree forces F_k and the zero rows of directions a contact's
+//      body does not move with;
+//   4. a thread an entry (k, j) of ra1_q and ra1_v, those with the most
+//      terms first: the sum over its slots, the subtree force term and the
+//      contacts' transport, written straight out; the other entries are 0.
+// Slots and bodies are independent, so no thread waits on a body loop and
+// each output has one owner thread (no atomics). Shared memory: the inputs,
+// 12 words a pair and 12 a slot (34 KB in fp32, 68 KB in fp64 at Talos;
+// the launcher opts in above 48 KB); the index lists are read through the
+// read-only cache. The sums run in the plain version's order over the
+// nonzero terms; the zero terms it adds are skipped. At most 128 registers
+// a thread, 4 blocks an SM: against 256 threads a block (with or without a
+// cap of 128, 85 or 64 registers) and 128 threads capped at 85 or 64, this
+// measured fastest at K = 512 and within 0.4% of the fastest at K = 8192
+// (H100 80GB HBM3, 700 W, tools/torch_k2_k5_scan.py, before the loads went
+// asynchronous and the entries got their lists).
 //
 // The contact configuration (body, dim 3 or 6 and offset of each contact,
 // kd, kp) is a runtime table, so one build serves every robot. C interface
@@ -43,9 +63,13 @@
 
 #include <cstddef>
 
+#include "async_copy.cuh"
+#include "block_linalg.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
+constexpr int kMinBlocks = 4;  // at most 128 registers a thread
 constexpr int kMaxContacts = 8;
 constexpr int kMaxDim = 64;  // nv, nb and nc
 constexpr size_t kMaxSmem = 232448;
@@ -55,18 +79,49 @@ struct Table {
   int body[kMaxContacts];
   int dim[kMaxContacts];
   int off[kMaxContacts];
+  int npair, nslot, nrel, nsp, neb;  // the index lists' lengths (Index)
   double kd, kp;
 };
 
 template <typename S>
 struct In {
   const S *S_, *v, *Vb, *Vpar, *Vdof, *Ca, *Capar, *Accb, *h, *y, *I6, *lam,
-      *pc, *act, *A, *D;
+      *pc, *act;
 };
 
 template <typename S>
 struct Out {
   S *ra1q, *ra1v, *r2q, *r2v;
+};
+
+// offsets (ints) of the index lists in the host-built table
+// (fd_rows.py `support_lists`): pair p is (pair_j[p], pair_k[p]); slot s is
+// (slot_b[s], slot_j[s]), slot_of[b * nv + j] the slot of (b, j) or -1, and
+// sp[sp_off[s] .. sp_off[s + 1] - 1] its pairs (j, k) over the dofs k that
+// move b (k ascending); the bodies that dof k moves are sub[sub_off[k] ..
+// sub_off[k + 1] - 1]; entry e < nrel of ra1 is ent[e] = k nv + j, with
+// ent_pair[e] the pair (j, k) or -1 and eb[eb_off[e] .. eb_off[e + 1] - 1]
+// the slots (b, j) of the bodies both k and j move (b ascending); entries
+// nrel .. nv^2 - 1 are zero
+struct Index {
+  int pair_j, pair_k, slot_b, slot_j, slot_of, sp_off, sp, sub_off, sub, ent, ent_pair,
+      eb_off, eb, total;
+  __host__ __device__ Index(int nv, int nb, const Table& t) {
+    pair_j = 0;
+    pair_k = pair_j + t.npair;
+    slot_b = pair_k + t.npair;
+    slot_j = slot_b + t.nslot;
+    slot_of = slot_j + t.nslot;
+    sp_off = slot_of + nb * nv;
+    sp = sp_off + t.nslot + 1;
+    sub_off = sp + t.nsp;
+    sub = sub_off + nv + 1;
+    ent = sub + t.nslot;
+    ent_pair = ent + nv * nv;
+    eb_off = ent_pair + t.nrel;
+    eb = eb_off + t.nrel + 1;
+    total = eb + t.neb;
+  }
 };
 
 // 3-vector and spatial 6-vector algebra, (linear, angular) ordering
@@ -120,14 +175,14 @@ __device__ __forceinline__ S dot6(const S* a, const S* b) {
 
 // shared-memory layout, in words of S
 struct Layout {
-  int S_, v, Vpar, Vdof, Capar, CVS, Vb, Ca, Accb, h, y, I6, A, D, SxS, G, dAG,
-      dAvG, DF, DFV, F, ra1q, ra1v, dpxw, Fc, fb, lam, pc, act, total;
+  int S_, v, Vpar, Vdof, Capar, CVS, Vb, Ca, Accb, h, y, I6, fb, F, SxS, G, DF,
+      DFV, dpxw, Fc, pdot, lam, pc, act, total;
   __host__ __device__ static int take(int& o, int n) {
     const int at = o;
     o += n;
     return at;
   }
-  __host__ __device__ Layout(int nv, int nb, int nc, int ncont) {
+  __host__ __device__ Layout(int nv, int nb, int nc, int ncont, int npair, int nslot) {
     int o = 0;
     S_ = take(o, nv * 6);
     v = take(o, nv);
@@ -141,20 +196,15 @@ struct Layout {
     h = take(o, nb * 6);
     y = take(o, nb * 6);
     I6 = take(o, nb * 36);
-    A = take(o, nb * nv);
-    D = take(o, nv * nv);
-    SxS = take(o, nv * nv * 6);
-    G = take(o, nv * nv * 6);
-    dAG = take(o, nv * 6);
-    dAvG = take(o, nv * 6);
-    DF = take(o, nv * 6);
-    DFV = take(o, nv * 6);
+    fb = take(o, nb * 6);
     F = take(o, nv * 6);
-    ra1q = take(o, nv * nv);
-    ra1v = take(o, nv * nv);
-    dpxw = take(o, nv * 3);
-    Fc = take(o, 6);
-    fb = take(o, 6);
+    SxS = take(o, npair * 6);
+    G = take(o, npair * 6);
+    DF = take(o, nslot * 6);
+    DFV = take(o, nslot * 6);
+    dpxw = take(o, ncont * nv * 3);
+    Fc = take(o, ncont * 6);
+    pdot = take(o, ncont * 3);
     lam = take(o, nc);
     pc = take(o, ncont * 3);
     act = take(o, ncont);
@@ -162,127 +212,141 @@ struct Layout {
   }
 };
 
-// dAG[j,s] = sum_k ab_k G[j,k,s] and dAvG[j,s] = sum_k SxS[j,k,s] D[k,j]
-// ab_k v_k + ab_j CVS[j,s], with ab = A[b, :]: the body's acceleration
-// derivative contractions over k
+// direction j's derivatives of body b's velocity and acceleration (slot
+// e = (b, j), so A[b,j] = 1): dV, dAcc (q-direction) and dVv, dAccv
+// (v-direction), with the contractions over b's dofs k
+//   dAG[s] = sum_k A[b,k] G[j,k,s],
+//   dAvG[s] = sum_k SxS[j,k,s] D[k,j] A[b,k] v_k + CVS[j,s]
+// over the slot's pairs
 template <typename S>
-__device__ void body_contractions(S* sm, const Layout& L, int nv, int b) {
-  const S* ab = sm + L.A + b * nv;
-  for (int e = threadIdx.x; e < nv * 6; e += blockDim.x) {
-    const int j = e / 6, s = e % 6;
-    S g = S(0), gv = S(0);
-    for (int k = 0; k < nv; ++k) {
-      const int jk = (j * nv + k) * 6 + s;
-      g += ab[k] * sm[L.G + jk];
-      gv += sm[L.SxS + jk] * sm[L.D + k * nv + j] * ab[k] * sm[L.v + k];
+__device__ void slot_derivs(const S* sm, const int* __restrict__ ix, const Layout& L,
+                            const Index& I, int e, int b, int j, S* dV, S* dAcc,
+                            S* dVv, S* dAccv) {
+  S g[6], gv[6];
+  for (int s = 0; s < 6; ++s) g[s] = gv[s] = S(0);
+  const int t1 = __ldg(ix + I.sp_off + e + 1);
+  for (int t = __ldg(ix + I.sp_off + e); t < t1; ++t) {
+    const int p = __ldg(ix + I.sp + t);
+    const S vk = sm[L.v + __ldg(ix + I.pair_k + p)];
+    for (int s = 0; s < 6; ++s) {
+      g[s] += sm[L.G + p * 6 + s];
+      gv[s] += sm[L.SxS + p * 6 + s] * vk;
     }
-    sm[L.dAG + e] = g;
-    sm[L.dAvG + e] = gv + ab[j] * sm[L.CVS + e];
   }
-}
-
-// direction j's derivatives of body b's velocity and acceleration:
-// dV, dAcc (q-direction) and dVv, dAccv (v-direction)
-template <typename S>
-__device__ void body_derivs(const S* sm, const Layout& L, int nv, int b, int j,
-                            S* dV, S* dAcc, S* dVv, S* dAccv) {
-  const S abj = sm[L.A + b * nv + j];
   const S* Sj = sm + L.S_ + j * 6;
-  S w[6], t[6];
+  S w[6];
   for (int s = 0; s < 6; ++s) w[s] = sm[L.Vb + b * 6 + s] - sm[L.Vpar + j * 6 + s];
-  mcross(Sj, w, t);
-  for (int s = 0; s < 6; ++s) dV[s] = abj * t[s];
+  mcross(Sj, w, dV);
   for (int s = 0; s < 6; ++s) w[s] = sm[L.Ca + b * 6 + s] - sm[L.Capar + j * 6 + s];
-  mcross(Sj, w, t);
+  mcross(Sj, w, dAcc);
   for (int s = 0; s < 6; ++s) {
-    dAcc[s] = abj * t[s] + sm[L.dAG + j * 6 + s];
-    dVv[s] = abj * Sj[s];
-    dAccv[s] = sm[L.dAvG + j * 6 + s];
+    dAcc[s] += g[s];
+    dVv[s] = Sj[s];
+    dAccv[s] = gv[s] + sm[L.CVS + j * 6 + s];
   }
 }
 
 template <typename S>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 fd_rows_kernel(const int nv, const int nb, const int nc, const Table tab,
-               const In<S> in, const Out<S> out) {
+               const In<S> in, const int* __restrict__ ix, const Out<S> out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S* sm = reinterpret_cast<S*>(smem_raw);
-  const Layout L(nv, nb, nc, tab.ncont);
+  const int ncont = tab.ncont, npair = tab.npair, nslot = tab.nslot;
+  const Layout L(nv, nb, nc, ncont, npair, nslot);
+  const Index I(nv, nb, tab);
   const size_t m = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int ncont = tab.ncont;
   const S kd = static_cast<S>(tab.kd), kp = static_cast<S>(tab.kp);
 
-  // ---- load the instance's inputs and the shared masks (stride 0)
-#define LOAD(dst, src, n, stride) \
-  for (int i = tid; i < (n); i += nt) sm[(dst) + i] = (src)[m * (stride) + i]
-  LOAD(L.S_, in.S_, nv * 6, nv * 6);
-  LOAD(L.v, in.v, nv, nv);
-  LOAD(L.Vpar, in.Vpar, nv * 6, nv * 6);
-  LOAD(L.Vdof, in.Vdof, nv * 6, nv * 6);
-  LOAD(L.Capar, in.Capar, nv * 6, nv * 6);
-  LOAD(L.Vb, in.Vb, nb * 6, nb * 6);
-  LOAD(L.Ca, in.Ca, nb * 6, nb * 6);
-  LOAD(L.Accb, in.Accb, nb * 6, nb * 6);
-  LOAD(L.h, in.h, nb * 6, nb * 6);
-  LOAD(L.y, in.y, nb * 6, nb * 6);
-  LOAD(L.I6, in.I6, nb * 36, nb * 36);
-  LOAD(L.lam, in.lam, nc, nc);
-  LOAD(L.pc, in.pc, ncont * 3, ncont * 3);
-  LOAD(L.act, in.act, ncont, ncont);
-  LOAD(L.A, in.A, nb * nv, 0);
-  LOAD(L.D, in.D, nv * nv, 0);
+  // ---- 1. the instance's inputs (cp.async: every copy in flight at once)
+#define LOAD(dst, src, n)             \
+  for (int i = tid; i < (n); i += nt) \
+    aligator::cp_async_small<sizeof(S)>(sm + (dst) + i, (src) + m * (n) + i)
+  LOAD(L.S_, in.S_, nv * 6);
+  LOAD(L.v, in.v, nv);
+  LOAD(L.Vpar, in.Vpar, nv * 6);
+  LOAD(L.Vdof, in.Vdof, nv * 6);
+  LOAD(L.Capar, in.Capar, nv * 6);
+  LOAD(L.Vb, in.Vb, nb * 6);
+  LOAD(L.Ca, in.Ca, nb * 6);
+  LOAD(L.Accb, in.Accb, nb * 6);
+  LOAD(L.h, in.h, nb * 6);
+  LOAD(L.y, in.y, nb * 6);
+  LOAD(L.I6, in.I6, nb * 36);
+  LOAD(L.lam, in.lam, nc);
+  LOAD(L.pc, in.pc, ncont * 3);
+  LOAD(L.act, in.act, ncont);
 #undef LOAD
-  for (int i = tid; i < nv * nv; i += nt) sm[L.ra1q + i] = sm[L.ra1v + i] = S(0);
-  for (int i = tid; i < nv * 6; i += nt) sm[L.F + i] = S(0);
+  aligator::cp_async_commit();
+  aligator::cp_async_wait<0>();
   __syncthreads();
 
-  // ---- pair tables: SxS[j,k] = S_j x S_k, G[j,k] = D[k,j] (X2 + X3) with
+  // ---- 2. pair tables: SxS[j,k] = S_j x S_k, G[j,k] = X2 + X3 with
   // X1 = S_j x (Vdof_k - Vpar_j), X2 = X1 x (S_k v_k),
-  // X3 = Vdof_k x (SxS[j,k] v_k); and CVS_k = Vdof_k x S_k
-  for (int e = tid; e < nv * nv; e += nt) {
-    const int j = e / nv, k = e % nv;
-    const S* Sj = sm + L.S_ + j * 6;
-    const S* Sk = sm + L.S_ + k * 6;
-    const S* Vdk = sm + L.Vdof + k * 6;
-    const S vk = sm[L.v + k];
-    S sxs[6], w[6], x1[6], x2[6], x3[6];
-    mcross(Sj, Sk, sxs);
-    for (int s = 0; s < 6; ++s) w[s] = Vdk[s] - sm[L.Vpar + j * 6 + s];
-    mcross(Sj, w, x1);
-    for (int s = 0; s < 6; ++s) w[s] = Sk[s] * vk;
-    mcross(x1, w, x2);
-    for (int s = 0; s < 6; ++s) w[s] = sxs[s] * vk;
-    mcross(Vdk, w, x3);
-    const S dkj = sm[L.D + k * nv + j];
-    for (int s = 0; s < 6; ++s) {
-      sm[L.SxS + e * 6 + s] = sxs[s];
-      sm[L.G + e * 6 + s] = dkj * (x2[s] + x3[s]);
+  // X3 = Vdof_k x (SxS[j,k] v_k), for the pairs with D[k,j] = 1; CVS_k =
+  // Vdof_k x S_k; f_b = y_b + Vb x* h_b; per contact F_c = (w_f, p x w_f +
+  // w_tau) and the point velocity pdot = v + omega x p
+  for (int e = tid; e < npair + nv + nb + ncont; e += nt) {
+    if (e < npair) {
+      const int j = __ldg(ix + I.pair_j + e), k = __ldg(ix + I.pair_k + e);
+      const S* Sj = sm + L.S_ + j * 6;
+      const S* Sk = sm + L.S_ + k * 6;
+      const S* Vdk = sm + L.Vdof + k * 6;
+      const S vk = sm[L.v + k];
+      S sxs[6], w[6], x1[6], x2[6], x3[6];
+      mcross(Sj, Sk, sxs);
+      for (int s = 0; s < 6; ++s) w[s] = Vdk[s] - sm[L.Vpar + j * 6 + s];
+      mcross(Sj, w, x1);
+      for (int s = 0; s < 6; ++s) w[s] = Sk[s] * vk;
+      mcross(x1, w, x2);
+      for (int s = 0; s < 6; ++s) w[s] = sxs[s] * vk;
+      mcross(Vdk, w, x3);
+      for (int s = 0; s < 6; ++s) {
+        sm[L.SxS + e * 6 + s] = sxs[s];
+        sm[L.G + e * 6 + s] = x2[s] + x3[s];
+      }
+    } else if (e < npair + nv) {
+      const int k = e - npair;
+      mcross(sm + L.Vdof + k * 6, sm + L.S_ + k * 6, sm + L.CVS + k * 6);
+    } else if (e < npair + nv + nb) {
+      const int b = e - npair - nv;
+      S t[6];
+      fcross(sm + L.Vb + b * 6, sm + L.h + b * 6, t);
+      for (int s = 0; s < 6; ++s) sm[L.fb + b * 6 + s] = sm[L.y + b * 6 + s] + t[s];
+    } else {
+      const int c = e - npair - nv - nb;
+      const S* pc = sm + L.pc + c * 3;
+      const S* Vbc = sm + L.Vb + tab.body[c] * 6;
+      const S* wf = sm + L.lam + tab.off[c];
+      S t[3];
+      cr3(pc, wf, t);
+      for (int r = 0; r < 3; ++r) {
+        sm[L.Fc + c * 6 + r] = wf[r];
+        sm[L.Fc + c * 6 + 3 + r] = t[r] + (tab.dim[c] == 6 ? wf[3 + r] : S(0));
+      }
+      cr3(Vbc + 3, pc, t);
+      for (int r = 0; r < 3; ++r) sm[L.pdot + c * 3 + r] = t[r] + Vbc[r];
     }
   }
-  for (int k = tid; k < nv; k += nt) {
-    mcross(sm + L.Vdof + k * 6, sm + L.S_ + k * 6, sm + L.CVS + k * 6);
-  }
   __syncthreads();
 
-  // ---- body pass: force derivatives and the tau-derivative accumulators
-  for (int b = 0; b < nb; ++b) {
-    body_contractions(sm, L, nv, b);
-    __syncthreads();
-    const S* I6b = sm + L.I6 + b * 36;
-    const S* Vbb = sm + L.Vb + b * 6;
-    const S* hb = sm + L.h + b * 6;
-    const S* yb = sm + L.y + b * 6;
-    for (int j = tid; j < nv; j += nt) {
+  // ---- 3. a thread a slot (b, j): df_b[j], dfv_b[j] and the contact rows;
+  // then F_k = sum over the bodies k moves of f_b, and zero contact rows
+  for (int e = tid; e < nslot + nv * 6 + ncont * nv; e += nt) {
+    if (e < nslot) {
+      const int b = __ldg(ix + I.slot_b + e), j = __ldg(ix + I.slot_j + e);
       S dV[6], dAcc[6], dVv[6], dAccv[6], t1[6], t2[6], t3[6], df[6], dfv[6];
-      body_derivs(sm, L, nv, b, j, dV, dAcc, dVv, dAccv);
-      const S abj = sm[L.A + b * nv + j];
+      slot_derivs(sm, ix, L, I, e, b, j, dV, dAcc, dVv, dAccv);
       const S* Sj = sm + L.S_ + j * 6;
-      // dI6con(Accb_b, y_b) = abj (S_j x* y_b - I6_b (S_j x Accb_b))
-      fcross(Sj, yb, t1);
+      const S* I6b = sm + L.I6 + b * 36;
+      const S* Vbb = sm + L.Vb + b * 6;
+      const S* hb = sm + L.h + b * 6;
+      // dI6con(Accb_b, y_b) = S_j x* y_b - I6_b (S_j x Accb_b)
+      fcross(Sj, sm + L.y + b * 6, t1);
       mcross(Sj, sm + L.Accb + b * 6, t2);
       mat6(I6b, t2, t3);
-      for (int s = 0; s < 6; ++s) df[s] = abj * (t1[s] - t3[s]);
+      for (int s = 0; s < 6; ++s) df[s] = t1[s] - t3[s];
       mat6(I6b, dAcc, t1);
       fcross(dV, hb, t2);
       for (int s = 0; s < 6; ++s) df[s] += t1[s] + t2[s];
@@ -291,7 +355,7 @@ fd_rows_kernel(const int nv, const int nb, const int nc, const Table tab,
       mcross(Sj, Vbb, t2);
       mat6(I6b, t2, t3);
       mat6(I6b, dV, t2);
-      for (int s = 0; s < 6; ++s) t1[s] = abj * (t1[s] - t3[s]) + t2[s];
+      for (int s = 0; s < 6; ++s) t1[s] = (t1[s] - t3[s]) + t2[s];
       fcross(Vbb, t1, t2);
       for (int s = 0; s < 6; ++s) df[s] += t2[s];
       // dfv = I6 dAccv + dVv x* h + Vb x* (I6 dVv)
@@ -300,128 +364,126 @@ fd_rows_kernel(const int nv, const int nb, const int nc, const Table tab,
       mat6(I6b, dVv, t2);
       fcross(Vbb, t2, t3);
       for (int s = 0; s < 6; ++s) {
-        sm[L.DF + j * 6 + s] = df[s];
-        sm[L.DFV + j * 6 + s] = dfv[s] + t1[s] + t3[s];
+        sm[L.DF + e * 6 + s] = df[s];
+        sm[L.DFV + e * 6 + s] = dfv[s] + t1[s] + t3[s];
       }
-    }
-    if (tid == nt - 1) {  // f_b = y_b + Vb x* h_b
-      S t[6];
-      fcross(Vbb, hb, t);
-      for (int s = 0; s < 6; ++s) sm[L.fb + s] = yb[s] + t[s];
-    }
-    __syncthreads();
-    const S* ab = sm + L.A + b * nv;
-    for (int e = tid; e < nv * nv; e += nt) {
-      const int k = e / nv, j = e % nv;
-      const S* Sk = sm + L.S_ + k * 6;
-      sm[L.ra1q + e] += ab[k] * dot6(Sk, sm + L.DF + j * 6);
-      sm[L.ra1v + e] += ab[k] * dot6(Sk, sm + L.DFV + j * 6);
-    }
-    for (int e = tid; e < nv * 6; e += nt) sm[L.F + e] += ab[e / 6] * sm[L.fb + e % 6];
-  }
-  __syncthreads();
-
-  // ---- subtree-force term: ra1_q[k,j] += D[k,j] SxS[j,k] . F_k
-  for (int e = tid; e < nv * nv; e += nt) {
-    const int k = e / nv, j = e % nv;
-    sm[L.ra1q + e] +=
-        sm[L.D + e] * dot6(sm + L.SxS + (j * nv + k) * 6, sm + L.F + k * 6);
-  }
-
-  // ---- contacts: acceleration rows and the J' lam transport
-  for (int c = 0; c < ncont; ++c) {
-    const int bc = tab.body[c], dim = tab.dim[c], off = tab.off[c];
-    __syncthreads();
-    body_contractions(sm, L, nv, bc);
-    __syncthreads();
-    const S* pc = sm + L.pc + c * 3;
-    const S* Vbc = sm + L.Vb + bc * 6;
-    const S* omega = Vbc + 3;
-    const S* AccA = sm + L.Accb + bc * 6 + 3;
-    const S* wf = sm + L.lam + off;
-    const S act = sm[L.act + c];
-    S pdot[3];
-    cr3(omega, pc, pdot);
-    for (int r = 0; r < 3; ++r) pdot[r] += Vbc[r];
-    for (int j = tid; j < nv; j += nt) {
-      S dV[6], dAcc[6], dVv[6], dAccv[6], dp[3], t[3], u[3], dpdot[3], dpdotv[3];
-      S lq[3], lv[3];
-      body_derivs(sm, L, nv, bc, j, dV, dAcc, dVv, dAccv);
-      const S abj = sm[L.A + bc * nv + j];
-      const S* Sj = sm + L.S_ + j * 6;
-      cr3(Sj + 3, pc, t);
-      for (int r = 0; r < 3; ++r) dp[r] = abj * (Sj[r] + t[r]);
-      // dpdot = dVL + dom x p + omega x dp
-      cr3(dV + 3, pc, t);
-      cr3(omega, dp, u);
-      for (int r = 0; r < 3; ++r) dpdot[r] = dV[r] + t[r] + u[r];
-      // dalpha_q = dAccL + dAccA x p + AccA x dp + dom x pdot + omega x dpdot
-      for (int r = 0; r < 3; ++r) lq[r] = dAcc[r];
-      cr3(dAcc + 3, pc, t);
-      for (int r = 0; r < 3; ++r) lq[r] += t[r];
-      cr3(AccA, dp, t);
-      for (int r = 0; r < 3; ++r) lq[r] += t[r];
-      cr3(dV + 3, pdot, t);
-      for (int r = 0; r < 3; ++r) lq[r] += t[r];
-      cr3(omega, dpdot, t);
-      for (int r = 0; r < 3; ++r) lq[r] += t[r] + kd * dpdot[r] + kp * dp[r];
-      // dpdotv = dVLv + domv x p
-      cr3(dVv + 3, pc, t);
-      for (int r = 0; r < 3; ++r) dpdotv[r] = dVv[r] + t[r];
-      // dalpha_v = dAccLv + dAccAv x p + domv x pdot + omega x dpdotv
-      for (int r = 0; r < 3; ++r) lv[r] = dAccv[r];
-      cr3(dAccv + 3, pc, t);
-      for (int r = 0; r < 3; ++r) lv[r] += t[r];
-      cr3(dVv + 3, pdot, t);
-      for (int r = 0; r < 3; ++r) lv[r] += t[r];
-      cr3(omega, dpdotv, t);
-      for (int r = 0; r < 3; ++r) lv[r] += t[r] + kd * dpdotv[r];
-      S* rq = out.r2q + (m * nc + off) * nv + j;
-      S* rv = out.r2v + (m * nc + off) * nv + j;
-      for (int r = 0; r < 3; ++r) {
-        rq[r * nv] = act * lq[r];
-        rv[r * nv] = act * lv[r];
-      }
-      if (dim == 6) {
+      for (int c = 0; c < ncont; ++c) {
+        if (tab.body[c] != b) continue;
+        const int dim = tab.dim[c], off = tab.off[c];
+        const S* pc = sm + L.pc + c * 3;
+        const S* omega = Vbb + 3;
+        const S* AccA = sm + L.Accb + b * 6 + 3;
+        const S* pdot = sm + L.pdot + c * 3;
+        const S act = sm[L.act + c];
+        S dp[3], t[3], u[3], dpdot[3], dpdotv[3], lq[3], lv[3];
+        cr3(Sj + 3, pc, t);
+        for (int r = 0; r < 3; ++r) dp[r] = Sj[r] + t[r];
+        // dpdot = dVL + dom x p + omega x dp
+        cr3(dV + 3, pc, t);
+        cr3(omega, dp, u);
+        for (int r = 0; r < 3; ++r) dpdot[r] = dV[r] + t[r] + u[r];
+        // dalpha_q = dAccL + dAccA x p + AccA x dp + dom x pdot + omega x dpdot
+        for (int r = 0; r < 3; ++r) lq[r] = dAcc[r];
+        cr3(dAcc + 3, pc, t);
+        for (int r = 0; r < 3; ++r) lq[r] += t[r];
+        cr3(AccA, dp, t);
+        for (int r = 0; r < 3; ++r) lq[r] += t[r];
+        cr3(dV + 3, pdot, t);
+        for (int r = 0; r < 3; ++r) lq[r] += t[r];
+        cr3(omega, dpdot, t);
+        for (int r = 0; r < 3; ++r) lq[r] += t[r] + kd * dpdot[r] + kp * dp[r];
+        // dpdotv = dVLv + domv x p
+        cr3(dVv + 3, pc, t);
+        for (int r = 0; r < 3; ++r) dpdotv[r] = dVv[r] + t[r];
+        // dalpha_v = dAccLv + dAccAv x p + domv x pdot + omega x dpdotv
+        for (int r = 0; r < 3; ++r) lv[r] = dAccv[r];
+        cr3(dAccv + 3, pc, t);
+        for (int r = 0; r < 3; ++r) lv[r] += t[r];
+        cr3(dVv + 3, pdot, t);
+        for (int r = 0; r < 3; ++r) lv[r] += t[r];
+        cr3(omega, dpdotv, t);
+        for (int r = 0; r < 3; ++r) lv[r] += t[r] + kd * dpdotv[r];
+        S* rq = out.r2q + (m * nc + off) * nv + j;
+        S* rv = out.r2v + (m * nc + off) * nv + j;
         for (int r = 0; r < 3; ++r) {
-          rq[(3 + r) * nv] = act * (dAcc[3 + r] + kd * dV[3 + r]);
-          rv[(3 + r) * nv] = act * (dAccv[3 + r] + kd * dVv[3 + r]);
+          rq[r * nv] = act * lq[r];
+          rv[r * nv] = act * lv[r];
         }
+        if (dim == 6) {
+          for (int r = 0; r < 3; ++r) {
+            rq[(3 + r) * nv] = act * (dAcc[3 + r] + kd * dV[3 + r]);
+            rv[(3 + r) * nv] = act * (dAccv[3 + r] + kd * dVv[3 + r]);
+          }
+        }
+        cr3(dp, sm + L.lam + off, sm + L.dpxw + (c * nv + j) * 3);
       }
-      cr3(dp, wf, sm + L.dpxw + j * 3);
-    }
-    if (tid == nt - 1) {  // F_c = (w_f, p x w_f + w_tau)
-      S t[3];
-      cr3(pc, wf, t);
-      for (int r = 0; r < 3; ++r) {
-        sm[L.Fc + r] = wf[r];
-        sm[L.Fc + 3 + r] = t[r] + (dim == 6 ? wf[3 + r] : S(0));
-      }
-    }
-    __syncthreads();
-    const S* ab = sm + L.A + bc * nv;
-    for (int e = tid; e < nv * nv; e += nt) {
-      const int k = e / nv, j = e % nv;
-      const S* Sk = sm + L.S_ + k * 6;
-      const S* dpxw = sm + L.dpxw + j * 3;
-      const S s1 = dot6(sm + L.SxS + (j * nv + k) * 6, sm + L.Fc);
-      sm[L.ra1q + e] += ab[k] * (sm[L.D + e] * s1) +
-                        ab[k] * (Sk[3] * dpxw[0] + Sk[4] * dpxw[1] + Sk[5] * dpxw[2]);
+    } else if (e < nslot + nv * 6) {
+      const int k = (e - nslot) / 6, s = (e - nslot) % 6;
+      S f = S(0);
+      const int t1 = __ldg(ix + I.sub_off + k + 1);
+      for (int t = __ldg(ix + I.sub_off + k); t < t1; ++t)
+        f += sm[L.fb + __ldg(ix + I.sub + t) * 6 + s];
+      sm[L.F + k * 6 + s] = f;
+    } else {
+      const int c = (e - nslot - nv * 6) / nv, j = (e - nslot - nv * 6) % nv;
+      if (__ldg(ix + I.slot_of + tab.body[c] * nv + j) >= 0) continue;
+      S* rq = out.r2q + (m * nc + tab.off[c]) * nv + j;
+      S* rv = out.r2v + (m * nc + tab.off[c]) * nv + j;
+      for (int r = 0; r < tab.dim[c]; ++r) rq[r * nv] = rv[r * nv] = S(0);
     }
   }
   __syncthreads();
+
+  // ---- 4. a thread an entry (k, j) of ra1_q and ra1_v, those with the
+  // most terms first: ra1_q[k,j] = sum_b A[b,k] S_k . df_b[j] + D[k,j]
+  // SxS[j,k] . F_k + the contacts' J' lam transport A[bc,k] (D[k,j]
+  // SxS[j,k] . F_c + S_k,ang . (dp_j x w_f)); ra1_v[k,j] = sum_b A[b,k] S_k .
+  // dfv_b[j]. The bodies with A[b,k] = A[b,j] = 1 are listed by the host;
+  // an entry without any is zero.
   for (int e = tid; e < nv * nv; e += nt) {
-    out.ra1q[m * nv * nv + e] = sm[L.ra1q + e];
-    out.ra1v[m * nv * nv + e] = sm[L.ra1v + e];
+    const int kj = __ldg(ix + I.ent + e);
+    S q = S(0), v = S(0);
+    if (e < tab.nrel) {
+      const int k = kj / nv, j = kj % nv;
+      const int pkj = __ldg(ix + I.ent_pair + e);  // D[k,j] = 1
+      const S* Sk = sm + L.S_ + k * 6;
+      const int t1 = __ldg(ix + I.eb_off + e + 1);
+      for (int t = __ldg(ix + I.eb_off + e); t < t1; ++t) {
+        const int s = __ldg(ix + I.eb + t);
+        q += dot6(Sk, sm + L.DF + s * 6);
+        v += dot6(Sk, sm + L.DFV + s * 6);
+      }
+      if (pkj >= 0) q += dot6(sm + L.SxS + pkj * 6, sm + L.F + k * 6);
+      for (int c = 0; c < ncont; ++c) {
+        const int bc = tab.body[c];
+        if (__ldg(ix + I.slot_of + bc * nv + k) < 0 ||
+            __ldg(ix + I.slot_of + bc * nv + j) < 0)
+          continue;
+        const S* dpxw = sm + L.dpxw + (c * nv + j) * 3;
+        const S s1 = pkj >= 0 ? dot6(sm + L.SxS + pkj * 6, sm + L.Fc + c * 6) : S(0);
+        q += s1 + (Sk[3] * dpxw[0] + Sk[4] * dpxw[1] + Sk[5] * dpxw[2]);
+      }
+    }
+    out.ra1q[m * nv * nv + kj] = q;
+    out.ra1v[m * nv * nv + kj] = v;
   }
 }
 
 template <typename S>
-int launch(int K, int nv, int nb, const int* table, const double* gains,
-           const In<S>& in, const Out<S>& out, cudaStream_t stream) {
+int launch(int K, int nv, int nb, const int* table, const double* gains, const In<S>& in,
+           const int* ix, const Out<S>& out, cudaStream_t stream) {
   Table tab{};
   tab.ncont = table[0];
+  const int* lens = table + 1 + 2 * kMaxContacts;
+  tab.npair = lens[0];
+  tab.nslot = lens[1];
+  tab.nrel = lens[2];
+  tab.nsp = lens[3];
+  tab.neb = lens[4];
   if (K < 1 || nv < 1 || nv > kMaxDim || nb < 1 || nb > kMaxDim) return -1;
+  if (tab.npair < 1 || tab.npair > nv * nv || tab.nslot < 1 || tab.nslot > nb * nv ||
+      tab.nrel < 1 || tab.nrel > nv * nv || tab.nsp < 0 || tab.neb < 0)
+    return -1;
   if (tab.ncont < 1 || tab.ncont > kMaxContacts) return -1;
   int nc = 0;
   for (int c = 0; c < tab.ncont; ++c) {
@@ -435,48 +497,45 @@ int launch(int K, int nv, int nb, const int* table, const double* gains,
   if (nc > kMaxDim) return -1;
   tab.kd = gains[0];
   tab.kp = gains[1];
-  const size_t smem = sizeof(S) * static_cast<size_t>(Layout(nv, nb, nc, tab.ncont).total);
+  const Layout L(nv, nb, nc, tab.ncont, tab.npair, tab.nslot);
+  const size_t smem = sizeof(S) * static_cast<size_t>(L.total);
   if (smem > kMaxSmem) return -1;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fd_rows_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  fd_rows_kernel<S><<<K, kThreads, smem, stream>>>(nv, nb, nc, tab, in, out);
+  const cudaError_t e = aligator::opt_in_shared(fd_rows_kernel<S>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  fd_rows_kernel<S><<<K, kThreads, smem, stream>>>(nv, nb, nc, tab, in, ix, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename S>
-int entry(int K, int nv, int nb, const int* table, const double* gains,
-          const S* S_, const S* v, const S* Vb, const S* Vpar, const S* Vdof,
-          const S* Ca, const S* Capar, const S* Accb, const S* h, const S* y,
-          const S* I6, const S* lam, const S* pc, const S* act, const S* A,
-          const S* D, S* ra1q, S* ra1v, S* r2q, S* r2v, cudaStream_t stream) {
-  const In<S> in{S_, v, Vb, Vpar, Vdof, Ca, Capar, Accb, h, y, I6, lam, pc, act, A, D};
+int entry(int K, int nv, int nb, const int* table, const double* gains, const S* S_,
+          const S* v, const S* Vb, const S* Vpar, const S* Vdof, const S* Ca,
+          const S* Capar, const S* Accb, const S* h, const S* y, const S* I6, const S* lam,
+          const S* pc, const S* act, const int* ix, S* ra1q, S* ra1v, S* r2q, S* r2v,
+          cudaStream_t stream) {
+  const In<S> in{S_, v, Vb, Vpar, Vdof, Ca, Capar, Accb, h, y, I6, lam, pc, act};
   const Out<S> out{ra1q, ra1v, r2q, r2v};
-  return launch<S>(K, nv, nb, table, gains, in, out, stream);
+  return launch<S>(K, nv, nb, table, gains, in, ix, out, stream);
 }
 
 }  // namespace
 
 // Arguments: K instances, nv, nb; the host tables `table` (ncont, then
-// kMaxContacts body indices, then kMaxContacts dims) and `gains` (kd, kp);
-// the per-instance inputs S (K,nv,6), v (K,nv), Vb (K,nb,6), Vpar, Vdof
+// kMaxContacts body indices, then kMaxContacts dims, then the lengths npair,
+// nslot, nrel, nsp, neb of the index lists) and `gains` (kd, kp); the
+// per-instance inputs S (K,nv,6), v (K,nv), Vb (K,nb,6), Vpar, Vdof
 // (K,nv,6), Ca (K,nb,6), Capar (K,nv,6), Accb, h, y (K,nb,6), I6
-// (K,nb,6,6), lam (K,nc), pc (K,ncont,3), act (K,ncont); the masks A (nb,nv)
-// and D (nv,nv); the outputs ra1q, ra1v (K,nv,nv), r2q, r2v (K,nc,nv).
-#define FD_ROWS_ENTRY(NAME, T)                                                 \
-  extern "C" int NAME(int K, int nv, int nb, const int* table,                 \
-                      const double* gains, const T* S_, const T* v,            \
-                      const T* Vb, const T* Vpar, const T* Vdof, const T* Ca,  \
-                      const T* Capar, const T* Accb, const T* h, const T* y,   \
-                      const T* I6, const T* lam, const T* pc, const T* act,    \
-                      const T* A, const T* D, T* ra1q, T* ra1v, T* r2q,        \
-                      T* r2v, cudaStream_t stream) {                           \
-    return entry<T>(K, nv, nb, table, gains, S_, v, Vb, Vpar, Vdof, Ca, Capar, \
-                    Accb, h, y, I6, lam, pc, act, A, D, ra1q, ra1v, r2q, r2v,  \
-                    stream);                                                   \
+// (K,nb,6,6), lam (K,nc), pc (K,ncont,3), act (K,ncont); the index lists
+// (int32 on the device, laid out as Index says); the outputs ra1q, ra1v
+// (K,nv,nv), r2q, r2v (K,nc,nv).
+#define FD_ROWS_ENTRY(NAME, T)                                                       \
+  extern "C" int NAME(int K, int nv, int nb, const int* table, const double* gains,  \
+                      const T* S_, const T* v, const T* Vb, const T* Vpar,           \
+                      const T* Vdof, const T* Ca, const T* Capar, const T* Accb,     \
+                      const T* h, const T* y, const T* I6, const T* lam, const T* pc, \
+                      const T* act, const int* ix, T* ra1q, T* ra1v, T* r2q, T* r2v, \
+                      cudaStream_t stream) {                                         \
+    return entry<T>(K, nv, nb, table, gains, S_, v, Vb, Vpar, Vdof, Ca, Capar, Accb, \
+                    h, y, I6, lam, pc, act, ix, ra1q, ra1v, r2q, r2v, stream);       \
   }
 
 FD_ROWS_ENTRY(fd_rows_f32, float)

@@ -14,12 +14,15 @@ inertia-transport tensor dI₆ explicitly); CUDA tensors take the kernel of
 ``csrc/fd_rows.cu`` in float32 or float64, fed by
 :func:`.derivatives.fd_rows_inputs`, or raise. The contact configuration
 (body, dim and offset of each contact, kd, kp) is a runtime table of the
-kernel, so one build serves every robot. ``LAUNCHES`` counts launches.
+kernel, so one build serves every robot; the kernel walks only the nonzeros
+of the topology masks, from the index lists of :func:`support_lists`, built
+once per model. ``LAUNCHES`` counts launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -37,6 +40,59 @@ _SOURCE = "fd_rows"
 _C_FUNCS = {torch.float32: "fd_rows_f32", torch.float64: "fd_rows_f64"}
 INPUTS = ("S", "v", "Vb", "Vpar", "Vdof", "Ca", "Capar", "Accb", "h", "y", "I6",
           "lam", "pcs", "act")
+
+
+@functools.lru_cache(maxsize=None)
+def support_lists(joint_types: tuple, parents: tuple):
+    """The kernel's index lists, from the topology masks ``A (nb, nv)`` (dof
+    k moves body b) and ``D (nv, nv)`` (D[k, j]: joint(j) is joint(k) or its
+    ancestor), as one int32 array laid out as ``Index`` in
+    ``csrc/fd_rows.cu`` says, and their lengths ``(npair, nslot, nrel, nsp,
+    neb)``:
+
+    * the pairs (j, k) with D[k, j] = 1 (``pair_j``, ``pair_k``);
+    * the slots (b, j) with A[b, j] = 1 (``slot_b``, ``slot_j``, and
+      ``slot_of``, (nb, nv), -1 elsewhere); for each slot its pairs (j, k)
+      over the k with A[b, k] = 1 (``sp_off``, ``sp``, k ascending);
+    * for each dof k the bodies b with A[b, k] = 1 (``sub_off``, ``sub``);
+    * the entries k nv + j of an (nv, nv) output (``ent``), those that
+      some body's dofs include both k and j first (``nrel`` of them, the
+      most such bodies first), each with its pair (j, k) or -1
+      (``ent_pair``) and the slots (b, j) of those bodies (``eb_off``,
+      ``eb``, b ascending).
+    """
+    top = rbd.topology(joint_types, parents)
+    A, D = top["A"] != 0, top["D"] != 0
+    nb, nv = A.shape
+    pj, pk = np.nonzero(D.T)  # pairs (j, k) with D[k, j], ascending in (j, k)
+    pair_of = np.full((nv, nv), -1)
+    pair_of[pj, pk] = np.arange(len(pj))
+    slot_b, slot_j = np.nonzero(A)  # ascending in (b, j)
+    slot_of = np.full((nb, nv), -1)
+    slot_of[slot_b, slot_j] = np.arange(len(slot_b))
+    sp = [pair_of[j, np.nonzero(A[b] & D[:, j])[0]] for b, j in zip(slot_b, slot_j)]
+    _, sub = np.nonzero(A.T)
+    both = A[:, :, None] & A[:, None, :]  # (b, k, j)
+    count = both.sum(0).ravel()
+    ent = np.argsort(-count, kind="stable")
+    nrel = int((count > 0).sum())
+    k, j = np.divmod(ent[:nrel], nv)
+    eb = [slot_of[np.nonzero(both[:, a, c])[0], c] for a, c in zip(k, j)]
+
+    def offsets(lists):
+        return np.concatenate([[0], np.cumsum([len(x) for x in lists])])
+
+    parts = [pj, pk, slot_b, slot_j, slot_of.ravel(), offsets(sp), *sp,
+             np.concatenate([[0], np.cumsum(A.sum(0))]), sub, ent, pair_of[j, k],
+             offsets(eb), *eb]
+    lens = (len(pj), len(slot_b), nrel, sum(map(len, sp)), sum(map(len, eb)))
+    return np.concatenate(parts).astype(np.int32), lens
+
+
+@functools.lru_cache(maxsize=None)
+def _device_lists(joint_types: tuple, parents: tuple, device):
+    lists, lens = support_lists(joint_types, parents)
+    return torch.as_tensor(lists, device=device), lens
 
 
 def fd_rows_plain(model, q: Tensor, v: Tensor, a: Tensor, lam: Tensor,
@@ -117,20 +173,21 @@ def launch(model, inputs: dict, contact_bodies, contact_dims, kd: float, kp: flo
             raise ValueError(f"fd_rows: {name} is {tuple(x.shape)} {x.dtype} on "
                              f"{x.device}, want {tuple(lead + want[name])} {dtype}")
         flat.append(x.reshape((K,) + want[name]).contiguous())
-    tab = rbd.tables(model, S)
-    A, D = tab["A"].contiguous(), tab["D"].contiguous()
-    if A.shape != (nb, nv) or six != 6:
-        raise ValueError(f"fd_rows: masks {tuple(A.shape)} do not match nb={nb}, nv={nv}")
+    if (model.njoints, model.nv) != (nb, nv) or six != 6:
+        raise ValueError(f"fd_rows: the model's (nb, nv) = {(model.njoints, model.nv)} "
+                         f"does not match nb={nb}, nv={nv}")
+    lists, lens = _device_lists(model.joint_types, model.parents, dev)
     out = [S.new_empty((K, nv, nv)), S.new_empty((K, nv, nv)),
            S.new_empty((K, nc, nv)), S.new_empty((K, nc, nv))]
     if K:
-        table = (ctypes.c_int * (1 + 2 * MAX_CONTACTS))(
+        table = (ctypes.c_int * (1 + 2 * MAX_CONTACTS + len(lens)))(
             ncont, *contact_bodies, *([0] * (MAX_CONTACTS - ncont)),
-            *contact_dims, *([0] * (MAX_CONTACTS - ncont)))
+            *contact_dims, *([0] * (MAX_CONTACTS - ncont)), *lens)
         gains = (ctypes.c_double * 2)(float(kd), float(kp))
-        # pointers: the two host tables, the inputs, the masks, the outputs
-        fn = _build.c_function(_SOURCE, _C_FUNCS[dtype], 3, 2 + len(flat) + 2 + 4 + 1)
+        # pointers: the two host tables, the inputs, the index lists, the
+        # outputs, the stream
+        fn = _build.c_function(_SOURCE, _C_FUNCS[dtype], 3, 2 + len(flat) + 1 + 4 + 1)
         _build.run(fn, dev, K, nv, nb, ctypes.addressof(table), ctypes.addressof(gains),
-                   *(x.data_ptr() for x in flat + [A, D] + out), what="fd_rows")
+                   *(x.data_ptr() for x in flat + [lists] + out), what="fd_rows")
         LAUNCHES += 1
     return tuple(o.reshape(lead + o.shape[1:]) for o in out)

@@ -215,8 +215,9 @@ def _device_tables(joint_types: tuple, parents: tuple, dtype, device) -> dict:
     ``dtype``), made once: a host-to-device copy per call would serialize
     the stream."""
     top = topology(joint_types, parents)
-    # row-major: the CUDA kernels read A and D through raw pointers (numpy's
-    # A = anc[:, dof_joint] comes out column-major)
+    # row-major (numpy's A = anc[:, dof_joint] comes out column-major): the
+    # sums over A and D keep the order, and the fp32 roundoff, that the
+    # tests and fixtures were made with
     out = {k: torch.as_tensor(np.ascontiguousarray(top[k]), dtype=dtype, device=device)
            for k in ("q_mask", "q_default", "A", "D")}
     for k in ("codes", "q_idx", "dof_joint", "dof_col"):

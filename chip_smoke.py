@@ -12,9 +12,11 @@ any failed check raises and the script exits non-zero:
    against its plain PyTorch version on the card, at the main paths' shapes
    (fp32) and at the test shapes (fp64), and timed beside its memory/compute
    bound and, where one PyTorch call computes the same function, that call;
-   K3 and K4 also print their shared memory, registers and resident blocks
-   per SM at the main shapes, and K3 its time at batches of 132 to 1024
-   (1 to 7.8 scenarios for each of the 132 SMs);
+   K2 at every shape the paths launch (the LQ loop's at batch 16 and 256,
+   the contact KKT's at both walk batches), K5 at both walk batches; K3 and
+   K4 also print their shared memory, registers and resident blocks per SM
+   at the main shapes, and K3 its time at batches of 132 to 1024 (1 to 7.8
+   scenarios for each of the 132 SMs);
 4. the SE(2)-car path: batched ProxDDP (N=50, batch 32768, fp32, the
    ``bench.py`` configuration) on the card, with the plain versions patched
    to raise and the kernels' launch counts read around it, the converged
@@ -390,71 +392,68 @@ def convex_knots(B, N, nx, nu, nc, dtype, seed):
 def k2_phase():
     from aligator_tpu_torch.gar import spd_solve as sp
 
+    # the register routes (4 x 4 and 4 x 8 tiles) and, past 256 tiles, the
+    # shared-memory route ((64, 65), (64, 128))
     for i, (n, r) in enumerate(((12, 1), (24, 13), (56, 57), (22, 57), (64, 64),
-                                (28, 84), (12, 84), (64, 128))):
+                                (28, 84), (12, 84), (64, 65), (64, 128))):
         A, R = spd_batch(130, n, r, torch.float64, SEED + i)
         err = rel_err(sp.spd_solve(A, R), sp.spd_solve_plain(A, R))
         print(f"[kernel] spd_solve fp64 M=130 n={n} r={r}: max rel err {err:.3e} "
               f"(tol {FP64_TOL:g})")
         check(err <= FP64_TOL, f"spd_solve fp64 n={n} r={r}: {err}")
 
-    # the LQR-56 per-stage pair: the Schur solve and the reduced KKT
-    tot = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0,
-               flops=0.0, max_abs_err=0.0)
-    for i, (M, n, r) in enumerate(((LQR_BATCH, 56, 57), (LQR_BATCH, 22, 57))):
+    # every shape the paths launch: the per-stage loop's Schur solve and
+    # reduced KKT (n = 56 and 22, r = 57) at the LQR-56 and walk-256 batch
+    # and at the walk's batch 16; the contact-KKT pair (mass matrix n = 28,
+    # Delassus n = 12, r = 3 nv = 84) at K = B N for both walk batches
+    n_walk = 2 * TALOS_T_SS + 3 * TALOS_T_DS
+    shapes = [("LQ loop", M, n, 57) for M in (LQR_BATCH, TALOS_BATCHES[0])
+              for n in (56, 22)]
+    shapes += [("contact KKT", b * n_walk, n, 84) for b in TALOS_BATCHES for n in (28, 12)]
+    by_shape = {}
+    for i, (what, M, n, r) in enumerate(shapes):
         A, R = spd_batch(M, n, r, torch.float32, SEED + 10 + i)
         X = sp.spd_solve(A, R)
         ref = sp.spd_solve_plain(A, R)
         ref64 = sp.spd_solve_plain(A.double(), R.double())
         torch.cuda.synchronize()
         err = rel_err(X, ref)
-        print(f"[kernel] spd_solve fp32 M={M} n={n} r={r}: vs plain {err:.2e} "
-              f"(tol {K2_FP32_TOL:g}); vs fp64 plain: kernel "
-              f"{rel_err(X.double(), ref64):.2e}, plain {rel_err(ref.double(), ref64):.2e}")
         check(torch.isfinite(X).all().item(), "non-finite spd_solve output")
-        check(err <= K2_FP32_TOL, f"spd_solve fp32 n={n}: {err}")
-        ms = kernel_ms(lambda: sp.launch(A, R), 200, "spd_solve_kernel")
-        call_ms = avg_time_ms(lambda: sp.spd_solve(A, R), 200)
-        plain_ms = avg_time_ms(lambda: sp.spd_solve_plain(A, R), 50)
-        lib_ms = avg_time_ms(lambda: torch.linalg.solve(A, R), 50)
-        nbytes = 4 * M * (n * n + 2 * n * r)
+        check(err <= K2_FP32_TOL, f"spd_solve fp32 M={M} n={n} r={r}: {err}")
+        reps = 200 if M <= 512 else 50
+        ms = kernel_ms(lambda: sp.launch(A, R), reps, "spd_solve_kernel")
+        call_ms = avg_time_ms(lambda: sp.spd_solve(A, R), reps)
+        plain_ms = avg_time_ms(lambda: sp.spd_solve_plain(A, R), 20)
+        lib_ms = avg_time_ms(lambda: torch.linalg.solve(A, R), 20)
+        nbytes = 4 * M * (n * (n + 1) // 2 + 2 * n * r)  # A's lower triangle, R, X
         flops = M * (n ** 3 / 3 + 2 * n * n * r)
         bms, by = bound(nbytes, flops)
-        print(f"[kernel] spd_solve fp32 M={M} n={n} r={r}: kernel {ms:.4f} ms "
-              f"(wrapper call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-              f"torch.linalg.solve {lib_ms:.4f} ms; bound {bms:.4f} ms ({by}: "
-              f"{nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
-        for k, v in (("ms", ms), ("call_ms", call_ms), ("plain_ms", plain_ms),
-                     ("library_ms", lib_ms), ("nbytes", nbytes), ("flops", flops)):
-            tot[k] += v
-        tot["max_abs_err"] = max(tot["max_abs_err"], abs_err(X, ref))
+        print(f"[kernel] spd_solve fp32 {what} M={M} n={n} r={r}: vs plain {err:.2e} "
+              f"(tol {K2_FP32_TOL:g}), vs fp64 plain: kernel "
+              f"{rel_err(X.double(), ref64):.2e}, plain {rel_err(ref.double(), ref64):.2e}; "
+              f"kernel {ms:.4f} ms (wrapper call {call_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, torch.linalg.solve {lib_ms:.4f} ms; bound "
+              f"{bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP; "
+              f"kernel {ms / bms:.1f}x)")
+        by_shape[f"M={M} n={n} r={r}"] = dict(
+            ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+            bound_by=by, nbytes=nbytes, flops=flops, max_abs_err=abs_err(X, ref))
+        del A, R, X, ref, ref64
+
+    # the kernel line: one stage of the LQR-56 loop, both solves
+    pair = [by_shape[f"M={LQR_BATCH} n={n} r=57"] for n in (56, 22)]
+    tot = {k: sum(p[k] for p in pair)
+           for k in ("ms", "call_ms", "plain_ms", "library_ms", "nbytes", "flops")}
     bms, by = bound(tot["nbytes"], tot["flops"])
     print(f"[kernel] spd_solve, one LQR-56 stage (both solves): kernel "
           f"{tot['ms']:.4f} ms, bound {bms:.4f} ms ({by})")
-    contact = {}
-    M = TALOS_BATCHES[0] * (2 * TALOS_T_SS + 3 * TALOS_T_DS)  # K = B N
-    for i, (n, r) in enumerate(((28, 84), (12, 84))):
-        A, R = spd_batch(M, n, r, torch.float32, SEED + 30 + i)
-        X = sp.spd_solve(A, R)
-        ref = sp.spd_solve_plain(A, R)
-        err = rel_err(X, ref)
-        check(err <= K2_FP32_TOL, f"spd_solve fp32 n={n} r={r}: {err}")
-        ms = kernel_ms(lambda: sp.launch(A, R), 100, "spd_solve_kernel")
-        plain_ms = avg_time_ms(lambda: sp.spd_solve_plain(A, R), 20)
-        lib_ms = avg_time_ms(lambda: torch.linalg.solve(A, R), 20)
-        nbytes = 4 * M * (n * n + 2 * n * r)
-        bms_c, by_c = bound(nbytes, M * (n ** 3 / 3 + 2 * n * n * r))
-        print(f"[kernel] spd_solve fp32 contact KKT M={M} n={n} r={r}: vs plain "
-              f"{err:.2e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"torch.linalg.solve {lib_ms:.4f} ms; bound {bms_c:.4f} ms ({by_c})")
-        contact[f"n={n} r={r}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                       bound_ms=bms_c, max_abs_err=abs_err(X, ref))
     return dict(
         name="spd_solve", route="cuda", source="aligator_tpu_torch/csrc/spd_solve.cu",
-        replaces="aligator_tpu/gar/pallas_spd.py:33", max_abs_err=tot["max_abs_err"],
+        replaces="aligator_tpu/gar/pallas_spd.py:33",
+        max_abs_err=max(v["max_abs_err"] for v in by_shape.values()),
         ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=bms, bound_by=by,
         library_ms=tot["library_ms"],
-    ), dict(wrapper_call_ms=tot["call_ms"], contact_kkt=contact)
+    ), dict(wrapper_call_ms=tot["call_ms"], by_shape=by_shape)
 
 
 def k3_flops_per_stage(n, m, c):
@@ -734,51 +733,63 @@ def k5_phase():
                    t(2.0 * rng.standard_normal((K, nv))), t(act), frames, dims, kd,
                    torch.float64, FP64_TOL, f"fp64 {name} {len(dims)}x{dims[0]}D")
 
-    # the main path's shape: Talos, K = B N = 512 instances, fp32
-    B = TALOS_BATCHES[0]
+    # the main path's shapes: Talos, K = B N instances for both walk
+    # batches, fp32
+    from aligator_tpu_torch.modelling.multibody.derivatives import fd_rows_inputs
+
     problem, model, sched = create_talos_walk_problem(TALOS_T_DS, TALOS_T_SS,
                                                       dtype=torch.float32, device="cuda")
     N = problem.nsteps
-    x0s = torch.tensor(talos_x0s(problem.x0[0].cpu().numpy(), model.nq, B), device="cuda")
-    q, v, tau, act = k5_inputs(model, x0s, sched, N, 0.05, 0.2, SEED + 40)
     ode = problem.stages.dynamics.ode
-    args, got, ref = rows_check(model, q, v, tau, act, ode.contact_frames,
-                                ode.contact_dims, ode.kd, torch.float32, K5_FP32_TOL,
-                                f"fp32 talos B={B} N={N}")
-    args64 = (model.to(torch.float64),) + tuple(a.double() for a in args[1:6]) + args[6:]
-    ref64 = fd_rows.fd_rows_plain(*args64, kd=ode.kd)
-    for label, res in (("kernel", got), ("plain", ref)):
-        e = max(rel_err(a.double(), b) for a, b in zip(res, ref64))
-        print(f"[kernel] fd_rows fp32 {label} vs fp64 plain: {e:.2e}")
-    max_abs = max(abs_err(a, b) for a, b in zip(got, ref))
-    del ref64
-
-    from aligator_tpu_torch.modelling.multibody.derivatives import fd_rows_inputs
-
-    inputs = fd_rows_inputs(model, q, v, args[3], ode.contact_frames)
-    inputs.update(v=v, lam=args[4], act=act)
     bodies = tuple(model.frame_parents[f] for f in ode.contact_frames)
-    launch = lambda: fd_rows.launch(model, inputs, bodies, ode.contact_dims,  # noqa: E731
-                                    ode.kd, 0.0)
-    ms = kernel_ms(launch, 20, "fd_rows_kernel")
-    call_ms = avg_time_ms(lambda: fd_rows.fd_rows(*args, kd=ode.kd), 20)
-    plain_ms = avg_time_ms(lambda: fd_rows.fd_rows_plain(*args, kd=ode.kd), 5)
-    K, nv, nb = B * N, model.nv, model.njoints
-    ncont, nc = len(bodies), sum(ode.contact_dims)
-    in_words = 4 * nv * 6 + nv + 5 * nb * 6 + nb * 36 + nc + 4 * ncont
-    out_words = 2 * nv * nv + 2 * nc * nv
-    nbytes = 4 * (K * (in_words + out_words) + nb * nv + nv * nv)
-    flops = k5_flops(model, bodies, ode.contact_dims, act.reshape(K, ncont).cpu())
-    bms, by = bound(nbytes, flops)
-    print(f"[kernel] fd_rows fp32 K={K}: kernel {ms:.4f} ms (wrapper call with its "
-          f"input preparation {call_ms:.4f} ms), plain {plain_ms:.4f} ms; bound "
-          f"{bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    by_batch, max_abs = {}, 0.0
+    for B in TALOS_BATCHES:
+        x0s = torch.tensor(talos_x0s(problem.x0[0].cpu().numpy(), model.nq, B),
+                           device="cuda")
+        q, v, tau, act = k5_inputs(model, x0s, sched, N, 0.05, 0.2, SEED + 40)
+        args, got, ref = rows_check(model, q, v, tau, act, ode.contact_frames,
+                                    ode.contact_dims, ode.kd, torch.float32, K5_FP32_TOL,
+                                    f"fp32 talos B={B} N={N}")
+        if B == TALOS_BATCHES[0]:
+            args64 = ((model.to(torch.float64),) + tuple(a.double() for a in args[1:6])
+                      + args[6:])
+            ref64 = fd_rows.fd_rows_plain(*args64, kd=ode.kd)
+            for label, res in (("kernel", got), ("plain", ref)):
+                e = max(rel_err(a.double(), b) for a, b in zip(res, ref64))
+                print(f"[kernel] fd_rows fp32 {label} vs fp64 plain: {e:.2e}")
+            del ref64
+        max_abs = max(max_abs, max(abs_err(a, b) for a, b in zip(got, ref)))
+        del got, ref
+
+        inputs = fd_rows_inputs(model, q, v, args[3], ode.contact_frames)
+        inputs.update(v=v, lam=args[4], act=act)
+        launch = lambda: fd_rows.launch(model, inputs, bodies,  # noqa: E731
+                                        ode.contact_dims, ode.kd, 0.0)
+        ms = kernel_ms(launch, 20, "fd_rows_kernel")
+        call_ms = avg_time_ms(lambda: fd_rows.fd_rows(*args, kd=ode.kd), 10)
+        plain_ms = avg_time_ms(lambda: fd_rows.fd_rows_plain(*args, kd=ode.kd), 3)
+        K, nv, nb = B * N, model.nv, model.njoints
+        ncont, nc = len(bodies), sum(ode.contact_dims)
+        in_words = 4 * nv * 6 + nv + 5 * nb * 6 + nb * 36 + nc + 4 * ncont
+        out_words = 2 * nv * nv + 2 * nc * nv
+        nbytes = 4 * (K * (in_words + out_words) + nb * nv + nv * nv)
+        flops = k5_flops(model, bodies, ode.contact_dims, act.reshape(K, ncont).cpu())
+        bms, by = bound(nbytes, flops)
+        print(f"[kernel] fd_rows fp32 K={K}: kernel {ms:.4f} ms (wrapper call with its "
+              f"input preparation {call_ms:.4f} ms), plain {plain_ms:.4f} ms; bound "
+              f"{bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP; "
+              f"kernel {ms / bms:.1f}x)")
+        by_batch[K] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bms,
+                           bound_by=by, flops_per_instance=flops / K)
+        del inputs, args
+    main = by_batch[TALOS_BATCHES[0] * N]
     return dict(
         name="fd_rows", route="cuda", source="aligator_tpu_torch/csrc/fd_rows.cu",
         replaces="aligator_tpu/modelling/multibody/pallas_tensors.py:87",
-        max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        max_abs_err=max_abs, **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                     "bound_by")},
         library_ms=None,
-    ), dict(wrapper_call_ms=call_ms, K=K, flops_per_instance=flops / K)
+    ), dict(by_K=by_batch)
 
 
 # ---------------------------------------------------------------- phase 4

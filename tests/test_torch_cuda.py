@@ -120,11 +120,12 @@ def _spd_batch(rng, M, n, r, dtype, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n,r", [(56, 57), (22, 57), (12, 1), (64, 64), (28, 84),
-                                 (12, 84), (64, 128)])
+                                 (12, 84), (64, 128), (64, 65), (1, 1)])
 def test_spd_solve_matches_plain(cuda_device, dtype, n, r):
     M = 130
     A, R = _spd_batch(np.random.default_rng(n), M, n, r, dtype, cuda_device)
-    A[7, 3, 3] = -1.0  # not positive definite: NaN in that system only
+    d = min(3, n - 1)
+    A[7, d, d] = -1.0  # not positive definite: NaN in that system only
     before = spd_solve.LAUNCHES
     X = spd_solve.spd_solve(A, R)
     torch.cuda.synchronize()
@@ -132,6 +133,53 @@ def test_spd_solve_matches_plain(cuda_device, dtype, n, r):
     ref = spd_solve.spd_solve_plain(A, R)
     ok = torch.arange(M, device=cuda_device) != 7
     assert torch.isnan(X[7]).all() and torch.isnan(ref[7]).all()
+    assert torch.isfinite(X[ok]).all()
+    assert _rel(X[ok], ref[ok]) <= TOL[dtype]
+
+
+# the kernel's routes: 4 x 4 register tiles up to 256 of them ((28, 84): 196),
+# else 4 x 8 ((56, 57): 210; (64, 64): exactly 256), else shared memory
+# ((64, 65): 272 tiles of 4 x 8; (64, 128): 384)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,r", [(56, 57), (28, 84), (64, 64), (64, 65), (64, 128)])
+def test_spd_solve_reads_only_the_lower_triangle(cuda_device, dtype, n, r):
+    A, R = _spd_batch(np.random.default_rng(n + r), 33, n, r, dtype, cuda_device)
+    upper = torch.ones(n, n, dtype=torch.bool, device=cuda_device).triu(1)
+    garbage = A.masked_fill(upper, float("nan"))
+    X = spd_solve.spd_solve(garbage, R)
+    ref = spd_solve.spd_solve_plain(A, R)
+    assert torch.isfinite(X).all()
+    assert _rel(X, ref) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("M", [1, 16, 257])
+@pytest.mark.parametrize("n,r", [(56, 57), (22, 57), (28, 84), (12, 84)])
+def test_spd_solve_matches_plain_at_the_path_batches(cuda_device, dtype, M, n, r):
+    A, R = _spd_batch(np.random.default_rng(M * n), M, n, r, dtype, cuda_device)
+    X = spd_solve.spd_solve(A, R)
+    ref = spd_solve.spd_solve_plain(A, R)
+    assert X.shape == ref.shape and torch.isfinite(X).all()
+    assert _rel(X, ref) <= TOL[dtype]
+
+
+# below the SM count (56, 57) splits Y's columns over blocks that each
+# eliminate W and decide on their own that it is not positive definite
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("M", [1, 16])
+@pytest.mark.parametrize("n,r", [(56, 57), (22, 57), (28, 84), (12, 84)])
+def test_spd_solve_not_positive_definite_at_the_path_batches(cuda_device, dtype, M,
+                                                             n, r):
+    A, R = _spd_batch(np.random.default_rng(M + n), M, n, r, dtype, cuda_device)
+    k, d = min(7, M - 1), 3
+    A[k, d, d] = -1.0  # not positive definite: NaN in that system only
+    X = spd_solve.spd_solve(A, R)
+    ref = spd_solve.spd_solve_plain(A, R)
+    ok = torch.arange(M, device=cuda_device) != k
+    assert torch.isnan(X[k]).all() and torch.isnan(ref[k]).all()
     assert torch.isfinite(X[ok]).all()
     assert _rel(X[ok], ref[ok]) <= TOL[dtype]
 
@@ -282,6 +330,24 @@ def test_fd_rows_matches_plain(cuda_device, dtype, robot, kp):
         assert _rel(g, r) <= {torch.float64: 1e-9, torch.float32: 1e-3}[dtype]
     # the inactive contact's rows are zero
     assert (got[2][::3, :dims[0]] == 0).all() and (got[3][::3, :dims[0]] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("robot", ["humanoid", "quadruped"])
+@pytest.mark.parametrize("K", [1, 5])
+def test_fd_rows_matches_plain_with_every_contact_inactive(cuda_device, dtype, robot, K):
+    """K = 1, and instances whose contacts are all inactive: their contact
+    rows come out zero, as the plain version's do."""
+    model, ins, frames, dims, kd = _fd_rows_inputs(robot, K, dtype, cuda_device, 7)
+    act = ins[4].clone()
+    act[::2] = 0.0  # instances 0, 2, 4: no contact active
+    got = fd_rows.fd_rows(model, *ins[:4], act, frames, dims, kd=kd)
+    ref = fd_rows.fd_rows_plain(model, *ins[:4], act, frames, dims, kd=kd)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and torch.isfinite(g).all()
+        assert _rel(g, r) <= {torch.float64: 1e-9, torch.float32: 1e-3}[dtype]
+    assert (got[2][::2] == 0).all() and (got[3][::2] == 0).all()
 
 
 @pytest.mark.cuda

@@ -131,7 +131,7 @@ def test_rigid_body_algorithms_match_jax(robot):
 
     jkin, tau, M, frames = reference(qs, vs, a)
     kin = rbd.kinematics(tm, tq, tv)
-    # the kernels read the masks through raw pointers: row-major
+    # the masks are row-major, as the sums over them were pinned with
     assert all(rbd.tables(tm, tq)[k].is_contiguous() for k in ("A", "D"))
     for k in ("R", "p", "Phi", "V"):
         assert _rel_err(kin[k], jkin[k]) < TOL, k
@@ -235,6 +235,58 @@ def test_fd_rows_cpu_wrapper_is_the_plain_version():
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
     assert (got[2][:, 3:6] == 0).all()  # the inactive contact's rows
+
+
+@pytest.mark.parametrize("robot", ["humanoid", "quadruped"])
+def test_fd_rows_support_lists_match_the_masks(robot):
+    """K5's index lists hold exactly the nonzeros of the dense masks A and D,
+    each list in the order its sums take and each map the inverse of its
+    list."""
+    from aligator_tpu_torch.modelling.multibody import humanoid, quadruped
+
+    tm = (humanoid.make_humanoid if robot == "humanoid" else quadruped.make_quadruped)(
+        device="cpu")
+    top = rbd.topology(tm.joint_types, tm.parents)
+    A, D = top["A"] != 0, top["D"] != 0
+    nb, nv = A.shape
+    lists, (npair, nslot, nrel, nsp, neb) = fd_rows.support_lists(tm.joint_types,
+                                                                  tm.parents)
+    assert lists.dtype == np.int32
+    sizes = (npair, npair, nslot, nslot, nb * nv, nslot + 1, nsp, nv + 1, nslot, nv * nv,
+             nrel, nrel + 1, neb)
+    assert len(lists) == sum(sizes)
+    (pj, pk, slot_b, slot_j, slot_of, sp_off, sp, sub_off, sub, ent, ent_pair, eb_off,
+     eb) = np.split(lists, np.cumsum(sizes)[:-1])
+    slot_of = slot_of.reshape(nb, nv)
+    # pairs (j, k): D[k, j] = 1
+    assert npair == D.sum()
+    pairs = np.zeros((nv, nv), bool)
+    pairs[pk, pj] = True
+    assert (pairs == D).all()
+    pair_of = {(j, k): p for p, (j, k) in enumerate(zip(pj, pk))}
+    # slots (b, j): A[b, j] = 1, and each slot's pairs over the dofs of b
+    assert nslot == A.sum() and (A[slot_b, slot_j]).all()
+    assert (slot_of[slot_b, slot_j] == np.arange(nslot)).all()
+    assert (slot_of == -1).sum() == nb * nv - nslot
+    for s_, (b, j) in enumerate(zip(slot_b, slot_j)):
+        ks = [k for k in range(nv) if A[b, k] and D[k, j]]
+        assert list(sp[sp_off[s_]:sp_off[s_ + 1]]) == [pair_of[j, k] for k in ks]
+    for k in range(nv):
+        assert list(sub[sub_off[k]:sub_off[k + 1]]) == list(np.nonzero(A[:, k])[0])
+    # entries: every (k, j) once; those of a body's dofs first, with their
+    # pair and the slots (b, j) of the bodies both dofs move
+    assert sorted(ent) == list(range(nv * nv))
+    both = A[:, :, None] & A[:, None, :]
+    assert nrel == both.any(0).sum()
+    for e in range(nv * nv):
+        k, j = divmod(ent[e], nv)
+        if e >= nrel:
+            assert not both[:, k, j].any()
+            continue
+        assert ent_pair[e] == pair_of.get((j, k), -1)
+        bodies = np.nonzero(both[:, k, j])[0]
+        assert list(eb[eb_off[e]:eb_off[e + 1]]) == list(slot_of[bodies, j])
+    assert list(np.diff(eb_off)) == sorted(np.diff(eb_off), reverse=True)
 
 
 def test_contact_dynamics_jacobians_match_jax():
