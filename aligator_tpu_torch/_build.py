@@ -2,9 +2,14 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, which is loaded with ``ctypes``.
-The library's file name carries a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused. Sources are built
-in parallel, one ``nvcc`` process each. Nothing is built at import time.
+A *variant* is a source and a tuple of preprocessor defines (``"K=V"``
+strings, passed as ``-DK=V``): a source templated on its dimensions builds
+one library per shape that is launched (``fused_riccati.cu``). The
+library's file name carries a hash of the source, the headers, the flags
+and the defines, so an edited source is rebuilt, an unchanged one is
+reused and two shapes never share a library. Variants are built in
+parallel, one ``nvcc`` process each, at their first launch; nothing is
+built at import time.
 """
 
 from __future__ import annotations
@@ -26,9 +31,24 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_loaded: dict[str, ctypes.CDLL] = {}
-# per-source build record: seconds taken (0.0 when reused) and nvcc's log
+_loaded: dict[tuple, ctypes.CDLL] = {}
+# per-variant build record, by label(): seconds taken (0.0 when reused)
+# and nvcc's log
 BUILD_LOG: dict[str, tuple[float, str]] = {}
+
+
+def variant(v) -> tuple[str, tuple[str, ...]]:
+    """``(name, defines)`` from a source name or a ``(name, defines)`` pair."""
+    if isinstance(v, str):
+        return v, ()
+    name, defines = v
+    return name, tuple(defines)
+
+
+def label(v) -> str:
+    """A variant's name in logs: ``name`` or ``name[K=V,...]``."""
+    name, defines = variant(v)
+    return f"{name}[{','.join(defines)}]" if defines else name
 
 
 def _nvcc() -> str:
@@ -45,45 +65,49 @@ def _nvcc() -> str:
     )
 
 
-def _library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+def _library_path(v) -> pathlib.Path:
+    name, defines = variant(v)
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update("\0".join(defines).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(names) -> None:
-    """Compile the named sources that have no current library, in parallel.
+def build(variants) -> None:
+    """Compile the variants (source names or ``(name, defines)`` pairs) that
+    have no current library, in parallel.
 
     Raises ``RuntimeError`` with nvcc's output if any compilation fails.
     """
+    variants = list(dict.fromkeys(variant(v) for v in variants))
     with _lock:
-        todo = [n for n in names if not _library_path(n).exists()]
-        for n in names:
-            if n not in todo:
-                BUILD_LOG.setdefault(n, (0.0, ""))
+        todo = [v for v in variants if not _library_path(v).exists()]
+        for v in variants:
+            if v not in todo:
+                BUILD_LOG.setdefault(label(v), (0.0, ""))
         if not todo:
             return
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
         procs = []
         t0 = time.perf_counter()
-        for n in todo:
-            out = _library_path(n)
+        for v in todo:
+            out = _library_path(v)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-            procs.append((n, out, tmp, subprocess.Popen(
+            cmd = [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in v[1]), "-o", str(tmp),
+                   str(CSRC / f"{v[0]}.cu")]
+            procs.append((v, out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True,
             )))
         failed = []
-        for n, out, tmp, p in procs:
+        for v, out, tmp, p in procs:
             log, _ = p.communicate()
-            BUILD_LOG[n] = (time.perf_counter() - t0, log)
+            BUILD_LOG[label(v)] = (time.perf_counter() - t0, log)
             if p.returncode != 0:
-                failed.append(f"--- nvcc {n}.cu (exit {p.returncode}) ---\n{log}")
+                failed.append(f"--- nvcc {label(v)} (exit {p.returncode}) ---\n{log}")
                 tmp.unlink(missing_ok=True)
             else:
                 os.replace(tmp, out)
@@ -91,20 +115,22 @@ def build(names) -> None:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Return the loaded library of ``csrc/<name>.cu``, building it first."""
-    lib = _loaded.get(name)
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """Return the loaded library of the variant ``(name, defines)`` of
+    ``csrc/<name>.cu``, building it first."""
+    v = variant((name, defines))
+    lib = _loaded.get(v)
     if lib is None:
-        build([name])
-        lib = _loaded[name] = ctypes.CDLL(str(_library_path(name)))
+        build([v])
+        lib = _loaded[v] = ctypes.CDLL(str(_library_path(v)))
     return lib
 
 
-def c_function(name: str, symbol: str, n_int: int, n_ptr: int):
-    """The C function ``symbol`` of ``csrc/<name>.cu`` taking ``n_int`` ints
-    then ``n_ptr`` pointers (the stream last) and returning a CUDA error
-    code."""
-    fn = getattr(load(name), symbol)
+def c_function(name: str, symbol: str, n_int: int, n_ptr: int, defines=()):
+    """The C function ``symbol`` of the variant ``(name, defines)`` of
+    ``csrc/<name>.cu`` taking ``n_int`` ints then ``n_ptr`` pointers (the
+    stream last) and returning a CUDA error code."""
+    fn = getattr(load(name, defines), symbol)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] * n_int + [ctypes.c_void_p] * n_ptr
     return fn

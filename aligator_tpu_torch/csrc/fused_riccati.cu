@@ -28,8 +28,16 @@
 // access is coalesced. The forward sweep keeps x in registers and reads the
 // gains back once.
 //
-// C interface (one function per scalar type): returns -1 for a shape that
-// is not instantiated, otherwise cudaGetLastError() after the launch.
+// One shape a library: the build passes -DK1_NX=.. -DK1_NU=.. -DK1_NC=..
+// -DK1_EXPLICIT=0|1 (aligator_tpu_torch/_build.py, a variant per shape,
+// built at its first launch).
+//
+// C interface (one function per scalar type): returns -1 for a shape other
+// than the library's own, otherwise cudaGetLastError() after the launch.
+
+#if !defined(K1_NX) || !defined(K1_NU) || !defined(K1_NC) || !defined(K1_EXPLICIT)
+#error "build one shape: -DK1_NX=.. -DK1_NU=.. -DK1_NC=.. -DK1_EXPLICIT=0|1"
+#endif
 
 #include <cuda_runtime.h>
 
@@ -643,22 +651,15 @@ fused_riccati_kernel(const int B, const int T, const S* __restrict__ in,
 template <typename S>
 int launch(int nx, int nu, int nc, int explicit_e, int B, int T, const S* in,
            const S* g0, const S* mu, S* out, S* gains, cudaStream_t stream) {
+  // this library holds the one shape it was built for
+  if (nx != K1_NX || nu != K1_NU || nc != K1_NC ||
+      (explicit_e != 0) != (K1_EXPLICIT != 0) || B < 1 || T < 1)
+    return -1;
   const dim3 block(kThreads);
   const dim3 grid((B + kThreads - 1) / kThreads);
-#define ALIGATOR_FUSED_RICCATI_CASE(NX, NU, NC, EXPL)                              \
-  if (nx == NX && nu == NU && nc == NC && (explicit_e != 0) == EXPL) {            \
-    fused_riccati_kernel<S, NX, NU, NC, EXPL>                                     \
-        <<<grid, block, 0, stream>>>(B, T, in, g0, mu, out, gains);               \
-    return static_cast<int>(cudaGetLastError());                                  \
-  }
-  // keep in sync with fused_riccati.KERNEL_SHAPES
-  ALIGATOR_FUSED_RICCATI_CASE(3, 2, 0, false)  // SE(2) car
-  ALIGATOR_FUSED_RICCATI_CASE(3, 2, 2, false)  // SE(2) car with control bounds
-  ALIGATOR_FUSED_RICCATI_CASE(3, 2, 1, true)
-  ALIGATOR_FUSED_RICCATI_CASE(4, 2, 0, true)
-  ALIGATOR_FUSED_RICCATI_CASE(4, 2, 2, false)
-#undef ALIGATOR_FUSED_RICCATI_CASE
-  return -1;
+  fused_riccati_kernel<S, K1_NX, K1_NU, K1_NC, K1_EXPLICIT != 0>
+      <<<grid, block, 0, stream>>>(B, T, in, g0, mu, out, gains);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

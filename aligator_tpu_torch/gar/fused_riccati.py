@@ -6,8 +6,10 @@ problems and returns the solution and the per-stage gains:
 
 * for CUDA tensors it packs the knots batch-minor, launches the kernel of
   ``csrc/fused_riccati.cu`` (one thread per scenario, the whole solve in one
-  launch) and unpacks the outputs; a shape the kernel is not instantiated
-  for raises;
+  launch) and unpacks the outputs. The kernel is built for each shape
+  ``(nx, nu, nc, explicit E)`` at the shape's first launch (a library a
+  shape, :func:`variant`), so every problem of the domain
+  (:func:`available`) launches it;
 * for CPU tensors it runs :func:`solve_plain`, the plain PyTorch backward,
   initial and forward solve of :mod:`.riccati`, which computes the same
   function.
@@ -25,25 +27,35 @@ from . import riccati
 from .lqr_problem import LQRProblem, batch_param
 
 LAUNCHES = 0
-
-# (nx, nu, nc, explicit E) the kernel is instantiated for; keep in sync with
-# launch() in csrc/fused_riccati.cu
-KERNEL_SHAPES = frozenset({
-    (3, 2, 0, False),  # SE(2) car
-    (3, 2, 2, False),  # SE(2) car with control bounds
-    (3, 2, 1, True),
-    (4, 2, 0, True),
-    (4, 2, 2, False),
-})
+MAX_NX = MAX_NU = 8
+# (nx, nu, nc, explicit E) that sample the domain: the examples' shapes
+# (lqr.py with u_bound, linear_euler.py, cartpole), the SE(2) car with and
+# without control bounds, and the corners nx = nu = 8 with a state and
+# control box (nc = 2 (nx + nu)); the card tests and chip_smoke.py build
+# and check each
+DOMAIN_SAMPLES = (
+    (1, 1, 0, True), (2, 1, 1, True), (2, 2, 0, True), (4, 1, 1, True),
+    (3, 2, 0, False), (3, 2, 2, False), (4, 2, 2, False), (5, 3, 0, True),
+    (8, 8, 16, False), (8, 8, 32, True),
+)
 _SOURCE = "fused_riccati"
 _C_FUNCS = {torch.float32: "fused_riccati_f32", torch.float64: "fused_riccati_f64"}
 
 
 def available(problem: LQRProblem) -> bool:
     """Whether the problem lies in the fused solve's domain: a full-state
-    initial condition and small dims (the JAX gate ``pallas_riccati.available``
-    without its TPU, fp32 and 128-lane terms)."""
-    return problem.nc0 == problem.nx and problem.nx <= 8 and problem.nu <= 8
+    initial condition, ``nx <= 8`` and ``nu <= 8``, any ``nc``. This is the
+    JAX gate ``pallas_riccati.available`` without its TPU terms; its
+    ``nth == 0`` term always holds here, since the port's LQ problems have
+    no parametric θ block."""
+    return (problem.nc0 == problem.nx and problem.nx <= MAX_NX
+            and problem.nu <= MAX_NU)
+
+
+def variant(nx: int, nu: int, nc: int, explicit: bool):
+    """The build variant (``_build``) of the kernel for one shape."""
+    return _SOURCE, (f"K1_NX={nx}", f"K1_NU={nu}", f"K1_NC={nc}",
+                     f"K1_EXPLICIT={int(bool(explicit))}")
 
 
 def field_layout(nx: int, nu: int, nc: int, explicit: bool):
@@ -91,23 +103,30 @@ def solve(problem: LQRProblem, mudyn, mueq, assume_explicit: bool = True):
     dev = problem.knots.Q.device
     if dev.type == "cpu":
         return solve_plain(problem, mudyn, mueq, assume_explicit)
+    return launch(problem, mudyn, mueq, assume_explicit)
+
+
+def launch(problem: LQRProblem, mudyn, mueq, assume_explicit: bool = True):
+    """One kernel launch on CUDA tensors, returning what :func:`solve`
+    returns. Raises ``ValueError`` for a problem outside the kernel's
+    domain, a type other than float32/float64 or a tensor off the card."""
+    _check(problem, assume_explicit)
+    dev = problem.knots.Q.device
     if dev.type != "cuda":
-        raise ValueError(f"fused_riccati.solve: unsupported device {dev}")
+        raise ValueError(f"fused_riccati kernel: tensors on {dev}, not a CUDA device")
     packed = pack(problem, mudyn, mueq, assume_explicit)
-    out, gains = launch(*packed, problem, assume_explicit)
+    out, gains = launch_packed(*packed, problem, assume_explicit)
     return unpack(problem, out, gains)
 
 
 def _check(problem: LQRProblem, assume_explicit: bool):
     kn = problem.knots
-    key = (kn.nx, kn.nu, kn.nc, bool(assume_explicit))
-    if key not in KERNEL_SHAPES:
+    if not (available(problem) and kn.nx >= 1 and kn.nu >= 1):
         raise ValueError(
-            f"fused_riccati kernel has no instance for (nx, nu, nc, explicit) "
-            f"= {key}; instantiated: {sorted(KERNEL_SHAPES)}"
+            f"fused_riccati kernel: (nx, nu, nc0) = ({kn.nx}, {kn.nu}, "
+            f"{problem.nc0}) is outside its domain (nc0 == nx, 1 <= nx <= "
+            f"{MAX_NX}, 1 <= nu <= {MAX_NU})"
         )
-    if problem.nc0 != kn.nx:
-        raise ValueError("fused_riccati kernel needs nc0 == nx")
     if kn.Q.dtype not in _C_FUNCS:
         raise ValueError(f"fused_riccati kernel takes float32/float64, got {kn.Q.dtype}")
 
@@ -129,8 +148,8 @@ def pack(problem: LQRProblem, mudyn, mueq, assume_explicit: bool = True):
     return feats, g0f, mu
 
 
-def launch(feats: Tensor, g0f: Tensor, mu: Tensor, problem: LQRProblem,
-           assume_explicit: bool = True):
+def launch_packed(feats: Tensor, g0f: Tensor, mu: Tensor, problem: LQRProblem,
+                  assume_explicit: bool = True):
     """Launch the kernel on packed inputs; returns the batch-minor solution
     ``(T, OF, B)`` and gains ``(T, G, B)``."""
     global LAUNCHES
@@ -154,7 +173,8 @@ def launch(feats: Tensor, g0f: Tensor, mu: Tensor, problem: LQRProblem,
     gains = torch.empty((T, G, Bsz), dtype=dt, device=dev)
     if Bsz == 0:
         return out, gains
-    fn = _build.c_function(_SOURCE, _C_FUNCS[dt], 6, 6)
+    name, defines = variant(nx, nu, nc, assume_explicit)
+    fn = _build.c_function(name, _C_FUNCS[dt], 6, 6, defines)
     _build.run(fn, dev, nx, nu, nc, int(bool(assume_explicit)), Bsz, T,
                feats.data_ptr(), g0f.data_ptr(), mu.data_ptr(),
                out.data_ptr(), gains.data_ptr(), what="fused_riccati")

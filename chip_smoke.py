@@ -124,16 +124,21 @@ def device_phase():
 def build_phase():
     from aligator_tpu_torch import _build
 
-    names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    from aligator_tpu_torch.gar import fused_riccati as fr
+
+    # K1 is built a shape at a time: its domain samples, with the others
+    names = sorted(p.stem for p in _build.CSRC.glob("*.cu") if p.stem != fr._SOURCE)
+    variants = names + [fr.variant(*s) for s in fr.DOMAIN_SAMPLES]
     t0 = time.perf_counter()
-    _build.build(names)
+    _build.build(variants)
     dt = time.perf_counter() - t0
-    print(f"[build] {names} in {dt:.1f} s")
-    for name in names:
-        log = _build.BUILD_LOG[name][1]
+    print(f"[build] {len(variants)} libraries ({names} and K1 at "
+          f"{len(fr.DOMAIN_SAMPLES)} shapes) in {dt:.1f} s")
+    for v in variants:
+        log = _build.BUILD_LOG[_build.label(v)][1]
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+                print(f"[build] {_build.label(v)}: {line.strip()}")
     return dt
 
 
@@ -198,7 +203,7 @@ def kernel_phase():
 
     rng = np.random.default_rng(SEED)
     # the test shapes, fp64, odd batch for the ragged last block
-    for (nx, nu, nc, expl) in sorted(fr.KERNEL_SHAPES):
+    for (nx, nu, nc, expl) in fr.DOMAIN_SAMPLES:
         B, T = 1000, 11
         prob = random_convex_problem(rng, B, T - 1, nx, nu, nc, not expl,
                                      torch.float64, "cuda")
@@ -242,9 +247,9 @@ def kernel_phase():
     max_abs = max(_compare(got, ref, abs_err).values())
 
     packed = fr.pack(prob, mud, mue, expl)
-    out, gains = fr.launch(*packed, prob, expl)
+    out, gains = fr.launch_packed(*packed, prob, expl)
     pack_ms = cuda_time_ms(lambda: fr.pack(prob, mud, mue, expl), 20)
-    kernel_ms = cuda_time_ms(lambda: fr.launch(*packed, prob, expl), 25)
+    kernel_ms = cuda_time_ms(lambda: fr.launch_packed(*packed, prob, expl), 25)
     unpack_ms = cuda_time_ms(
         lambda: [t.contiguous() for t in fr.unpack(prob, out, gains)[:4]], 20
     )
@@ -387,6 +392,30 @@ def convex_knots(B, N, nx, nu, nc, dtype, seed):
     p = randn(B, nx).to(dtype)
     mue = 10 ** (torch.rand(B, generator=g, device="cuda", dtype=torch.float64) * 2 - 3)
     return kn, P, p, (1e-3 * mue).to(dtype), mue.to(dtype)
+
+
+def k1_problem(B, T, nx, nu, nc, explicit, dtype, seed):
+    """B random LQ problems over T knots with the law of
+    ``lqr_problem.random_convex_problem`` (E = -I, or -I + 0.1 N(0, 1)
+    unless ``explicit``; G0 = I), drawn on the card, and per-scenario mu_dyn
+    and mu_eq log-uniform in [1e-4, 1e-1]."""
+    from aligator_tpu_torch.gar.lqr_problem import LQRProblem
+
+    kn = convex_knots(B, T - 1, nx, nu, nc, torch.float64, seed)[0]
+    g = _gen(seed + 1)
+    if not explicit:
+        kn.E = kn.E + 0.1 * torch.randn(kn.E.shape, generator=g, device="cuda",
+                                        dtype=torch.float64)
+    kn.R[:, -1] = torch.eye(nu, device="cuda", dtype=torch.float64)
+    for k in ("S", "r", "D", "A", "B", "E", "f"):
+        getattr(kn, k)[:, -1] = 0.0
+    for f in dataclasses.fields(kn):
+        setattr(kn, f.name, getattr(kn, f.name).to(dtype))
+    G0 = torch.eye(nx, dtype=dtype, device="cuda").expand(B, nx, nx).contiguous()
+    g0 = torch.randn((B, nx), generator=g, device="cuda", dtype=torch.float64).to(dtype)
+    mus = 10 ** (3 * torch.rand((2, B), generator=g, device="cuda",
+                                dtype=torch.float64) - 4)
+    return LQRProblem(knots=kn, G0=G0, g0=g0), mus[0].to(dtype), mus[1].to(dtype)
 
 
 def k2_phase():

@@ -38,10 +38,10 @@ def _mus(B, seed, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", sorted(fused_riccati.KERNEL_SHAPES))
-def test_fused_riccati_matches_plain(cuda_device, shape):
+@pytest.mark.parametrize("B", [1, 300])  # 300: the last block is ragged
+@pytest.mark.parametrize("shape", fused_riccati.DOMAIN_SAMPLES)
+def test_fused_riccati_matches_plain(cuda_device, shape, B):
     nx, nu, nc, explicit = shape
-    B = 300  # not a multiple of the block size: the last block is ragged
     prob = lqr_problem.random_convex_problem(
         np.random.default_rng(6), B, 9, nx, nu, nc, not explicit,
         device=cuda_device,
@@ -59,12 +59,19 @@ def test_fused_riccati_matches_plain(cuda_device, shape):
 
 
 @pytest.mark.cuda
-def test_fused_riccati_raises_on_uninstantiated_shape(cuda_device):
+def test_fused_riccati_launches_a_shape_outside_the_old_five(cuda_device):
+    """(5, 2, 0, -I) had no instance before the kernel was built a shape at
+    a time: it launches once and matches the plain version."""
     prob = lqr_problem.random_convex_problem(
         np.random.default_rng(0), 4, 3, 5, 2, 0, device=cuda_device
     )
-    with pytest.raises(ValueError, match="no instance"):
-        fused_riccati.solve(prob, 1e-3, 1e-3, True)
+    before = fused_riccati.LAUNCHES
+    got = riccati.solve_and_gains(prob, 1e-3, 1e-3, True)
+    torch.cuda.synchronize()
+    assert fused_riccati.LAUNCHES == before + 1
+    ref = fused_riccati.solve_plain(prob, 1e-3, 1e-3, True)
+    for a, b in zip(got[:4], ref[:4]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-9)
 
 
 @pytest.mark.cuda

@@ -5,6 +5,8 @@ through numpy, and solved by both. The CUDA kernel itself is checked on the
 card by tests/test_torch_cuda.py.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +18,7 @@ from aligator_tpu._pytree import replace
 from aligator_tpu.gar import pallas_riccati
 from aligator_tpu.native import riccati_solve_native
 
-from aligator_tpu_torch import _device, convert
+from aligator_tpu_torch import _build, _device, convert
 from aligator_tpu_torch.examples.se2_car import create_se2_problem
 from aligator_tpu_torch.gar import fused_riccati, lqr_problem, riccati
 
@@ -114,6 +116,8 @@ def test_riccati_solve_matches_jax_and_native(general_E):
         (15, 4, 2, 0, True),
         (8, 4, 2, 2, False),
         (10, 3, 2, 0, False),  # the SE(2)-car LQ shape
+        (10, 4, 1, 1, True),  # cartpole with a control bound
+        (10, 2, 1, 1, True),  # examples/lqr.py with u_bound
     ],
 )
 def test_solve_plain_matches_jax_kernel_interpret(dims):
@@ -164,9 +168,31 @@ def test_solve_and_gains_dispatch():
 
 
 def test_kernel_rejects_uninstantiated_shapes():
-    tp = _torch_batch(3, 5, 2, 0, 2)
-    with pytest.raises(ValueError, match="no instance"):
-        fused_riccati.pack(tp, 1e-3, 1e-3, True)
+    """The launcher's checks refuse what no build of the kernel takes, before
+    looking for a card: nx = 9, nc0 != nx and a type other than fp32/fp64."""
+    tp = _torch_batch(3, 3, 2, 0, 2)
+    partial = dataclasses.replace(tp, G0=tp.G0[:, :2], g0=tp.g0[:, :2])
+    for prob in (_torch_batch(3, 9, 2, 0, 2), partial):
+        with pytest.raises(ValueError, match="outside its domain"):
+            fused_riccati.launch(prob, 1e-3, 1e-3, True)
+    half = dataclasses.replace(tp, knots=lqr_problem.LQRKnots(**{
+        f.name: getattr(tp.knots, f.name).half()
+        for f in dataclasses.fields(tp.knots)}))
+    with pytest.raises(ValueError, match="float32/float64"):
+        fused_riccati.launch(half, 1e-3, 1e-3, True)
+
+
+def test_build_variants_hash_their_defines():
+    """A shape's library name hashes its defines (pure Python, no nvcc)."""
+    lib = _build._library_path
+    a = fused_riccati.variant(3, 2, 0, False)
+    assert lib(a) == lib(fused_riccati.variant(3, 2, 0, False))
+    names = {lib(fused_riccati.variant(*s)) for s in fused_riccati.DOMAIN_SAMPLES}
+    assert len(names) == len(fused_riccati.DOMAIN_SAMPLES)
+    assert lib(a) != lib(fused_riccati.variant(3, 2, 0, True))
+    assert lib(a) != lib(("fused_riccati", ())) != lib("spd_solve")
+    assert lib("spd_solve") == lib(("spd_solve", ()))
+    assert _build.label(a) == "fused_riccati[K1_NX=3,K1_NU=2,K1_NC=0,K1_EXPLICIT=0]"
 
 
 def test_cuda_request_without_cuda_raises(monkeypatch):

@@ -126,14 +126,15 @@ def with_phases(text):
 
 def swapped(source, lib, fn):
     """fn() with the wrapper of ``source`` launching from ``lib``."""
+    key = _build.variant(source)
     _build.load(source)
-    shipped = _build._loaded[source]
+    shipped = _build._loaded[key]
     if lib is not None:
-        _build._loaded[source] = lib
+        _build._loaded[key] = lib
     try:
         return fn()
     finally:
-        _build._loaded[source] = shipped
+        _build._loaded[key] = shipped
 
 
 def k2_scan():
