@@ -890,6 +890,12 @@ extern "C" int fused_forward_f64(int B, int T, int nx, int nu, int nc,
   return launch_forward<double>(B, T, nx, nu, nc, ptrs, stream);
 }
 
+// K3's dynamic shared memory a block, in bytes (fused_stage.stage_smem_bytes
+// counts the same in Python to route the sweep)
+extern "C" long long fused_stage_smem_bytes(int nx, int nu, int nc, int itemsize) {
+  return static_cast<long long>(itemsize) * static_cast<long long>(stage_smem_words(nx, nu, nc));
+}
+
 // which: 0 the sweep (K3), 1 the forward substitution (K4); f64: 0 or 1.
 // out[4]: shared memory bytes a block, resident blocks per SM, registers a
 // thread, threads a block.

@@ -39,8 +39,14 @@
 // opt-in above 48 KB) and eliminated one pivot and one barrier a step
 // (aligator::gauss_jordan, K3's route for its large systems).
 //
-// C interface (one function per scalar type): returns -1 for n or r out of
-// range (n <= 64, r <= 128), otherwise cudaGetLastError() after the launch.
+// A block takes at most 128 columns of Y (kMaxR): wider right-hand sides
+// (the contact KKT's r = 3 nv past nv = 42) are split over blocks of equal
+// width in the same launch, each eliminating W again, as the column split
+// does.
+//
+// C interface (one function per scalar type): returns -1 for n out of
+// range (1 <= n <= 64) or an empty system, otherwise cudaGetLastError()
+// after the launch.
 
 #include <cuda_runtime.h>
 
@@ -52,7 +58,7 @@ namespace {
 
 constexpr int kThreads = 256;  // most threads a block
 constexpr int kMaxN = 64;
-constexpr int kMaxR = 128;
+constexpr int kMaxR = 128;  // columns of Y a block at most
 
 // [W | Y] in registers, C columns a tile; block (m, s) solves system m for
 // the columns s rs .. s rs + rs - 1 of Y
@@ -82,34 +88,36 @@ spd_solve_kernel_regs(const int n, const int r, const int rs, const S* __restric
 }
 
 // [W | Y] in shared memory (W mirrored from A's lower triangle),
-// eliminated one pivot a step
+// eliminated one pivot a step; block (m, s) solves system m for the
+// columns s rs .. s rs + rs - 1 of Y
 template <typename S>
 __global__ void __launch_bounds__(kThreads)
-spd_solve_kernel_smem(const int n, const int r, const S* __restrict__ A,
+spd_solve_kernel_smem(const int n, const int r, const int rs, const S* __restrict__ A,
                       const S* __restrict__ R, S* __restrict__ X) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  S* M = reinterpret_cast<S*>(smem_raw);  // n x (n + r)
+  S* M = reinterpret_cast<S*>(smem_raw);  // n x (n + rs)
   __shared__ int bad;
 
-  const int w = n + r;
+  const int c0 = blockIdx.y * rs, cols = min(rs, r - c0), w = n + cols;
   const size_t m = blockIdx.x;
   const S* Am = A + m * n * n;
-  const S* Rm = R + m * n * r;
-  S* Xm = X + m * n * r;
+  const S* Rm = R + m * n * r + c0;
+  S* Xm = X + m * n * r + c0;
   for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
     const int i = e / n, j = e % n;
     M[i * w + j] = i >= j ? Am[e] : Am[j * n + i];
   }
-  for (int e = threadIdx.x; e < n * r; e += blockDim.x) M[(e / r) * w + n + e % r] = Rm[e];
+  for (int e = threadIdx.x; e < n * cols; e += blockDim.x)
+    M[(e / cols) * w + n + e % cols] = Rm[(e / cols) * r + e % cols];
   if (threadIdx.x == 0) bad = 0;
   __syncthreads();
 
-  aligator::gauss_jordan(M, n, r, w, &bad);
+  aligator::gauss_jordan(M, n, cols, w, &bad);
   __syncthreads();
 
   const S nan = aligator::qnan<S>();
-  for (int e = threadIdx.x; e < n * r; e += blockDim.x)
-    Xm[e] = bad ? nan : M[(e / r) * w + n + e % r];
+  for (int e = threadIdx.x; e < n * cols; e += blockDim.x)
+    Xm[(e / cols) * r + e % cols] = bad ? nan : M[(e / cols) * w + n + e % cols];
 }
 
 // rs columns of Y a block
@@ -142,17 +150,21 @@ int column_split(int M, int n, int r) {
 template <typename S>
 int launch(int M, int n, int r, const S* A, const S* R, S* X,
            cudaStream_t stream) {
-  if (n < 1 || n > kMaxN || r < 1 || r > kMaxR || M < 1) return -1;
-  if (aligator::gj_tiles<4>(n, r) <= kThreads)
-    return launch_regs<4>(M, n, r, r, A, R, X, stream);
-  const int rs = column_split(M, n, r);
-  if (rs < r) return launch_regs<4>(M, n, r, rs, A, R, X, stream);
-  if (aligator::gj_tiles<8>(n, r) <= kThreads)
-    return launch_regs<8>(M, n, r, r, A, R, X, stream);
-  const size_t smem = sizeof(S) * static_cast<size_t>(n * (n + r));
+  if (n < 1 || n > kMaxN || r < 1 || M < 1) return -1;
+  // a block takes at most kMaxR columns of Y: wider right-hand sides are
+  // split over the fewest blocks of equal width rw, in the same launch
+  const int groups = (r + kMaxR - 1) / kMaxR, rw = (r + groups - 1) / groups;
+  if (aligator::gj_tiles<4>(n, rw) <= kThreads)
+    return launch_regs<4>(M, n, r, rw, A, R, X, stream);
+  const int rs = column_split(M * groups, n, rw);
+  if (rs < rw) return launch_regs<4>(M, n, r, rs, A, R, X, stream);
+  if (aligator::gj_tiles<8>(n, rw) <= kThreads)
+    return launch_regs<8>(M, n, r, rw, A, R, X, stream);
+  const size_t smem = sizeof(S) * static_cast<size_t>(n * (n + rw));
   const cudaError_t e = aligator::opt_in_shared(spd_solve_kernel_smem<S>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  spd_solve_kernel_smem<S><<<M, kThreads, smem, stream>>>(n, r, A, R, X);
+  const dim3 grid(M, (r + rw - 1) / rw);
+  spd_solve_kernel_smem<S><<<grid, kThreads, smem, stream>>>(n, r, rw, A, R, X);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,9 +4,10 @@ Replaces the Pallas TPU kernel ``aligator_tpu/gar/pallas_riccati.py``
 (``_kernel``, entry point ``solve``). :func:`solve` takes a batch of LQ
 problems and returns the solution and the per-stage gains:
 
-* for CUDA tensors it packs the knots batch-minor, launches the kernel of
-  ``csrc/fused_riccati.cu`` (one thread per scenario, the whole solve in one
-  launch) and unpacks the outputs. The kernel is built for each shape
+* for CUDA tensors it launches the kernel of ``csrc/fused_riccati.cu``
+  once (:func:`launch`): the kernel reads each knot field where it lies, a
+  contiguous ``(B, T, ·)`` tensor, and writes the solution and the gains
+  into contiguous ``(B, T, ·)`` tensors. It is built for each shape
   ``(nx, nu, nc, explicit E)`` at the shape's first launch (a library a
   shape, :func:`variant`), so every problem of the domain
   (:func:`available`) launches it;
@@ -18,6 +19,8 @@ problems and returns the solution and the per-stage gains:
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 from torch import Tensor
@@ -38,50 +41,28 @@ DOMAIN_SAMPLES = (
     (3, 2, 0, False), (3, 2, 2, False), (4, 2, 2, False), (5, 3, 0, True),
     (8, 8, 16, False), (8, 8, 32, True),
 )
+# the kernel's pointer order: knots, initial condition and mu, then the
+# solution and the gains
+KNOT_FIELDS = ("Q", "S", "R", "q", "r", "A", "B", "f", "C", "D", "d", "E")
+SOLUTION_FIELDS = ("xs", "us", "vs", "lams")
 _SOURCE = "fused_riccati"
 _C_FUNCS = {torch.float32: "fused_riccati_f32", torch.float64: "fused_riccati_f64"}
 
 
 def available(problem: LQRProblem) -> bool:
     """Whether the problem lies in the fused solve's domain: a full-state
-    initial condition, ``nx <= 8`` and ``nu <= 8``, any ``nc``. This is the
-    JAX gate ``pallas_riccati.available`` without its TPU terms; its
-    ``nth == 0`` term always holds here, since the port's LQ problems have
-    no parametric θ block."""
-    return (problem.nc0 == problem.nx and problem.nx <= MAX_NX
-            and problem.nu <= MAX_NU)
+    initial condition, ``1 <= nx <= 8`` and ``1 <= nu <= 8``, any ``nc``.
+    This is the JAX gate ``pallas_riccati.available`` without its TPU
+    terms; its ``nth == 0`` term always holds here, since the port's LQ
+    problems have no parametric θ block."""
+    return (problem.nc0 == problem.nx and 1 <= problem.nx <= MAX_NX
+            and 1 <= problem.nu <= MAX_NU)
 
 
 def variant(nx: int, nu: int, nc: int, explicit: bool):
     """The build variant (``_build``) of the kernel for one shape."""
     return _SOURCE, (f"K1_NX={nx}", f"K1_NU={nu}", f"K1_NC={nc}",
                      f"K1_EXPLICIT={int(bool(explicit))}")
-
-
-def field_layout(nx: int, nu: int, nc: int, explicit: bool):
-    """Offsets of the knot fields in the packed feature axis and its size."""
-    sizes = dict(Q=nx * nx, S=nx * nu, R=nu * nu, q=nx, r=nu, A=nx * nx,
-                 B=nx * nu, f=nx, C=nc * nx, D=nc * nu, d=nc)
-    if not explicit:
-        sizes["E"] = nx * nx
-    return _offsets(sizes)
-
-
-def gain_layout(nx: int, nu: int, nc: int):
-    return _offsets(dict(kff=nu, K=nu * nx, zff=nc, Z=nc * nx, lff=nx,
-                         L=nx * nx, yff=nx, Afb=nx * nx))
-
-
-def out_layout(nx: int, nu: int, nc: int):
-    return _offsets(dict(xs=nx, us=nu, vs=nc, lams=nx))
-
-
-def _offsets(sizes: dict):
-    offs, cur = {}, 0
-    for k, v in sizes.items():
-        offs[k] = (cur, v)
-        cur += v
-    return offs, cur
 
 
 def solve_plain(problem: LQRProblem, mudyn, mueq,
@@ -100,101 +81,80 @@ def solve(problem: LQRProblem, mudyn, mueq, assume_explicit: bool = True):
     gains ``kff K zff Z lff L yff Afb`` (zero ``lff L yff Afb`` at index N).
     CPU tensors take :func:`solve_plain`; CUDA tensors take the kernel.
     """
-    dev = problem.knots.Q.device
-    if dev.type == "cpu":
+    if problem.knots.Q.device.type == "cpu":
         return solve_plain(problem, mudyn, mueq, assume_explicit)
     return launch(problem, mudyn, mueq, assume_explicit)
 
 
-def launch(problem: LQRProblem, mudyn, mueq, assume_explicit: bool = True):
-    """One kernel launch on CUDA tensors, returning what :func:`solve`
-    returns. Raises ``ValueError`` for a problem outside the kernel's
-    domain, a type other than float32/float64 or a tensor off the card."""
-    _check(problem, assume_explicit)
-    dev = problem.knots.Q.device
-    if dev.type != "cuda":
-        raise ValueError(f"fused_riccati kernel: tensors on {dev}, not a CUDA device")
-    packed = pack(problem, mudyn, mueq, assume_explicit)
-    out, gains = launch_packed(*packed, problem, assume_explicit)
-    return unpack(problem, out, gains)
-
-
 def _check(problem: LQRProblem, assume_explicit: bool):
     kn = problem.knots
-    if not (available(problem) and kn.nx >= 1 and kn.nu >= 1):
+    if not available(problem):
         raise ValueError(
             f"fused_riccati kernel: (nx, nu, nc0) = ({kn.nx}, {kn.nu}, "
             f"{problem.nc0}) is outside its domain (nc0 == nx, 1 <= nx <= "
             f"{MAX_NX}, 1 <= nu <= {MAX_NU})"
         )
-    if kn.Q.dtype not in _C_FUNCS:
-        raise ValueError(f"fused_riccati kernel takes float32/float64, got {kn.Q.dtype}")
+    dt, dev = kn.Q.dtype, kn.Q.device
+    if dt not in _C_FUNCS:
+        raise ValueError(f"fused_riccati kernel takes float32/float64, got {dt}")
+    fields = [f for f in KNOT_FIELDS if f != "E" or not assume_explicit]
+    for name, t in [(f, getattr(kn, f)) for f in fields] + [
+            ("G0", problem.G0), ("g0", problem.g0)]:
+        if t.dtype != dt or t.device != dev:
+            raise ValueError(f"fused_riccati: {name} is {t.dtype} on {t.device}, "
+                             f"Q is {dt} on {dev}")
 
 
-def pack(problem: LQRProblem, mudyn, mueq, assume_explicit: bool = True):
-    """Pack knots into a batch-minor ``(T, F, B)`` buffer, ``G0|g0`` into
-    ``(nx*nx + nx, B)`` and ``mudyn|mueq`` into ``(2, B)``."""
-    _check(problem, assume_explicit)
-    kn = problem.knots
-    Bsz, T, nx = kn.batch, kn.horizon + 1, kn.nx
-    offs, F = field_layout(nx, kn.nu, kn.nc, assume_explicit)
-    feats = kn.Q.new_empty((T, F, Bsz))
-    for name, (o, n) in offs.items():
-        feats[:, o:o + n].copy_(getattr(kn, name).reshape(Bsz, T, n).permute(1, 2, 0))
-    g0f = kn.Q.new_empty((nx * nx + nx, Bsz))
-    g0f[:nx * nx].copy_(problem.G0.reshape(Bsz, nx * nx).mT)
-    g0f[nx * nx:].copy_(problem.g0.mT)
-    mu = torch.stack([batch_param(mudyn, problem), batch_param(mueq, problem)])
-    return feats, g0f, mu
+def _copy(t: Tensor) -> Tensor:
+    return t.contiguous()
 
 
-def launch_packed(feats: Tensor, g0f: Tensor, mu: Tensor, problem: LQRProblem,
-                  assume_explicit: bool = True):
-    """Launch the kernel on packed inputs; returns the batch-minor solution
-    ``(T, OF, B)`` and gains ``(T, G, B)``."""
-    global LAUNCHES
+def _contiguous(t: Tensor) -> Tensor:
+    return t if t.is_contiguous() else _copy(t)
+
+
+def kernel_io(problem: LQRProblem, mudyn, mueq, assume_explicit: bool = True):
+    """The tensors one launch reads and writes, on the problem's device:
+    ``(inputs, strides, outputs)``. The knots are passed as they are where
+    contiguous (copied otherwise; E is not read with explicit dynamics),
+    ``G0``, ``g0`` and the per-scenario mu as they are, with their strides;
+    the outputs are views of one new buffer, each a contiguous
+    ``(B, T, ·)`` tensor, solution first, then the gains."""
     _check(problem, assume_explicit)
     kn = problem.knots
     Bsz, T, nx, nu, nc = kn.batch, kn.horizon + 1, kn.nx, kn.nu, kn.nc
-    F = field_layout(nx, nu, nc, assume_explicit)[1]
-    G = gain_layout(nx, nu, nc)[1]
-    OF = out_layout(nx, nu, nc)[1]
-    dt, dev = kn.Q.dtype, kn.Q.device
-    for name, t, shape in (("feats", feats, (T, F, Bsz)),
-                           ("g0", g0f, (nx * nx + nx, Bsz)), ("mu", mu, (2, Bsz))):
-        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"fused_riccati: {name} must be a contiguous {dt} tensor of "
-                f"shape {shape} on {dev}, got {t.dtype} {tuple(t.shape)} on "
-                f"{t.device}"
-            )
-    out = torch.empty((T, OF, Bsz), dtype=dt, device=dev)
-    gains = torch.empty((T, G, Bsz), dtype=dt, device=dev)
-    if Bsz == 0:
-        return out, gains
-    name, defines = variant(nx, nu, nc, assume_explicit)
-    fn = _build.c_function(name, _C_FUNCS[dt], 6, 6, defines)
-    _build.run(fn, dev, nx, nu, nc, int(bool(assume_explicit)), Bsz, T,
-               feats.data_ptr(), g0f.data_ptr(), mu.data_ptr(),
-               out.data_ptr(), gains.data_ptr(), what="fused_riccati")
-    LAUNCHES += 1
-    return out, gains
+    knots = [getattr(kn, f) if f == "E" and assume_explicit
+             else _contiguous(getattr(kn, f)) for f in KNOT_FIELDS]
+    rows = [problem.G0, problem.g0, batch_param(mudyn, problem),
+            batch_param(mueq, problem)]
+    shapes = dict(xs=(nx,), us=(nu,), vs=(nc,), lams=(nx,), kff=(nu,),
+                  K=(nu, nx), zff=(nc,), Z=(nc, nx), lff=(nx,), L=(nx, nx),
+                  yff=(nx,), Afb=(nx, nx))
+    sizes = [Bsz * T * torch.Size(s).numel() for s in shapes.values()]
+    buf = kn.Q.new_empty(sum(sizes))
+    outs = {k: v.view((Bsz, T) + s) for (k, s), v in
+            zip(shapes.items(), buf.split(sizes))}
+    return knots + rows, [s for t in rows for s in t.stride()], outs
 
 
-def unpack(problem: LQRProblem, out: Tensor, gains: Tensor):
-    """Views ``(B, T, ·)`` of the batch-minor kernel outputs; returns
-    ``(xs, us, vs, lams, gains)`` as :func:`solve` does."""
+def launch(problem: LQRProblem, mudyn, mueq, assume_explicit: bool = True):
+    """One kernel launch on CUDA tensors, returning what :func:`solve`
+    returns. Raises ``ValueError`` for a problem outside the kernel's
+    domain, a type other than float32/float64 or tensors off the card."""
+    global LAUNCHES
+    ins, strides, outs = kernel_io(problem, mudyn, mueq, assume_explicit)
     kn = problem.knots
-    nx, nu, nc = kn.nx, kn.nu, kn.nc
-    shapes = dict(K=(nu, nx), Z=(nc, nx), L=(nx, nx), Afb=(nx, nx))
-
-    def field(buf, o, n, shape=None):
-        v = buf[:, o:o + n].permute(2, 0, 1)
-        return v if shape is None else v.unflatten(-1, shape)
-
-    ooffs = out_layout(nx, nu, nc)[0]
-    sol = tuple(field(out, *ooffs[k]) for k in ("xs", "us", "vs", "lams"))
-    goffs = gain_layout(nx, nu, nc)[0]
-    g = {k: field(gains, o, n, shapes.get(k)) for k, (o, n) in goffs.items()}
-    return (*sol, g)
+    dev = kn.Q.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_riccati kernel: tensors on {dev}, not a CUDA device")
+    if kn.batch:
+        name, defines = variant(kn.nx, kn.nu, kn.nc, assume_explicit)
+        fn = _build.c_function(name, _C_FUNCS[kn.Q.dtype], 6, 3, defines)
+        ptrs = (ctypes.c_void_p * 28)(*(t.data_ptr() for t in ins),
+                                       *(t.data_ptr() for t in outs.values()))
+        _build.run(fn, dev, kn.nx, kn.nu, kn.nc, int(bool(assume_explicit)),
+                   kn.batch, kn.horizon + 1, ptrs, (ctypes.c_longlong * 7)(*strides),
+                   what="fused_riccati")
+        LAUNCHES += 1
+    sol = tuple(outs.pop(k) for k in SOLUTION_FIELDS)
+    return (*sol, outs)

@@ -37,6 +37,7 @@ FORWARD_LAUNCHES = 0
 # fwd_lanes_eligible, kept so that each shape runs the same kernel as in the
 # JAX package
 MIN_NX, MAX_NX = 12, 44
+MAX_SHARED = 232448  # bytes a block may opt in to on sm_90 (kMaxShared)
 STAGE_FIELDS = ("Q", "S", "R", "q", "r", "A", "B", "f", "C", "D", "d")
 FACTOR_FIELDS = ("kff", "K", "zff", "Z", "lff", "L", "yff", "Afb", "Pmat",
                  "pvec")
@@ -46,10 +47,24 @@ _FORWARD = {torch.float32: "fused_forward_f32",
             torch.float64: "fused_forward_f64"}
 
 
-def sweep_eligible(nx: int, nu: int, assume_explicit: bool) -> bool:
-    """Whether the backward sweep goes to K3: explicit dynamics and
-    ``MIN_NX <= nx <= MAX_NX``."""
-    return bool(assume_explicit) and MIN_NX <= nx <= MAX_NX and nu >= 1
+def stage_smem_bytes(nx: int, nu: int, nc: int, itemsize: int) -> int:
+    """Dynamic shared memory of a K3 block: ``stage_smem_words`` of
+    ``csrc/fused_stage.cu``, counted the same way (a card test holds the two
+    against each other)."""
+    n1, mc = nx + 1, max(nu, nc)
+    words = (3 * nx * n1 + nx * nx + nx + mc * n1 + 2 * nx * nu + nu * nu
+             + nu * n1 + nc * (nx + nu + 1))
+    return itemsize * words
+
+
+def sweep_eligible(nx: int, nu: int, nc: int, assume_explicit: bool,
+                   itemsize: int) -> bool:
+    """Whether the backward sweep goes to K3: explicit dynamics,
+    ``MIN_NX <= nx <= MAX_NX`` and a block's shared memory within what a
+    block may have (:data:`MAX_SHARED`), as the JAX gate's VMEM term sends
+    larger sweeps to XLA; the others take the per-stage loop."""
+    return (bool(assume_explicit) and MIN_NX <= nx <= MAX_NX and nu >= 1
+            and stage_smem_bytes(nx, nu, nc, itemsize) <= MAX_SHARED)
 
 
 def forward_eligible(nx: int, nu: int) -> bool:
@@ -185,6 +200,14 @@ def kernel_info(kernel: str, dtype, Bsz: int, T: int, nx: int, nu: int,
     if err != 0:
         raise RuntimeError(f"fused_stage_info failed: CUDA error {err}")
     return dict(zip(("smem_bytes", "blocks_per_sm", "registers", "threads"), out))
+
+
+def stage_smem_bytes_on_card(nx: int, nu: int, nc: int, itemsize: int) -> int:
+    """:func:`stage_smem_bytes` as ``csrc/fused_stage.cu`` counts it (card
+    only: it builds the library)."""
+    fn = _build.c_function(_SOURCE, "fused_stage_smem_bytes", 4, 0)
+    fn.restype = ctypes.c_longlong
+    return fn(nx, nu, nc, itemsize)
 
 
 def _as_kernel_input(t: Tensor, dtype, device) -> Tensor:

@@ -16,7 +16,8 @@ Routing by shape, as the JAX package routes its batches to its kernels
 * :func:`solve_and_gains`: problems in the small-dim fused solve's domain go
   to :mod:`.fused_riccati` (K1) whole;
 * :func:`sweep` (the backward sweep): explicit dynamics with
-  ``12 <= nx <= 44`` go to :func:`.fused_stage.sweep` (K3), the others to
+  ``12 <= nx <= 44`` and a K3 block within the card's shared memory go to
+  :func:`.fused_stage.sweep` (K3), the others to
   the per-stage loop of this module, whose Schur and reduced-KKT solves go
   through :func:`.spd_solve.spd_solve` (K2);
 * :func:`forward`: ``nx >= 12`` goes to :func:`.fused_stage.forward` (K4),
@@ -170,7 +171,8 @@ def _sweep(kn: LQRKnots, mudyn: Tensor, mueq: Tensor, assume_explicit: bool,
     P, p = term["Pmat"], term["pvec"]
     if plain:
         out = _sweep_loop(kn, P, p, mudyn, mueq, assume_explicit, chol_solve)
-    elif fused_stage.sweep_eligible(kn.nx, kn.nu, assume_explicit):
+    elif fused_stage.sweep_eligible(kn.nx, kn.nu, kn.nc, assume_explicit,
+                                    kn.Q.element_size()):
         out = fused_stage.sweep(kn, P, p, mudyn, mueq)
     else:
         out = _sweep_loop(kn, P, p, mudyn, mueq, assume_explicit,

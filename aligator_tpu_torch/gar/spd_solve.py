@@ -7,8 +7,8 @@ n)`` and ``R (..., n, r)``:
 
 * CPU tensors take :func:`spd_solve_plain` (torch Cholesky);
 * CUDA tensors take the kernel of ``csrc/spd_solve.cu`` (one thread block
-  per system), for ``n <= MAX_N`` and ``r <= MAX_R`` in float32 or float64;
-  anything else raises.
+  per system and group of at most 128 right-hand sides), for ``n <= MAX_N``
+  and any ``r`` in float32 or float64; anything else raises.
 
 A system whose factorization fails (A not positive definite) gives NaN in
 its own solution only. The callers are the Schur and reduced-KKT solves of
@@ -28,7 +28,9 @@ from .. import _build
 from .._linalg import chol_solve
 
 LAUNCHES = 0
-MAX_N, MAX_R = 64, 128  # keep in sync with kMaxN, kMaxR in csrc/spd_solve.cu
+# keep in sync with kMaxN, kMaxR in csrc/spd_solve.cu: systems up to n = 64;
+# a block takes up to 128 right-hand sides, a wider R is split over blocks
+MAX_N, MAX_R = 64, 128
 _SOURCE = "spd_solve"
 _C_FUNCS = {torch.float32: "spd_solve_f32", torch.float64: "spd_solve_f64"}
 
@@ -63,9 +65,8 @@ def launch(A: Tensor, R: Tensor) -> Tensor:
             f"spd_solve kernel takes float32/float64 A and R on one device, "
             f"got {A.dtype} on {A.device} and {R.dtype} on {R.device}"
         )
-    if not (1 <= n <= MAX_N and r <= MAX_R):
-        raise ValueError(f"spd_solve kernel takes n <= {MAX_N} and r <= {MAX_R}, "
-                         f"got n={n}, r={r}")
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"spd_solve kernel takes 1 <= n <= {MAX_N}, got n={n}")
     X = torch.empty_like(R, memory_format=torch.contiguous_format)
     M = X.numel() // (n * r) if r else 0
     if M == 0:

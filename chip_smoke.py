@@ -6,12 +6,17 @@ any failed check raises and the script exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels of ``aligator_tpu_torch/csrc`` with nvcc, one
-   process per source, in parallel;
+   process per library (K1 one per shape of ``fused_riccati.DOMAIN_SAMPLES``),
+   in parallel, with ptxas's registers and spills for each;
 3. kernels: each kernel (K1 fused Riccati, K2 SPD solve, K3 fused backward
    sweep, K4 forward substitution, K5 contact-dynamics derivative rows) held
    against its plain PyTorch version on the card, at the main paths' shapes
    (fp32) and at the test shapes (fp64), and timed beside its memory/compute
    bound and, where one PyTorch call computes the same function, that call;
+   K1 at each sample of its domain in fp64 (built a shape a library, all in
+   the build phase), its time alone and its whole step (from the LQ problem
+   to the returned tensors, at most three device operations) at the SE(2)
+   shape and at cartpole's over 101 knots;
    K2 at every shape the paths launch (the LQ loop's at batch 16 and 256,
    the contact KKT's at both walk batches), K5 at both walk batches; K3 and
    K4 also print their shared memory, registers and resident blocks per SM
@@ -135,7 +140,8 @@ def build_phase():
     print(f"[build] {len(variants)} libraries ({names} and K1 at "
           f"{len(fr.DOMAIN_SAMPLES)} shapes) in {dt:.1f} s")
     for v in variants:
-        log = _build.BUILD_LOG[_build.label(v)][1]
+        secs, log = _build.BUILD_LOG[_build.label(v)]
+        print(f"[build] {_build.label(v)}: built {secs:.1f} s after the start")
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {_build.label(v)}: {line.strip()}")
@@ -197,12 +203,56 @@ def k1_flops_per_stage(nx, nu, nc, explicit):
     return f
 
 
+def k1_bound(B, T, nx, nu, nc, explicit, itemsize):
+    """K1's bound and what sets it: each knot, G0, g0 and mu word read once,
+    each solution and gain word written once, and the flops of
+    :func:`k1_flops_per_stage`."""
+    knots = (2 * nx * nx + 2 * nx * nu + nu * nu + 2 * nx + nu + nc * (nx + nu + 1)
+             + (0 if explicit else nx * nx))
+    gains = nu + nu * nx + nc + nc * nx + 2 * nx + 2 * nx * nx
+    nbytes = B * itemsize * (T * (knots + gains + 2 * nx + nu + nc) + nx * nx + nx + 2)
+    return bound(nbytes, B * T * k1_flops_per_stage(nx, nu, nc, explicit))
+
+
+def k1_timing(shape, T, B):
+    """K1 at one shape, fp32: the kernel alone (profiler), the whole step
+    from the LQ problem to the returned tensors (CUDA events over
+    back-to-back calls), the kernels that step launches, the plain version
+    and the bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aligator_tpu_torch.gar import fused_riccati as fr
+
+    nx, nu, nc, expl = shape
+    prob, mud, mue = k1_problem(B, T, nx, nu, nc, expl, torch.float32, SEED + 30)
+
+    def step():
+        return fr.launch(prob, mud, mue, expl)
+
+    k_ms = kernel_ms(step, 25, "fused_riccati_kernel")
+    whole_ms = avg_time_ms(step, 25)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    launched = {ev.key[:60]: ev.count for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA}
+    plain_ms = cuda_time_ms(lambda: fr.solve_plain(prob, mud, mue, expl), 3)
+    bnd, by = k1_bound(B, T, nx, nu, nc, expl, 4)
+    print(f"[kernel] fused_riccati fp32 {shape} B={B} T={T}: kernel {k_ms:.4f} ms, "
+          f"whole step {whole_ms:.4f} ms ({sum(launched.values())} device "
+          f"operations: {launched}), plain {plain_ms:.3f} ms; bound {bnd:.4f} ms "
+          f"({by}), kernel/bound {k_ms / bnd:.2f}")
+    check(sum(launched.values()) <= 3, f"the K1 step launched {launched}")
+    return dict(kernel_ms=k_ms, whole_ms=whole_ms, plain_ms=plain_ms,
+                bound_ms=bnd, bound_by=by, launched=launched)
+
+
 def kernel_phase():
     from aligator_tpu_torch.gar import fused_riccati as fr
     from aligator_tpu_torch.gar.lqr_problem import random_convex_problem
 
     rng = np.random.default_rng(SEED)
-    # the test shapes, fp64, odd batch for the ragged last block
+    # every domain sample, fp64, a batch no block size divides
     for (nx, nu, nc, expl) in fr.DOMAIN_SAMPLES:
         B, T = 1000, 11
         prob = random_convex_problem(rng, B, T - 1, nx, nu, nc, not expl,
@@ -215,19 +265,16 @@ def kernel_phase():
         errs = _compare(got, ref)
         worst = max(errs.values())
         print(f"[kernel] fused_riccati fp64 (nx,nu,nc,explicit)={(nx, nu, nc, expl)} "
-              f"B={B} T={T}: max rel err {worst:.3e} (tol {FP64_TOL:g})")
+              f"B={B} T={T}: max rel err {worst:.3e}, max abs err "
+              f"{max(_compare(got, ref, abs_err).values()):.3e} (tol {FP64_TOL:g})")
         check(worst <= FP64_TOL, f"fp64 kernel vs plain {errs}")
 
     # the main path's shape: SE(2) car LQ subproblem, fp32, general E
-    nx, nu, nc, expl = 3, 2, 0, False
+    main = (3, 2, 0, False)
     T, B = NSTEPS + 1, BATCH
-    p64 = random_convex_problem(rng, B, T - 1, nx, nu, nc, True, torch.float64,
-                                "cuda")
-    prob = cast(p64, torch.float32)
-    mud = torch.tensor(10 ** rng.uniform(-4, -1, B), dtype=torch.float32, device="cuda")
-    mue = torch.tensor(10 ** rng.uniform(-4, -1, B), dtype=torch.float32, device="cuda")
-    got = fr.solve(prob, mud, mue, expl)
-    ref = fr.solve_plain(prob, mud, mue, expl)
+    prob, mud, mue = k1_problem(B, T, *main, torch.float32, SEED + 30)
+    got = fr.solve(prob, mud, mue, False)
+    ref = fr.solve_plain(prob, mud, mue, False)
     torch.cuda.synchronize()
     errs = _compare(got, ref)
     worst = max(errs.values())
@@ -236,46 +283,27 @@ def kernel_phase():
     # context: both float32 results against the float64 plain solve on the
     # same (float32-rounded) data
     p64 = cast(prob, torch.float64)
-    ref64 = fr.solve_plain(p64, mud.double(), mue.double(), expl)
+    ref64 = fr.solve_plain(p64, mud.double(), mue.double(), False)
     for name, res32 in (("kernel", got), ("plain", ref)):
         e = _compare(_to64(res32), ref64)
         print(f"[kernel] fused_riccati fp32 {name} vs fp64 plain: max rel err "
               f"{max(e.values()):.2e} ({max(e, key=e.get)})")
-    del p64, ref64
+    max_abs = max(_compare(got, ref, abs_err).values())
+    del p64, ref64, prob, got, ref
     check(all(math.isfinite(v) for v in errs.values()), "non-finite kernel output")
     check(worst <= FP32_TOL, f"fp32 kernel vs plain: {worst:.3e} > {FP32_TOL}")
-    max_abs = max(_compare(got, ref, abs_err).values())
 
-    packed = fr.pack(prob, mud, mue, expl)
-    out, gains = fr.launch_packed(*packed, prob, expl)
-    pack_ms = cuda_time_ms(lambda: fr.pack(prob, mud, mue, expl), 20)
-    kernel_ms = cuda_time_ms(lambda: fr.launch_packed(*packed, prob, expl), 25)
-    unpack_ms = cuda_time_ms(
-        lambda: [t.contiguous() for t in fr.unpack(prob, out, gains)[:4]], 20
-    )
-    plain_ms = cuda_time_ms(lambda: fr.solve_plain(prob, mud, mue, expl), 5)
-
-    F = fr.field_layout(nx, nu, nc, expl)[1]
-    G = fr.gain_layout(nx, nu, nc)[1]
-    OF = fr.out_layout(nx, nu, nc)[1]
-    nbytes = B * 4 * (T * F + nx * nx + nx + 2 + T * G + T * OF)
-    flops = B * T * k1_flops_per_stage(nx, nu, nc, expl)
-    bytes_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / H100_FP32_FLOP_PER_S * 1e3
-    print(f"[kernel] fused_riccati fp32 B={B} T={T}: kernel {kernel_ms:.4f} ms, "
-          f"pack {pack_ms:.4f} ms, unpack(xs,us,vs,lams) {unpack_ms:.4f} ms, "
-          f"plain {plain_ms:.3f} ms; bound {max(bytes_ms, ops_ms):.4f} ms "
-          f"(bytes {nbytes / 1e9:.3f} GB -> {bytes_ms:.4f} ms, "
-          f"~{flops / 1e9:.2f} GFLOP -> {ops_ms:.4f} ms)")
+    # times at the main shape and at cartpole's over a longer horizon
+    times = {"se2car": k1_timing(main, T, B),
+             "cartpole": k1_timing((4, 1, 1, True), 2 * NSTEPS + 1, B)}
+    t = times["se2car"]
     return dict(
         name="fused_riccati", route="cuda",
         source="aligator_tpu_torch/csrc/fused_riccati.cu",
         replaces="aligator_tpu/gar/pallas_riccati.py:171",
-        max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms,
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=None,
-    ), dict(pack_ms=pack_ms, unpack_ms=unpack_ms)
+        max_abs_err=max_abs, ms=t["kernel_ms"], plain_ms=t["plain_ms"],
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+    ), times
 
 
 def _to64(res):
@@ -1278,7 +1306,7 @@ def main():
 
     smi = timed("device", device_phase)
     timed("build", build_phase)
-    k1, layout_times = timed("K1", kernel_phase)
+    k1, k1_times = timed("K1", kernel_phase)
     k2, k2_extra = timed("K2", k2_phase)
     k3, k3_extra = timed("K3", k3_phase)
     k4, k4_shapes = timed("K4", k4_phase)
@@ -1290,7 +1318,7 @@ def main():
     runs = [se2_counts, *medium_counts.values(), *talos_counts.values()]
     for k in (k1, k2, k3, k4, k5):
         k["launches"] = sum(c[k["name"]] for c in runs)
-    print(json.dumps({"slice": result, "fused_riccati_layout": layout_times,
+    print(json.dumps({"slice": result, "fused_riccati": k1_times,
                       "medium": medium, "medium_launches": medium_counts,
                       "talos": talos, "talos_launches": talos_counts,
                       "spd_solve": k2_extra, "fused_stage_sweep": k3_extra,

@@ -37,10 +37,21 @@ def _mus(B, seed, device):
             for _ in range(2))
 
 
+@pytest.fixture(scope="module")
+def k1_built():
+    """K1 built at every domain sample at once, an nvcc each in parallel,
+    rather than one after another at each shape's first launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from aligator_tpu_torch import _build
+
+    _build.build([fused_riccati.variant(*s) for s in fused_riccati.DOMAIN_SAMPLES])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 300])  # 300: the last block is ragged
 @pytest.mark.parametrize("shape", fused_riccati.DOMAIN_SAMPLES)
-def test_fused_riccati_matches_plain(cuda_device, shape, B):
+def test_fused_riccati_matches_plain(cuda_device, k1_built, shape, B):
     nx, nu, nc, explicit = shape
     prob = lqr_problem.random_convex_problem(
         np.random.default_rng(6), B, 9, nx, nu, nc, not explicit,
@@ -72,6 +83,50 @@ def test_fused_riccati_launches_a_shape_outside_the_old_five(cuda_device):
     ref = fused_riccati.solve_plain(prob, 1e-3, 1e-3, True)
     for a, b in zip(got[:4], ref[:4]):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 2, 0, False), (4, 1, 1, True)])
+def test_fused_riccati_nan_only_in_the_failing_scenario(cuda_device, shape):
+    """A scenario whose reduced KKT is indefinite at one stage comes out NaN
+    everywhere (the failure reaches every earlier stage and the forward
+    sweep); its neighbours in the same block match the plain version."""
+    nx, nu, nc, explicit = shape
+    B, N = 70, 9
+    prob = lqr_problem.random_convex_problem(
+        np.random.default_rng(8), B, N, nx, nu, nc, not explicit, device=cuda_device
+    )
+    prob.knots.R[7, 4] = -1e4 * torch.eye(nu, dtype=torch.float64, device=cuda_device)
+    md, me = _mus(B, 12, cuda_device)
+    got = fused_riccati.solve(prob, md, me, explicit)
+    ref = fused_riccati.solve_plain(prob, md, me, explicit)
+    torch.cuda.synchronize()
+    ok = torch.arange(B, device=cuda_device) != 7
+    for a, b in zip(got[:4], ref[:4]):
+        assert torch.isnan(a[7]).all()
+        torch.testing.assert_close(a[ok], b[ok], rtol=0, atol=1e-9)
+    for k in ("kff", "K"):
+        assert torch.isnan(got[4][k][7, :5]).all()
+        torch.testing.assert_close(got[4][k][ok], ref[4][k][ok], rtol=0, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_fused_riccati_step_copies_no_input_on_the_se2_path(cuda_device, monkeypatch):
+    """The SE(2) solver's K1 step reads the solver's tensors in place: with
+    the wrapper's copy patched to raise, the card solve launches K1 once a
+    Newton step."""
+    monkeypatch.setattr(fused_riccati, "_copy",
+                        lambda t: pytest.fail(f"K1 input copied: {tuple(t.stride())}"))
+    prob = create_se2_problem(nsteps=10, dtype=torch.float32, device=cuda_device)
+    x0s = prob.x0.expand(64, -1).clone()
+    x0s[:, 0] += torch.linspace(-0.2, 0.2, 64, device=cuda_device)
+    cfg = at.solvers.ProxDDPConfig(tol=1e-3, mu_init=1e-3, max_iters=2,
+                                   max_al_iters=2, ls_strategy="filter")
+    before = fused_riccati.LAUNCHES
+    res = at.solvers.solve(dataclasses.replace(prob, x0=x0s), cfg)
+    torch.cuda.synchronize()
+    assert fused_riccati.LAUNCHES - before == int(res.newton_steps.max()) >= 1
+    assert torch.isfinite(res.xs).all()
 
 
 @pytest.mark.cuda
@@ -127,7 +182,11 @@ def _spd_batch(rng, M, n, r, dtype, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n,r", [(56, 57), (22, 57), (12, 1), (64, 64), (28, 84),
-                                 (12, 84), (64, 128), (64, 65), (1, 1)])
+                                 (12, 84), (64, 128), (64, 65), (1, 1),
+                                 # past 128 columns: R split over blocks,
+                                 # (28, 192) in registers, (64, 257) in
+                                 # shared memory
+                                 (28, 192), (64, 257)])
 def test_spd_solve_matches_plain(cuda_device, dtype, n, r):
     M = 130
     A, R = _spd_batch(np.random.default_rng(n), M, n, r, dtype, cuda_device)
@@ -193,11 +252,28 @@ def test_spd_solve_not_positive_definite_at_the_path_batches(cuda_device, dtype,
 
 @pytest.mark.cuda
 def test_spd_solve_rejects_oversized_systems(cuda_device):
-    for n, r in ((65, 3), (12, 129)):
-        A, R = _spd_batch(np.random.default_rng(0), 2, n, r, torch.float64,
-                          cuda_device)
-        with pytest.raises(ValueError, match="n <= 64 and r <= 128"):
-            spd_solve.spd_solve(A, R)
+    """n = 65 is past the kernel; r is not bounded (r = 129 solves)."""
+    A, R = _spd_batch(np.random.default_rng(0), 2, 65, 3, torch.float64, cuda_device)
+    with pytest.raises(ValueError, match="n <= 64"):
+        spd_solve.spd_solve(A, R)
+    A, R = _spd_batch(np.random.default_rng(0), 2, 12, 129, torch.float64, cuda_device)
+    assert _rel(spd_solve.spd_solve(A, R), spd_solve.spd_solve_plain(A, R)) <= TOL[A.dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("M", [1, 16])
+@pytest.mark.parametrize("n,r", [(28, 192), (64, 257)])
+def test_spd_solve_wide_right_hand_sides_at_small_batches(cuda_device, dtype, M, n, r):
+    """Past 128 columns at fewer systems than SMs (the column split on top
+    of the groups of 128), a failing system NaN alone."""
+    A, R = _spd_batch(np.random.default_rng(M + r), M, n, r, dtype, cuda_device)
+    A[M - 1, 3, 3] = -1.0
+    X = spd_solve.spd_solve(A, R)
+    ref = spd_solve.spd_solve_plain(A, R)
+    assert torch.isnan(X[M - 1]).all()
+    assert torch.isfinite(X[:M - 1]).all()
+    assert _rel(X[:M - 1], ref[:M - 1]) <= TOL[dtype]
 
 
 def _sweep_inputs(rng, B, N, nx, nu, nc, dtype, device):
@@ -256,6 +332,36 @@ def _check_sweep(cuda_device, dtype, dims):
                             P, p, md, me)
     for k in fused_stage.FACTOR_FIELDS:
         assert _rel(one[k][ok], ref[k][ok, N - 1]) <= 10 * TOL[dtype], k
+
+
+@pytest.mark.cuda
+def test_fused_sweep_shared_memory_count_matches_the_kernels(cuda_device):
+    """The route's count of K3's shared memory (Python) is the launcher's."""
+    for nx, nu, nc in ((12, 1, 0), (36, 12, 12), (44, 79, 6), (44, 64, 64),
+                       (44, 82, 0), (13, 4, 3)):
+        for itemsize in (4, 8):
+            assert fused_stage.stage_smem_bytes(nx, nu, nc, itemsize) == \
+                fused_stage.stage_smem_bytes_on_card(nx, nu, nc, itemsize)
+
+
+@pytest.mark.cuda
+def test_sweep_past_k3s_shared_memory_takes_the_loop(cuda_device, plain_versions_raise):
+    """(44, 64, 64) in fp64 needs more shared memory than a block may have:
+    the routed sweep takes the per-stage loop (K2), not K3, and matches the
+    plain sweep."""
+    N, B = 2, 3
+    kn, P, p, md, me = _sweep_inputs(np.random.default_rng(4), B, N, 44, 64, 64,
+                                     torch.float64, cuda_device)
+    assert not fused_stage.sweep_eligible(44, 64, 64, True, 8)
+    ref = riccati.sweep_plain(kn, md, me, True)
+    plain_versions_raise()
+    before = _launches()
+    got = riccati.sweep(kn, md, me, True)
+    torch.cuda.synchronize()
+    counts = {k: v - before[k] for k, v in _launches().items()}
+    assert counts == dict(k2=2 * N, k3=0, k4=0, k1=0, k5=0)
+    for k in fused_stage.FACTOR_FIELDS:
+        assert _rel(got[k], ref[k]) <= TOL[torch.float64], k
 
 
 @pytest.mark.cuda

@@ -18,6 +18,7 @@ from aligator_tpu._pytree import replace
 from aligator_tpu.gar import pallas_riccati
 from aligator_tpu.native import riccati_solve_native
 
+import aligator_tpu_torch as at
 from aligator_tpu_torch import _build, _device, convert
 from aligator_tpu_torch.examples.se2_car import create_se2_problem
 from aligator_tpu_torch.gar import fused_riccati, lqr_problem, riccati
@@ -193,6 +194,37 @@ def test_build_variants_hash_their_defines():
     assert lib(a) != lib(("fused_riccati", ())) != lib("spd_solve")
     assert lib("spd_solve") == lib(("spd_solve", ()))
     assert _build.label(a) == "fused_riccati[K1_NX=3,K1_NU=2,K1_NC=0,K1_EXPLICIT=0]"
+
+
+def test_kernel_reads_the_se2_solvers_knots_in_place(monkeypatch):
+    """The fused solve's inputs on the SE(2) solver's path are the solver's
+    own tensors (knots contiguous; G0, g0 and mu with their strides): the
+    kernel needs no copy of them, and its outputs are contiguous views of
+    one buffer. The same preparation runs before a launch on the card."""
+    seen = []
+    solve_and_gains = riccati.solve_and_gains
+
+    def spy(lq, mudyn, mueq, assume_explicit=True):
+        seen.append((lq, mudyn, mueq, assume_explicit))
+        return solve_and_gains(lq, mudyn, mueq, assume_explicit)
+
+    monkeypatch.setattr(riccati, "solve_and_gains", spy)
+    monkeypatch.setattr(fused_riccati, "_copy", lambda t: pytest.fail("input copied"))
+    prob = create_se2_problem(nsteps=6, dtype=torch.float64, device="cpu")
+    cfg = at.solvers.ProxDDPConfig(tol=1e-3, mu_init=1e-3, max_iters=1,
+                                   max_al_iters=1, ls_strategy="filter")
+    at.solvers.solve(dataclasses.replace(prob, x0=prob.x0.expand(3, -1)), cfg)
+    lq, mudyn, mueq, explicit = seen[0]
+    assert fused_riccati.available(lq) and not explicit
+    ins, strides, outs = fused_riccati.kernel_io(lq, mudyn, mueq, explicit)
+    kn = lq.knots
+    own = [getattr(kn, f) for f in fused_riccati.KNOT_FIELDS] + [
+        lq.G0, lq.g0, mudyn, mueq]
+    assert [t.data_ptr() for t in ins] == [t.data_ptr() for t in own]
+    assert strides[:5] == [*lq.G0.stride(), *lq.g0.stride()]
+    assert all(v.is_contiguous() and v.shape[:2] == kn.Q.shape[:2]
+               for v in outs.values())
+    assert len({v.untyped_storage().data_ptr() for v in outs.values()}) == 1
 
 
 def test_cuda_request_without_cuda_raises(monkeypatch):

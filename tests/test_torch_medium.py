@@ -2,11 +2,16 @@
 the plain versions of the kernels K2 (SPD solve), K3 (fused backward stage)
 and K4 (forward substitution) against the Pallas kernels in interpret mode,
 the routed LQ solve, and the humanoid-dims ProxDDP and dense-LQR ProxDDP and
-FDDP solves at full width. The CUDA kernels themselves are checked against
+FDDP solves at full width, against the JAX package's solves stored in
+tests/data/torch_medium_ref.npz by tools/torch_medium_fixture.py (the slow
+tests solve them again live). The CUDA kernels themselves are checked against
 the same plain versions on the card by tests/test_torch_cuda.py.
 """
 
 import dataclasses
+import importlib.util
+import pathlib
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -15,12 +20,8 @@ import pytest
 import torch
 
 from aligator_tpu import gar as jgar
-from aligator_tpu import solvers as jsolvers
-from aligator_tpu._pytree import replace
 from aligator_tpu.gar import pallas_spd, pallas_stage
 from aligator_tpu.gar import riccati as jriccati
-from bench import make_humanoid_dims_problem as jax_humanoid_problem
-from bench_lqr import make_dense_lqr as jax_dense_lqr
 
 import aligator_tpu_torch as at
 from aligator_tpu_torch import convert
@@ -28,6 +29,7 @@ from aligator_tpu_torch.examples import medium_dims
 from aligator_tpu_torch.gar import fused_stage, lqr_problem, riccati, spd_solve
 
 torch.set_num_threads(2)
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def _rel_err(got, ref):
@@ -186,12 +188,39 @@ def test_routed_solve_and_gains_matches_jax(dims):
     arrays = {k: np.asarray(getattr(probs.knots, k)) for k in convert.KNOT_FIELDS}
     arrays.update(G0=np.asarray(probs.G0), g0=np.asarray(probs.g0))
     tp = convert.lqr_problem_from_numpy(arrays, device="cpu")
-    assert fused_stage.sweep_eligible(nx, nu, True) == (nx <= 44)
+    assert fused_stage.sweep_eligible(nx, nu, nc, True, 8) == (nx <= 44)
     got = riccati.solve_and_gains(tp, torch.tensor(md), torch.tensor(me), True)
     for g, r in zip(got[:4], ref[:4]):
         assert _rel_err(g.numpy(), r) < 1e-9
     for k in riccati.GAIN_FIELDS:
         assert _rel_err(got[4][k].numpy(), ref[4][k]) < 1e-9, k
+
+
+def test_sweep_past_k3s_shared_memory_takes_the_loop(monkeypatch):
+    """K3's route has a shared-memory term, as the JAX gate has a VMEM term:
+    (44, 64, 64) needs 243 KB a block in fp64, more than the 227 KB a block
+    may have, so the routed sweep takes the per-stage loop (K2's solves);
+    in fp32 (122 KB) it takes K3."""
+    assert fused_stage.stage_smem_bytes(44, 79, 6, 8) == 231736
+    assert fused_stage.stage_smem_bytes(44, 64, 64, 8) > fused_stage.MAX_SHARED
+    assert not fused_stage.sweep_eligible(44, 64, 64, True, 8)
+    assert fused_stage.sweep_eligible(44, 64, 64, True, 4)
+    assert fused_stage.sweep_eligible(44, 79, 6, True, 8)
+    N, B = 2, 2
+    kn = lqr_problem.random_convex_problem(np.random.default_rng(5), B, N, 44, 64,
+                                           64, device="cpu").knots
+    md, me = (torch.tensor(m) for m in _log_mus(np.random.default_rng(6), B))
+    ref = riccati.sweep_plain(kn, md, me, True)
+    monkeypatch.setattr(fused_stage, "sweep",
+                        lambda *a: pytest.fail("the sweep went to K3"))
+    solves = []
+    spd = spd_solve.spd_solve
+    monkeypatch.setattr(spd_solve, "spd_solve", lambda A, R: solves.append(
+        A.shape[-1]) or spd(A, R))
+    got = riccati.sweep(kn, md, me, True)
+    assert solves == [44, 64] * N  # Schur and reduced KKT, stage by stage
+    for k in fused_stage.FACTOR_FIELDS:
+        assert _rel_err(got[k].numpy(), ref[k].numpy()) < 1e-12, k
 
 
 # ---------------------------------------------------------------- slices
@@ -207,57 +236,102 @@ def _assert_same_solve(got, ref, fields):
                                    err_msg=name)
 
 
-def test_humanoid_proxddp_matches_jax_vmap():
-    """Humanoid dims (nx=36, nu=12, nc=12) at the bench configuration, the
-    horizon cut to 20: the port's solve (K3 sweep, K4 forward) against
-    jax.vmap of the JAX solver."""
-    N, B = 20, 4
-    jprob = jax_humanoid_problem(N, jnp.float64)
-    x0s = np.asarray(jprob.x0) + 0.1 * np.random.default_rng(3).standard_normal((B, 36))
-    opts = dict(tol=1e-3, mu_init=1e-3, max_iters=4, max_al_iters=4,
-                rollout="linear", ls_max_steps=6)
-    ref = jax.jit(jax.vmap(lambda x0: jsolvers.solve(
-        replace(jprob, x0=x0), jsolvers.ProxDDPConfig(**opts))))(jnp.asarray(x0s))
-    prob = medium_dims.make_humanoid_dims_problem(N, torch.float64, "cpu")
+FIXTURE = pathlib.Path(__file__).resolve().parent / "data" / "torch_medium_ref.npz"
+
+
+def _medium_tool():
+    """tools/torch_medium_fixture.py, which writes the fixture and computes
+    the live JAX references of the slow tests."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_medium_fixture", ROOT / "tools" / "torch_medium_fixture.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def _fixture(prefix):
+    with np.load(FIXTURE) as f:
+        return {k[len(prefix) + 1:]: f[k] for k in f.files if k.startswith(prefix + "_")}
+
+
+def _humanoid_solve(x0s):
+    """The port's humanoid-dims solve (K3 sweep, K4 forward) from the
+    fixture's initial states, at the fixture's configuration."""
+    tool = _medium_tool()
+    prob = medium_dims.make_humanoid_dims_problem(tool.N, torch.float64, "cpu")
     prob = dataclasses.replace(prob, x0=torch.tensor(x0s))
-    got = at.solvers.solve(prob, at.solvers.ProxDDPConfig(**opts))
-    assert got.conv.any() and (got.vs != 0).any()
-    _assert_same_solve(got, ref, ("xs", "us", "vs", "lams"))
+    return at.solvers.solve(prob, at.solvers.ProxDDPConfig(**tool.HUMANOID_OPTS))
 
 
-def _dense_lqr_pair(N, B):
-    """The dense LQR of bench_lqr.make_dense_lqr (PRNGKey(42)), carried to
-    the port through numpy, with B perturbed initial states."""
-    jprob = jax_dense_lqr(nsteps=N, dtype=jnp.float64)
-    dyn, cost = jprob.stages.dynamics, jprob.stages.cost
-    x0s = np.asarray(jprob.x0) + 0.1 * np.random.default_rng(7).standard_normal((B, 56))
-    params = dict(A=dyn.A[0], B=dyn.B[0], c=dyn.c[0], Q=cost.Q[0], R=cost.R[0],
-                  Q_term=jprob.term_cost.Q, x0=x0s)
-    return jprob, x0s, convert.linear_problem_from_numpy(params, N, device="cpu")
+def _dense_lqr_solve(params, solver):
+    tool = _medium_tool()
+    prob = convert.linear_problem_from_numpy(params, tool.N, device="cpu")
+    if solver == "proxddp":
+        return at.solvers.solve(prob, at.solvers.ProxDDPConfig(**tool.LQR_PROX_OPTS))
+    return at.solvers.fddp.solve(prob, at.solvers.FDDPConfig(**tool.LQR_FDDP_OPTS))
 
 
-def test_dense_lqr_proxddp_matches_jax_vmap():
-    N, B = 20, 4
-    jprob, x0s, prob = _dense_lqr_pair(N, B)
-    opts = dict(tol=1e-7, mu_init=1e-9, max_iters=2, rollout="linear")
-    ref = jax.jit(jax.vmap(lambda x0: jsolvers.solve(
-        replace(jprob, x0=x0), jsolvers.ProxDDPConfig(**opts))))(jnp.asarray(x0s))
-    got = at.solvers.solve(prob, at.solvers.ProxDDPConfig(**opts))
-    _assert_same_solve(got, ref, ("xs", "us", "lams"))
-
-
-def test_dense_lqr_fddp_matches_jax_vmap():
-    N, B = 20, 4
-    jprob, x0s, prob = _dense_lqr_pair(N, B)
-    ref = jax.jit(jax.vmap(lambda x0: jsolvers.fddp.solve(
-        replace(jprob, x0=x0), jsolvers.FDDPConfig(tol=1e-7, max_iters=2))))(
-        jnp.asarray(x0s))
-    got = at.solvers.fddp.solve(prob, at.solvers.FDDPConfig(tol=1e-7, max_iters=2))
+def _check_fddp(got, ref):
     _assert_same_solve(got, ref, ("xs", "us", "K", "kff"))
     for name in ("prim_infeas", "dual_infeas", "traj_cost"):
         np.testing.assert_allclose(getattr(got, name).numpy(),
                                    np.asarray(getattr(ref, name)), rtol=1e-8,
                                    atol=1e-12, err_msg=name)
+
+
+def test_humanoid_proxddp_matches_jax_vmap():
+    """Humanoid dims (nx=36, nu=12, nc=12) at the bench configuration, the
+    horizon cut to 20: the port's solve (K3 sweep, K4 forward) against
+    jax.vmap of the JAX solver, stored in tests/data/torch_medium_ref.npz
+    (``test_humanoid_fixture_matches_a_live_jax_solve`` reruns it)."""
+    ref = _fixture("humanoid")
+    got = _humanoid_solve(ref["x0s"])
+    assert got.conv.any() and (got.vs != 0).any()
+    _assert_same_solve(got, SimpleNamespace(**ref), ("xs", "us", "vs", "lams"))
+
+
+def test_dense_lqr_proxddp_matches_jax_vmap():
+    got = _dense_lqr_solve(_fixture("lqr"), "proxddp")
+    _assert_same_solve(got, SimpleNamespace(**_fixture("proxddp")), ("xs", "us", "lams"))
+
+
+def test_dense_lqr_fddp_matches_jax_vmap():
+    _check_fddp(_dense_lqr_solve(_fixture("lqr"), "fddp"),
+                SimpleNamespace(**_fixture("fddp")))
+
+
+def _same_arrays(live: dict, fix: dict):
+    assert set(live) == set(fix)
+    for k, v in live.items():
+        if np.asarray(v).dtype.kind == "f":
+            np.testing.assert_allclose(fix[k], v, rtol=1e-12, atol=1e-14, err_msg=k)
+        else:
+            assert np.array_equal(fix[k], v), k
+
+
+@pytest.mark.slow
+def test_humanoid_fixture_matches_a_live_jax_solve():
+    """The humanoid reference solved live by the JAX package: the fixture
+    holds it, and the port matches it."""
+    live = _medium_tool().humanoid_reference()
+    _same_arrays(live, _fixture("humanoid"))
+    got = _humanoid_solve(live["x0s"])
+    _assert_same_solve(got, SimpleNamespace(**live), ("xs", "us", "vs", "lams"))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("solver", ["proxddp", "fddp"])
+def test_dense_lqr_fixture_matches_a_live_jax_solve(solver):
+    tool = _medium_tool()
+    _, params = tool.dense_lqr_params()
+    _same_arrays(params, _fixture("lqr"))
+    live = tool.dense_lqr_reference(solver)
+    _same_arrays(live, _fixture(solver))
+    got = _dense_lqr_solve(params, solver)
+    if solver == "fddp":
+        _check_fddp(got, SimpleNamespace(**live))
+    else:
+        _assert_same_solve(got, SimpleNamespace(**live), ("xs", "us", "lams"))
 
 
 def test_make_dense_lqr_law():

@@ -71,16 +71,6 @@ def kernel_only(fr, prob, mud, mue, expl):
     return lambda: launch(*packed, prob, expl)
 
 
-def k1_bound_ms(B, T, nx, nu, nc, expl, itemsize):
-    F = T * (2 * nx * nx + 2 * nx * nu + nu * nu + 2 * nx + nu
-             + nc * (nx + nu + 1) + (0 if expl else nx * nx))
-    G = T * (nu + nu * nx + nc + nc * nx + 2 * nx + 2 * nx * nx)
-    OF = T * (2 * nx + nu + nc)
-    nbytes = B * itemsize * (F + nx * nx + nx + 2 + G + OF)
-    flops = B * T * cs.k1_flops_per_stage(nx, nu, nc, expl)
-    return cs.bound(nbytes, flops)
-
-
 def swapped(fr, shape, lib, fn):
     """fn() with the K1 wrapper launching from ``lib`` at ``shape``."""
     from aligator_tpu_torch import _build
@@ -157,9 +147,9 @@ def main():
 
     for bs in args.batches:
         p, a, b = sub(bs)
-        k_ms = cs.kernel_ms(kernel_only(fr, p, a, b, expl), 20, "fused_riccati")
+        k_ms = cs.kernel_ms(kernel_only(fr, p, a, b, expl), 20, "fused_riccati_kernel")
         w_ms = cs.avg_time_ms(whole_step(fr, p, a, b, expl), 20)
-        bnd, by = k1_bound_ms(bs, T, nx, nu, nc, expl, p.knots.Q.element_size())
+        bnd, by = cs.k1_bound(bs, T, nx, nu, nc, expl, p.knots.Q.element_size())
         print(f"[scan] shipped {shape} T={T} {args.dtype} B={bs}: kernel "
               f"{k_ms:.4f} ms, whole step {w_ms:.4f} ms, bound {bnd:.4f} ms "
               f"({by}), kernel/bound {k_ms / bnd:.2f}")
@@ -172,10 +162,9 @@ def main():
     for spec, lib in build_variants(fr, shape, specs).items():
         got = swapped(fr, shape, lib, lambda: fr.launch(p, a, b, expl))
         err = max(cs._compare(got, ref).values())
-        times = {bs: swapped(fr, shape, lib, lambda: cs.kernel_ms(
-            kernel_only(fr, *sub(bs), expl), 20, "fused_riccati"))
-            for bs in args.batches}
-        print(f"[scan] {spec}: vs shipped {err:.2e}; kernel ms " +
+        times = {bs: swapped(fr, shape, lib, lambda: cs.avg_time_ms(
+            kernel_only(fr, *sub(bs), expl), 20)) for bs in args.batches}
+        print(f"[scan] {spec}: vs shipped {err:.2e}; ms a launch (events) " +
               ", ".join(f"B={bs}: {ms:.4f}" for bs, ms in times.items()))
         if spec == "K1_PHASES=1":
             for bs in (1, 4096, min(Bmax, cs.BATCH)):
