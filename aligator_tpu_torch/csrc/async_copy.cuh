@@ -2,7 +2,8 @@
 // sm_80 and later): each thread starts its copies, commits them as a group
 // and later waits until at most N of its groups are still in flight. A
 // __syncthreads() after the wait makes every thread's copies visible to
-// the block. And L2 prefetches. Used by fused_stage.cu (K3, K4).
+// the block. And L2 prefetches. Used by fused_stage.cu (K3, K4) and
+// fused_riccati.cu (K1, 4-byte copies).
 
 #pragma once
 

@@ -34,10 +34,12 @@
 // neither the copy's nor the compute's accesses conflict on a bank. A
 // stage's gains are written over its knots once it has read them, and the
 // chunk's gains leave in the same pieces; the forward sweep streams the
-// gains back in and its solutions out the same way. Each thread keeps the
-// running value function (P, p) and then (x, lambda) in registers; the
-// kernel is built for one shape (NX, NU, NC, explicit E) so that every
-// small loop unrolls. Substitutions multiply by the reciprocals of the
+// gains back in and its solutions out the same way. One buffer: a block
+// copies a chunk in, computes it and copies it out in turn, while the SM's
+// other blocks fill the gaps. Each thread keeps the running value function
+// (P, p) and then (x, lambda) in registers; the kernel is built for one
+// shape (NX, NU, NC, explicit E) so that every small loop unrolls.
+// Substitutions multiply by the reciprocals of the
 // Cholesky diagonal (one division a pivot). Tensor cores do not apply:
 // fp32 runs with TF32 off (_precision.py), and the blocks are at most 8 x 8.
 //
@@ -46,18 +48,19 @@
 // pieces badly: two stages of Q are 72 bytes, and 32768 scenarios each
 // reading such pieces of 12 fields open a DRAM row for every few dozen
 // bytes. With chunks of 2 stages the copies alone took 1.24 ms (loads
-// 1.08 TB/s, stores 0.41 TB/s); with half the horizon a piece (8
-// scenarios a block, 16 waves), 0.42 ms.
-// Long pieces need shared memory, which a one-wave batch (248 scenarios an
-// SM) does not have: so chunks of 8 stages, one buffer (copy, compute and
-// store in turn; the SM's other blocks fill the gaps, measured as fast as
-// two buffers of half the depth), 32 scenarios a block (52 KB in fp32) and
-// four threads a scenario, the extra ones only copying (more threads copying
-// measured faster even where their registers cost blocks): 0.68-0.76 ms,
-// against 1.23 ms for chunks of 2 stages and two buffers. The arithmetic
-// alone takes 0.19 ms. K1_CHUNK, K1_SCEN, K1_BUFFERS and K1_COPY_THREADS
-// set these; K1_NO_COMPUTE, K1_NO_COPY, K1_NO_LOADS and K1_NO_STORES skip
-// parts to time the rest.
+// 1.08 TB/s, stores 0.41 TB/s); with half the horizon a piece (8 scenarios
+// a block, 16 waves), 0.42 ms. Long pieces need shared memory that a
+// one-wave batch (248 scenarios an SM) does not have, and each scenario's
+// chain of dependent steps (0.09 ms for a block alone) keeps the waves
+// few. The balance shipped: chunks of 8 stages, one buffer (as fast as two
+// buffers of half the depth), 32 scenarios a block (52 KB in fp32) and
+// four threads a scenario, the extra ones only copying (faster even where
+// their registers cost blocks): 0.66-0.68 ms, against 1.23 ms for chunks
+// of 2 stages in two buffers and 0.48 ms for the kernel that read a packed
+// batch-minor copy (1.78 ms with its packing). Copies alone take 0.66 ms,
+// the arithmetic alone 0.20 ms. K1_CHUNK, K1_SCEN and K1_COPY_THREADS set
+// the shape of the staging; K1_NO_COMPUTE and K1_NO_COPY skip one part to
+// time the other.
 //
 // One shape a library: the build passes -DK1_NX=.. -DK1_NU=.. -DK1_NC=..
 // -DK1_EXPLICIT=0|1 (aligator_tpu_torch/_build.py, a variant per shape,
@@ -75,9 +78,6 @@
 #endif
 #ifndef K1_SCEN
 #define K1_SCEN 32
-#endif
-#ifndef K1_BUFFERS
-#define K1_BUFFERS 1
 #endif
 #ifndef K1_COPY_THREADS
 #define K1_COPY_THREADS 4
@@ -110,10 +110,6 @@ constexpr int NX = K1_NX, NU = K1_NU, NC = K1_NC;
 constexpr bool kExplicit = K1_EXPLICIT != 0;
 constexpr int kChunk = K1_CHUNK;
 constexpr int kMaxScen = K1_SCEN;
-// chunk buffers: 2 copies the next chunk while this one computes; 1 copies,
-// computes and stores in turn (other blocks of the SM fill the gaps)
-constexpr int kBuffers = K1_BUFFERS;
-static_assert(kBuffers == 1 || kBuffers == 2, "one or two chunk buffers");
 // threads a block: a warp per 32 scenarios, times K1_COPY_THREADS (the
 // extra threads only copy)
 constexpr int kCopyThreads = K1_COPY_THREADS;
@@ -730,12 +726,6 @@ __device__ __forceinline__ void copy_field(S* buf, const int pitch, const int ro
 #ifdef K1_NO_COPY
   return;
 #endif
-#ifdef K1_NO_LOADS
-  if (kIn) return;
-#endif
-#ifdef K1_NO_STORES
-  if (!kIn) return;
-#endif
   if constexpr (N > 0) {
     constexpr int L = kChunk * N, P = L >= 32 ? 1 : 32 / L, R = (L + 31) / 32;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -792,7 +782,6 @@ fused_riccati_kernel(const int B, const int T, const int scen, const Args<S> a) 
   const bool active = s < ns;
 #endif
   const int nch = (T + kChunk - 1) / kChunk;
-  auto buffer = [&](int k) { return sm + (kBuffers == 2 ? k & 1 : 0) * kChunk * slot; };
 
   S mudyn = S(1), mueq = S(1);
   if (active) {
@@ -803,49 +792,43 @@ fused_riccati_kernel(const int B, const int T, const int scen, const Args<S> a) 
   const S inv_mudyn = S(1) / mudyn;
 
   // ---------------- backward sweep, chunks from the end ----------------
-  auto knots_in = [&](int k) {
-    S* buf = buffer(k);
-    const int t0 = T - (k + 1) * kChunk;
-    copy_in<NX * NX>(buf, pitch, oQ, a.Q, b0, ns, T, t0);
-    copy_in<NX * NU>(buf, pitch, oS, a.S_, b0, ns, T, t0);
-    copy_in<NU * NU>(buf, pitch, oR, a.R, b0, ns, T, t0);
-    copy_in<NX>(buf, pitch, oq, a.q, b0, ns, T, t0);
-    copy_in<NU>(buf, pitch, or_, a.r, b0, ns, T, t0);
-    copy_in<NX * NX>(buf, pitch, oA, a.A, b0, ns, T, t0);
-    copy_in<NX * NU>(buf, pitch, oB, a.B, b0, ns, T, t0);
-    copy_in<NX>(buf, pitch, of, a.f, b0, ns, T, t0);
-    copy_in<NC * NX>(buf, pitch, oC, a.C, b0, ns, T, t0);
-    copy_in<NC * NU>(buf, pitch, oD, a.D, b0, ns, T, t0);
-    copy_in<NC>(buf, pitch, od, a.d, b0, ns, T, t0);
-    if constexpr (!kExplicit) copy_in<NX * NX>(buf, pitch, oE, a.E, b0, ns, T, t0);
+  auto knots_in = [&](int t0) {
+    copy_in<NX * NX>(sm, pitch, oQ, a.Q, b0, ns, T, t0);
+    copy_in<NX * NU>(sm, pitch, oS, a.S_, b0, ns, T, t0);
+    copy_in<NU * NU>(sm, pitch, oR, a.R, b0, ns, T, t0);
+    copy_in<NX>(sm, pitch, oq, a.q, b0, ns, T, t0);
+    copy_in<NU>(sm, pitch, or_, a.r, b0, ns, T, t0);
+    copy_in<NX * NX>(sm, pitch, oA, a.A, b0, ns, T, t0);
+    copy_in<NX * NU>(sm, pitch, oB, a.B, b0, ns, T, t0);
+    copy_in<NX>(sm, pitch, of, a.f, b0, ns, T, t0);
+    copy_in<NC * NX>(sm, pitch, oC, a.C, b0, ns, T, t0);
+    copy_in<NC * NU>(sm, pitch, oD, a.D, b0, ns, T, t0);
+    copy_in<NC>(sm, pitch, od, a.d, b0, ns, T, t0);
+    if constexpr (!kExplicit) copy_in<NX * NX>(sm, pitch, oE, a.E, b0, ns, T, t0);
     aligator::cp_async_commit();
   };
-  auto gains_out = [&](int k) {
-    S* buf = buffer(k);
-    const int t0 = T - (k + 1) * kChunk;
-    copy_out<NU>(buf, pitch, gkff, a.kff, b0, ns, T, t0);
-    copy_out<NU * NX>(buf, pitch, gK, a.K, b0, ns, T, t0);
-    copy_out<NC>(buf, pitch, gzff, a.zff, b0, ns, T, t0);
-    copy_out<NC * NX>(buf, pitch, gZ, a.Z, b0, ns, T, t0);
-    copy_out<NX>(buf, pitch, glff, a.lff, b0, ns, T, t0);
-    copy_out<NX * NX>(buf, pitch, gL, a.L, b0, ns, T, t0);
-    copy_out<NX>(buf, pitch, gyff, a.yff, b0, ns, T, t0);
-    copy_out<NX * NX>(buf, pitch, gAfb, a.Afb, b0, ns, T, t0);
+  auto gains_out = [&](int t0) {
+    copy_out<NU>(sm, pitch, gkff, a.kff, b0, ns, T, t0);
+    copy_out<NU * NX>(sm, pitch, gK, a.K, b0, ns, T, t0);
+    copy_out<NC>(sm, pitch, gzff, a.zff, b0, ns, T, t0);
+    copy_out<NC * NX>(sm, pitch, gZ, a.Z, b0, ns, T, t0);
+    copy_out<NX>(sm, pitch, glff, a.lff, b0, ns, T, t0);
+    copy_out<NX * NX>(sm, pitch, gL, a.L, b0, ns, T, t0);
+    copy_out<NX>(sm, pitch, gyff, a.yff, b0, ns, T, t0);
+    copy_out<NX * NX>(sm, pitch, gAfb, a.Afb, b0, ns, T, t0);
   };
 
   S P[NX][NX], p[NX];
-  if (kBuffers == 2) knots_in(0);
   for (int k = 0; k < nch; ++k) {
-    if (kBuffers == 1) knots_in(k);
+    const int t0 = T - (k + 1) * kChunk;
+    knots_in(t0);
     aligator::cp_async_wait<0>();
-    __syncthreads();  // chunk k has landed; chunk k - 1's stores have read its buffer
-    if (kBuffers == 2 && k + 1 < nch) knots_in(k + 1);
+    __syncthreads();  // the chunk has landed
     K1_STAMP(0);
     if (active) {
-      const int t0 = T - (k + 1) * kChunk;
 #pragma unroll 1
       for (int tt = kChunk - 1; tt >= 0 && t0 + tt >= 0; --tt) {
-        const Col<S> io{buffer(k) + tt * slot + s, pitch};
+        const Col<S> io{sm + tt * slot + s, pitch};
         if (t0 + tt == T - 1)
           terminal_stage(io, inv_mueq, P, p);
         else
@@ -853,8 +836,8 @@ fused_riccati_kernel(const int B, const int T, const int scen, const Args<S> a) 
       }
     }
     __syncthreads();
-    gains_out(k);
-    if (kBuffers == 1) __syncthreads();  // the stores have read the buffer
+    gains_out(t0);
+    __syncthreads();  // the stores have read the buffer
     K1_STAMP(5);
   }
 
@@ -899,53 +882,47 @@ fused_riccati_kernel(const int B, const int T, const int scen, const Args<S> a) 
   }
 
   // ---------------- forward sweep, chunks from the start ----------------
-  auto gains_in = [&](int k) {
-    S* buf = buffer(k);
-    const int t0 = k * kChunk;
-    copy_in<NU>(buf, pitch, gkff, a.kff, b0, ns, T, t0);
-    copy_in<NU * NX>(buf, pitch, gK, a.K, b0, ns, T, t0);
-    copy_in<NC>(buf, pitch, gzff, a.zff, b0, ns, T, t0);
-    copy_in<NC * NX>(buf, pitch, gZ, a.Z, b0, ns, T, t0);
-    copy_in<NX>(buf, pitch, glff, a.lff, b0, ns, T, t0);
-    copy_in<NX * NX>(buf, pitch, gL, a.L, b0, ns, T, t0);
-    copy_in<NX>(buf, pitch, gyff, a.yff, b0, ns, T, t0);
-    copy_in<NX * NX>(buf, pitch, gAfb, a.Afb, b0, ns, T, t0);
+  auto gains_in = [&](int t0) {
+    copy_in<NU>(sm, pitch, gkff, a.kff, b0, ns, T, t0);
+    copy_in<NU * NX>(sm, pitch, gK, a.K, b0, ns, T, t0);
+    copy_in<NC>(sm, pitch, gzff, a.zff, b0, ns, T, t0);
+    copy_in<NC * NX>(sm, pitch, gZ, a.Z, b0, ns, T, t0);
+    copy_in<NX>(sm, pitch, glff, a.lff, b0, ns, T, t0);
+    copy_in<NX * NX>(sm, pitch, gL, a.L, b0, ns, T, t0);
+    copy_in<NX>(sm, pitch, gyff, a.yff, b0, ns, T, t0);
+    copy_in<NX * NX>(sm, pitch, gAfb, a.Afb, b0, ns, T, t0);
     aligator::cp_async_commit();
   };
-  auto solution_out = [&](int k) {
-    S* buf = buffer(k);
-    const int t0 = k * kChunk;
-    copy_out<NX>(buf, pitch, oxs, a.xs, b0, ns, T, t0);
-    copy_out<NU>(buf, pitch, ous, a.us, b0, ns, T, t0);
-    copy_out<NC>(buf, pitch, ovs, a.vs, b0, ns, T, t0);
-    copy_out<NX>(buf, pitch, olam, a.lams, b0, ns, T, t0);
+  auto solution_out = [&](int t0) {
+    copy_out<NX>(sm, pitch, oxs, a.xs, b0, ns, T, t0);
+    copy_out<NU>(sm, pitch, ous, a.us, b0, ns, T, t0);
+    copy_out<NC>(sm, pitch, ovs, a.vs, b0, ns, T, t0);
+    copy_out<NX>(sm, pitch, olam, a.lams, b0, ns, T, t0);
   };
 
   // the block's gain stores before its copies read them back
   __threadfence_block();
   __syncthreads();
-  if (kBuffers == 2) gains_in(0);
   for (int k = 0; k < nch; ++k) {
-    if (kBuffers == 1) gains_in(k);
+    const int t0 = k * kChunk;
+    gains_in(t0);
     aligator::cp_async_wait<0>();
     __syncthreads();
-    if (kBuffers == 2 && k + 1 < nch) gains_in(k + 1);
     if (active) {
-      const int t0 = k * kChunk;
 #pragma unroll 1
       for (int tt = 0; tt < kChunk && t0 + tt < T; ++tt)
-        forward_step(Col<S>{buffer(k) + tt * slot + s, pitch}, t0 + tt == T - 1, x, lam);
+        forward_step(Col<S>{sm + tt * slot + s, pitch}, t0 + tt == T - 1, x, lam);
     }
     __syncthreads();
-    solution_out(k);
-    if (kBuffers == 1) __syncthreads();
+    solution_out(t0);
+    __syncthreads();
     K1_STAMP(6);
   }
 }
 
 template <typename S>
 size_t smem_bytes(int scen) {
-  return sizeof(S) * kBuffers * kChunk * static_cast<size_t>(kRows) * (scen | 1);
+  return sizeof(S) * kChunk * static_cast<size_t>(kRows) * (scen | 1);
 }
 
 // Scenarios a block: kMaxScen, halved (not below a warp) while the batch

@@ -97,12 +97,21 @@ def _check(problem: LQRProblem, assume_explicit: bool):
     dt, dev = kn.Q.dtype, kn.Q.device
     if dt not in _C_FUNCS:
         raise ValueError(f"fused_riccati kernel takes float32/float64, got {dt}")
-    fields = [f for f in KNOT_FIELDS if f != "E" or not assume_explicit]
-    for name, t in [(f, getattr(kn, f)) for f in fields] + [
-            ("G0", problem.G0), ("g0", problem.g0)]:
-        if t.dtype != dt or t.device != dev:
-            raise ValueError(f"fused_riccati: {name} is {t.dtype} on {t.device}, "
-                             f"Q is {dt} on {dev}")
+    nx, nu, nc, bt = kn.nx, kn.nu, kn.nc, (kn.batch, kn.horizon + 1)
+    shapes = dict(Q=bt + (nx, nx), S=bt + (nx, nu), R=bt + (nu, nu), q=bt + (nx,),
+                  r=bt + (nu,), A=bt + (nx, nx), B=bt + (nx, nu), f=bt + (nx,),
+                  C=bt + (nc, nx), D=bt + (nc, nu), d=bt + (nc,), E=bt + (nx, nx))
+    if assume_explicit:
+        del shapes["E"]
+    tensors = {f: getattr(kn, f) for f in shapes}
+    tensors.update(G0=problem.G0, g0=problem.g0)
+    shapes.update(G0=(kn.batch, nx, nx), g0=(kn.batch, nx))
+    for name, t in tensors.items():
+        if t.dtype != dt or t.device != dev or tuple(t.shape) != shapes[name]:
+            raise ValueError(
+                f"fused_riccati: {name} must be a {dt} tensor of shape "
+                f"{shapes[name]} on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}")
 
 
 def _copy(t: Tensor) -> Tensor:

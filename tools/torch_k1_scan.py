@@ -6,7 +6,7 @@ stage's time goes.
 Run from the repository root on a machine with a card and nvcc:
 
     python3 tools/torch_k1_scan.py [--batches 4096 8192 32768 131072]
-        [--variants K1_CHUNK=1 K1_CHUNK=4,K1_SCEN=32 ...] [--phases]
+        [--variants K1_CHUNK=4 K1_CHUNK=16,K1_SCEN=16 ...] [--phases]
         [--shape 3 2 0 0] [--horizon 51] [--repo DIR]
 
 At the main shape (nx=3, nu=2, nc=0, general E, T=51, fp32 unless
@@ -22,10 +22,12 @@ be timed in turns within one call.
 ``--variants`` builds the shipped source with extra defines (each argument
 a comma-separated list of ``K=V``; the knobs are the ``#ifndef`` constants
 at the top of the source: ``K1_CHUNK`` stages a chunk, ``K1_SCEN``
-scenarios a block at most) and times each against the shipped build,
-after checking that it computes the same. ``--phases`` builds a variant
-with ``K1_PHASES=1``, whose block 0 stamps ``clock64()`` between the steps
-of a stage, and prints the cycles a stage spends in each step.
+scenarios a block at most, ``K1_COPY_THREADS`` threads a scenario; and
+``K1_NO_COMPUTE=1`` or ``K1_NO_COPY=1`` to time the copies or the
+arithmetic alone) and times each launch (CUDA events) beside the shipped
+build, after comparing their outputs. ``--phases`` builds a variant with
+``K1_PHASES=1``, whose block 0 stamps ``clock64()`` between the steps of a
+stage, and prints the cycles a stage spends in each step.
 """
 
 import argparse
