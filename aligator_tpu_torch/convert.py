@@ -19,17 +19,20 @@ from .gar.lqr_problem import LQRKnots, LQRProblem
 from .modelling.multibody import model as rbd
 
 KNOT_FIELDS = ("Q", "S", "R", "q", "r", "A", "B", "E", "f", "C", "D", "d")
+THETA_FIELDS = ("Gx", "Gu", "Gth", "gamma")
 
 
 def lqr_problem_from_numpy(arrays, device="cuda") -> LQRProblem:
     """LQ problems from a mapping of the knot fields ``Q S R q r A B E f C D
-    d`` (each ``(B, T, ...)``) and ``G0 (B, nc0, nx)``, ``g0 (B, nc0)``."""
+    d`` (each ``(B, T, ...)``), ``G0 (B, nc0, nx)``, ``g0 (B, nc0)`` and,
+    where the problems are parametric, the θ blocks ``Gx Gu Gth gamma``."""
     dev = resolve(device)
 
     def t(name):
         return torch.tensor(np.asarray(arrays[name]), device=dev)
 
-    knots = LQRKnots(**{k: t(k) for k in KNOT_FIELDS})
+    names = KNOT_FIELDS + tuple(k for k in THETA_FIELDS if k in arrays)
+    knots = LQRKnots(**{k: t(k) for k in names})
     return LQRProblem(knots=knots, G0=t("G0"), g0=t("g0"))
 
 

@@ -51,12 +51,11 @@ _C_FUNCS = {torch.float32: "fused_riccati_f32", torch.float64: "fused_riccati_f6
 
 def available(problem: LQRProblem) -> bool:
     """Whether the problem lies in the fused solve's domain: a full-state
-    initial condition, ``1 <= nx <= 8`` and ``1 <= nu <= 8``, any ``nc``.
-    This is the JAX gate ``pallas_riccati.available`` without its TPU
-    terms; its ``nth == 0`` term always holds here, since the port's LQ
-    problems have no parametric θ block."""
+    initial condition, ``1 <= nx <= 8`` and ``1 <= nu <= 8``, any ``nc``,
+    and no parametric θ blocks (``nth == 0``). This is the JAX gate
+    ``pallas_riccati.available`` without its TPU terms."""
     return (problem.nc0 == problem.nx and 1 <= problem.nx <= MAX_NX
-            and 1 <= problem.nu <= MAX_NU)
+            and 1 <= problem.nu <= MAX_NU and problem.nth == 0)
 
 
 def variant(nx: int, nu: int, nc: int, explicit: bool):

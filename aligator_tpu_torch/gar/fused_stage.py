@@ -58,12 +58,14 @@ def stage_smem_bytes(nx: int, nu: int, nc: int, itemsize: int) -> int:
 
 
 def sweep_eligible(nx: int, nu: int, nc: int, assume_explicit: bool,
-                   itemsize: int) -> bool:
-    """Whether the backward sweep goes to K3: explicit dynamics,
+                   itemsize: int, nth: int = 0) -> bool:
+    """Whether the backward sweep goes to K3: explicit dynamics, no
+    parametric θ blocks (``nth == 0``, as the JAX gate asks),
     ``MIN_NX <= nx <= MAX_NX`` and a block's shared memory within what a
     block may have (:data:`MAX_SHARED`), as the JAX gate's VMEM term sends
     larger sweeps to XLA; the others take the per-stage loop."""
-    return (bool(assume_explicit) and MIN_NX <= nx <= MAX_NX and nu >= 1
+    return (bool(assume_explicit) and nth == 0 and MIN_NX <= nx <= MAX_NX
+            and nu >= 1
             and stage_smem_bytes(nx, nu, nc, itemsize) <= MAX_SHARED)
 
 

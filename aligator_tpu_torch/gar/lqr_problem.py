@@ -8,14 +8,20 @@ the time axis ``T = N + 1``. One stage ``t`` of a problem:
   dynamics    A x_t + B u_t + E x_{t+1} + f = 0        (dual-regularized, mudyn)
   constraint  C x_t + D u_t + d = 0                    (dual-regularized, mueq)
 
-plus the initial condition ``G0 x_0 + g0 = 0``. The dynamics fields at index
-``N`` are unused (kept zero). ``mudyn``/``mueq`` are floats or ``(B,)``
-tensors: each scenario may carry its own proximal parameters.
+plus the initial condition ``G0 x_0 + g0 = 0`` and optional parametric
+blocks ``(Gx, Gu, Gth, gamma)`` coupling a parameter vector θ of dimension
+``nth`` into the cost: ``x'Gx θ + u'Gu θ + 1/2 θ'Gth θ + gamma'θ`` (the
+parallel-in-time leg condensation parameterizes each leg by the costate at
+its outgoing interface). The dynamics fields at index ``N`` are unused
+(kept zero). ``mudyn``/``mueq`` are floats or ``(B,)`` tensors: each
+scenario may carry its own proximal parameters.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -41,6 +47,11 @@ class LQRKnots:
     C: Tensor  # (B, T, nc, nx)
     D: Tensor  # (B, T, nc, nu)
     d: Tensor  # (B, T, nc)
+    # parametric blocks (θ of dimension nth); None when nth == 0
+    Gx: Optional[Tensor] = None  # (B, T, nx, nth)
+    Gu: Optional[Tensor] = None  # (B, T, nu, nth)
+    Gth: Optional[Tensor] = None  # (B, T, nth, nth)
+    gamma: Optional[Tensor] = None  # (B, T, nth)
 
     @property
     def batch(self) -> int:
@@ -61,6 +72,16 @@ class LQRKnots:
     @property
     def nc(self) -> int:
         return self.C.shape[-2]
+
+    @property
+    def nth(self) -> int:
+        return 0 if self.Gx is None else self.Gx.shape[-1]
+
+    def map(self, fn) -> "LQRKnots":
+        """The knots with ``fn`` applied to every field that is set."""
+        return dataclasses.replace(self, **{
+            f.name: fn(getattr(self, f.name)) for f in dataclasses.fields(self)
+            if getattr(self, f.name) is not None})
 
 
 @dataclass
@@ -94,6 +115,29 @@ class LQRProblem:
     @property
     def nc(self) -> int:
         return self.knots.nc
+
+    @property
+    def nth(self) -> int:
+        return self.knots.nth
+
+    def map(self, fn) -> "LQRProblem":
+        """The problems with ``fn`` applied to every tensor (``G0``, ``g0``
+        and each knot field that is set), e.g. a batch slice or a cast."""
+        return LQRProblem(knots=self.knots.map(fn), G0=fn(self.G0), g0=fn(self.g0))
+
+
+def add_parameterization(knots: LQRKnots, nth: int) -> LQRKnots:
+    """The knots with zero parametric blocks of dimension ``nth`` (the
+    reference's ``LqrKnotTpl::addParameterization``)."""
+    Bsz, T = knots.Q.shape[:2]
+
+    def zeros(*shape):
+        return knots.Q.new_zeros((Bsz, T) + shape)
+
+    return dataclasses.replace(
+        knots, Gx=zeros(knots.nx, nth), Gu=zeros(knots.nu, nth),
+        Gth=zeros(nth, nth), gamma=zeros(nth),
+    )
 
 
 def batch_param(mu, problem: LQRProblem) -> Tensor:
@@ -232,32 +276,44 @@ def dense_solve(problem: LQRProblem, mudyn, mueq):
     return split_solution(problem, z)
 
 
-def kkt_error(problem: LQRProblem, xs, us, vs, lams, mudyn, mueq):
-    """Max-norm KKT residuals ``(dyn, cstr, dual)``, each ``(B,)``, of
-    candidate solutions plugged into the proximal stationarity conditions."""
+def kkt_residual_vectors(problem: LQRProblem, xs, us, vs, lams, mudyn, mueq,
+                         theta: Optional[Tensor] = None):
+    """KKT residual vectors of candidate solutions: ``(g0_res (B, nc0), gx
+    (B, T, nx), gu (B, T, nu), cstr (B, T, nc), dyn (B, N, nx))``. With
+    ``theta (B, nth)`` the parametric blocks' terms ``Gx θ``, ``Gu θ`` enter
+    the dual residuals. The iterative refinement of the parallel-in-time
+    solvers re-solves on these."""
     kn = problem.knots
     N = problem.horizon
     md = batch_param(mudyn, problem)
     me = batch_param(mueq, problem)
 
-    d0 = problem.g0 + mv(problem.G0, xs[:, 0]) - md[:, None] * lams[:, 0]
+    g0_res = problem.g0 + mv(problem.G0, xs[:, 0]) - md[:, None] * lams[:, 0]
     dyn = (
         mv(kn.A[:, :N], xs[:, :N]) + mv(kn.B[:, :N], us[:, :N])
         + kn.f[:, :N] + mv(kn.E[:, :N], xs[:, 1:])
         - md[:, None, None] * lams[:, 1:]
     )
-    dyn_err = torch.maximum(infnorm(d0), infnorm(dyn))
-
-    cstr = (
-        mv(kn.C, xs) + mv(kn.D, us) + kn.d - me[:, None, None] * vs
-    )
-    cstr_err = infnorm(cstr)
-
+    cstr = mv(kn.C, xs) + mv(kn.D, us) + kn.d - me[:, None, None] * vs
     gx = kn.q + mv(kn.Q, xs) + mv(kn.S, us) + mtv(kn.C, vs)
     gu = kn.r + mtv(kn.S, xs) + mv(kn.R, us) + mtv(kn.D, vs)
     gx[:, 0] += mtv(problem.G0, lams[:, 0])
     gx[:, 1:] += mtv(kn.E[:, :N], lams[:, 1:])
     gx[:, :N] += mtv(kn.A[:, :N], lams[:, 1:])
     gu[:, :N] += mtv(kn.B[:, :N], lams[:, 1:])
+    if theta is not None and kn.nth > 0:
+        gx = gx + mv(kn.Gx, theta[:, None])
+        gu = gu + mv(kn.Gu, theta[:, None])
+    return g0_res, gx, gu, cstr, dyn
+
+
+def kkt_error(problem: LQRProblem, xs, us, vs, lams, mudyn, mueq,
+              theta: Optional[Tensor] = None):
+    """Max-norm KKT residuals ``(dyn, cstr, dual)``, each ``(B,)``, of
+    candidate solutions plugged into the proximal stationarity conditions
+    (with ``theta (B, nth)``, of the problem at that parameter)."""
+    g0_res, gx, gu, cstr, dyn = kkt_residual_vectors(
+        problem, xs, us, vs, lams, mudyn, mueq, theta)
+    dyn_err = torch.maximum(infnorm(g0_res), infnorm(dyn))
     dual_err = torch.maximum(infnorm(gx), infnorm(gu))
-    return dyn_err, cstr_err, dual_err
+    return dyn_err, infnorm(cstr), dual_err

@@ -1,4 +1,4 @@
-"""Batched serial proximal Riccati solver (no parametric θ blocks).
+"""Batched serial proximal Riccati solver.
 
 PyTorch counterpart of ``aligator_tpu/gar/riccati.py``, one scenario per
 batch entry where the JAX package runs a ``lax.scan`` under ``vmap``:
@@ -14,11 +14,11 @@ Routing by shape, as the JAX package routes its batches to its kernels
 (``riccati.py:394-506`` there, without the TPU terms):
 
 * :func:`solve_and_gains`: problems in the small-dim fused solve's domain go
-  to :mod:`.fused_riccati` (K1) whole;
+  to :mod:`.fused_riccati` (K1) whole (never with θ blocks);
 * :func:`sweep` (the backward sweep): explicit dynamics with
-  ``12 <= nx <= 44`` and a K3 block within the card's shared memory go to
-  :func:`.fused_stage.sweep` (K3), the others to
-  the per-stage loop of this module, whose Schur and reduced-KKT solves go
+  ``12 <= nx <= 44``, no θ blocks and a K3 block within the card's shared
+  memory go to :func:`.fused_stage.sweep` (K3), the others to the
+  per-stage loop of this module, whose Schur and reduced-KKT solves go
   through :func:`.spd_solve.spd_solve` (K2);
 * :func:`forward`: ``nx >= 12`` goes to :func:`.fused_stage.forward` (K4),
   smaller problems to the PyTorch loop :func:`.fused_stage.forward_loop`.
@@ -34,6 +34,7 @@ plain version of K1).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 from torch import Tensor
@@ -48,7 +49,8 @@ GAIN_FIELDS = ("kff", "K", "zff", "Z", "lff", "L", "yff", "Afb")
 @dataclass
 class RiccatiFactors:
     """Per-stage gains and value function, shapes ``(B, T, ...)``; the
-    dynamics-propagation gains ``lff, L, yff, Afb`` are zero at index N."""
+    dynamics-propagation gains ``lff, L, yff, Afb`` (and ``Lth, Yth``) are
+    zero at index N. The θ fields are None when ``nth == 0``."""
 
     kff: Tensor  # (B, T, nu)
     K: Tensor  # (B, T, nu, nx)
@@ -62,6 +64,17 @@ class RiccatiFactors:
     pvec: Tensor  # (B, T, nx)
     x0: Tensor  # (B, nx)
     lam0: Tensor  # (B, nc0)
+    Kth: Optional[Tensor] = None  # (B, T, nu, nth)
+    Zth: Optional[Tensor] = None  # (B, T, nc, nth)
+    Lth: Optional[Tensor] = None  # (B, T, nx, nth)
+    Yth: Optional[Tensor] = None  # (B, T, nx, nth)
+    Vxt: Optional[Tensor] = None  # (B, T, nx, nth)
+    Vtt: Optional[Tensor] = None  # (B, T, nth, nth)
+    vt: Optional[Tensor] = None  # (B, T, nth)
+    x0_th: Optional[Tensor] = None  # (B, nx, nth)
+    lam0_th: Optional[Tensor] = None  # (B, nc0, nth)
+    th_grad: Optional[Tensor] = None  # (B, nth)
+    th_hess: Optional[Tensor] = None  # (B, nth, nth)
 
     def gains(self) -> dict:
         return {k: getattr(self, k) for k in GAIN_FIELDS}
@@ -84,26 +97,48 @@ def _reduced_kkt_solve(Rhat, D, mueq, rhs_u_vec, rhs_c_vec, rhs_u_mat,
     return U[..., 0], NU[..., 0], U[..., 1:], NU[..., 1:]
 
 
+def _theta_rhs(S_t, C, Gu):
+    """The reduced-KKT matrix right-hand sides ``[-Sᵀ | -Gu]``, ``[-C | 0]``:
+    the θ columns (``Gu`` None: none) ride the feedback solve."""
+    if Gu is None:
+        return -S_t, -C
+    return (torch.cat([-S_t, -Gu], -1),
+            torch.cat([-C, C.new_zeros(C.shape[:-1] + Gu.shape[-1:])], -1))
+
+
 def _terminal_solve(kn: LQRKnots, mueq: Tensor) -> dict:
-    """Terminal-stage factor (reference terminalSolve)."""
+    """Terminal-stage factor (reference terminalSolve); with θ blocks also
+    ``Kth, Zth`` and the terminal ``Vxt, Vtt, vt``."""
     Q, S, R = kn.Q[:, -1], kn.S[:, -1], kn.R[:, -1]
     q, r = kn.q[:, -1], kn.r[:, -1]
     C, D, d = kn.C[:, -1], kn.D[:, -1], kn.d[:, -1]
-    kff, zff, K, Z = _reduced_kkt_solve(R, D, mueq, -r, -d, -S.mT, -C)
+    nx = kn.nx
+    Gu = None if kn.nth == 0 else kn.Gu[:, -1]
+    kff, zff, KK, ZZ = _reduced_kkt_solve(R, D, mueq, -r, -d,
+                                          *_theta_rhs(S.mT, C, Gu))
+    K, Z = KK[..., :nx], ZZ[..., :nx]
     P = _sym(Q + C.mT @ Z + S @ K)
     p = q + mv(C.mT, zff) + mv(S, kff)
-    return dict(kff=kff, K=K, zff=zff, Z=Z, Pmat=P, pvec=p)
+    out = dict(kff=kff, K=K, zff=zff, Z=Z, Pmat=P, pvec=p)
+    if Gu is not None:
+        Kth = KK[..., nx:]
+        out.update(Kth=Kth, Zth=ZZ[..., nx:], Vxt=kn.Gx[:, -1] + K.mT @ Gu,
+                   Vtt=kn.Gth[:, -1] + Gu.mT @ Kth,
+                   vt=kn.gamma[:, -1] + mv(Gu.mT, kff))
+    return out
 
 
-def _stage_kernel(kn: LQRKnots, t: int, P_n, p_n, mudyn, mueq,
-                  assume_explicit: bool, spd) -> dict:
-    """One backward Riccati stage at index ``t`` given the next stage's value
-    function ``(P_n, p_n)``, with the SPD solves by ``spd``.
-    ``mudyn``/``mueq`` are ``(B, 1, 1)``."""
-    Q, S, R = kn.Q[:, t], kn.S[:, t], kn.R[:, t]
-    q, r = kn.q[:, t], kn.r[:, t]
-    A, Bm, f = kn.A[:, t], kn.B[:, t], kn.f[:, t]
-    C, D, d = kn.C[:, t], kn.D[:, t], kn.d[:, t]
+def _stage_kernel(knot: LQRKnots, P_n, p_n, mudyn, mueq,
+                  assume_explicit: bool, spd, th_n=None) -> dict:
+    """One backward Riccati stage given the next stage's value function
+    ``(P_n, p_n)`` and, with θ blocks, ``th_n = (Vxt_n, Vtt_n, vt_n)``.
+    ``knot`` holds one stage's fields as ``(M, ...)`` tensors over any flat
+    batch ``M`` (no time axis); ``mudyn``/``mueq`` are ``(M, 1, 1)``; the
+    SPD solves go through ``spd``."""
+    Q, S, R = knot.Q, knot.S, knot.R
+    q, r = knot.q, knot.r
+    A, Bm, f = knot.A, knot.B, knot.f
+    C, D, d = knot.C, knot.D, knot.d
     nx = Q.shape[-1]
     eye = torch.eye(nx, dtype=Q.dtype, device=Q.device)
 
@@ -111,14 +146,16 @@ def _stage_kernel(kn: LQRKnots, t: int, P_n, p_n, mudyn, mueq,
         # E = -I: E^{-1} = E^{-T} = -I
         Ptilde, ptilde, Einv = P_n, p_n, None
     else:
-        Einv = torch.linalg.inv(kn.E[:, t])
+        Einv = torch.linalg.inv(knot.E)
         Ptilde = _sym(Einv.mT @ P_n @ Einv)
         ptilde = -mv(Einv.mT, p_n)
 
     schur = _sym(eye + mudyn * Ptilde)
-    sol = spd(
-        schur, torch.cat([Ptilde, (ptilde + mv(Ptilde, f))[..., None]], -1)
-    )
+    cols = [Ptilde, (ptilde + mv(Ptilde, f))[..., None]]
+    if th_n is not None:
+        Vxt_n, Vtt_n, vt_n = th_n
+        cols.append(Vxt_n if assume_explicit else -(Einv.mT @ Vxt_n))
+    sol = spd(schur, torch.cat(cols, -1))
     Vxx = _sym(sol[..., :nx])
     vx = sol[..., nx]
 
@@ -130,9 +167,14 @@ def _stage_kernel(kn: LQRKnots, t: int, P_n, p_n, mudyn, mueq,
     qhat = q + mv(A.mT, vx)
     rhat = r + mv(Bm.mT, vx)
 
-    kff, zff, K, Z = _reduced_kkt_solve(
-        Rhat, D, mueq, -rhat, -d, -Shat.mT, -C, spd
+    Guhat = None
+    if th_n is not None:
+        Pxttilde = sol[..., nx + 1:]
+        Guhat = knot.Gu + Bm.mT @ Pxttilde
+    kff, zff, KK, ZZ = _reduced_kkt_solve(
+        Rhat, D, mueq, -rhat, -d, *_theta_rhs(Shat.mT, C, Guhat), spd
     )
+    K, Z = KK[..., :nx], ZZ[..., :nx]
 
     md = mudyn[..., 0]
     lff = vx + mv(Vxx, mv(Bm, kff))
@@ -145,21 +187,56 @@ def _stage_kernel(kn: LQRKnots, t: int, P_n, p_n, mudyn, mueq,
 
     P_c = _sym(Qhat + Shat @ K + C.mT @ Z)
     p_c = qhat + mv(Shat, kff) + mv(C.mT, zff)
-    return dict(kff=kff, K=K, zff=zff, Z=Z, lff=lff, L=L, yff=yff, Afb=Afb,
-                Pmat=P_c, pvec=p_c)
+    out = dict(kff=kff, K=K, zff=zff, Z=Z, lff=lff, L=L, yff=yff, Afb=Afb,
+               Pmat=P_c, pvec=p_c)
+    if th_n is not None:
+        Gx, Gu, Gth, gamma = knot.Gx, knot.Gu, knot.Gth, knot.gamma
+        Kth = KK[..., nx:]
+        Lth = Pxttilde + Vxx @ (Bm @ Kth)
+        Yth = Bm @ Kth - mudyn * Lth
+        if not assume_explicit:
+            Yth = -(Einv @ Yth)
+        out.update(
+            Kth=Kth, Zth=ZZ[..., nx:], Lth=Lth, Yth=Yth,
+            Vxt=Gx + K.mT @ Gu + Afb.mT @ Vxt_n,
+            Vtt=Gth + Vtt_n + Gu.mT @ Kth + Vxt_n.mT @ Yth,
+            vt=vt_n + gamma + mv(Gu.mT, kff) + mv(Vxt_n.mT, yff),
+        )
+    return out
 
 
-def _sweep_loop(kn: LQRKnots, P, p, mudyn, mueq, assume_explicit: bool,
+def _theta_buffers(kn: LQRKnots, n_stages: int) -> dict:
+    """The θ factor tensors ``(B, T, ...)``, zero after ``n_stages``."""
+    Bsz, T = kn.Q.shape[:2]
+    nx, nu, nc, nth = kn.nx, kn.nu, kn.nc, kn.nth
+    shapes = dict(Kth=(nu, nth), Zth=(nc, nth), Lth=(nx, nth), Yth=(nx, nth),
+                  Vxt=(nx, nth), Vtt=(nth, nth), vt=(nth,))
+    out = {k: kn.Q.new_empty((Bsz, T) + s) for k, s in shapes.items()}
+    for v in out.values():
+        v[:, n_stages:].zero_()
+    return out
+
+
+def _sweep_loop(kn: LQRKnots, term: dict, mudyn, mueq, assume_explicit: bool,
                 spd) -> dict:
-    """Per-stage loop over stages ``N-1 .. 0`` from the terminal value
-    ``(P, p)``, SPD solves by ``spd``; factors as :func:`fused_stage.sweep`
-    returns them (zero at index N)."""
+    """Per-stage loop over stages ``N-1 .. 0`` from the terminal factor
+    ``term``, SPD solves by ``spd``; factors as :func:`fused_stage.sweep`
+    returns them (zero at index N), with the θ factors when the knots have
+    θ blocks."""
     md = mudyn[:, None, None]
     me = mueq[:, None, None]
-    out = fused_stage.factor_buffers(kn.Q, kn.horizon, kn.nu, kn.nc)
-    for t in range(kn.horizon - 1, -1, -1):
-        st = _stage_kernel(kn, t, P, p, md, me, assume_explicit, spd)
+    N = kn.horizon
+    out = fused_stage.factor_buffers(kn.Q, N, kn.nu, kn.nc)
+    P, p, th = term["Pmat"], term["pvec"], None
+    if kn.nth:
+        out.update(_theta_buffers(kn, N))
+        th = (term["Vxt"], term["Vtt"], term["vt"])
+    for t in range(N - 1, -1, -1):
+        st = _stage_kernel(kn.map(lambda a: a[:, t]), P, p, md, me,
+                           assume_explicit, spd, th)
         P, p = st["Pmat"], st["pvec"]
+        if kn.nth:
+            th = (st["Vxt"], st["Vtt"], st["vt"])
         for k, v in st.items():
             out[k][:, t] = v
     return out
@@ -168,18 +245,17 @@ def _sweep_loop(kn: LQRKnots, P, p, mudyn, mueq, assume_explicit: bool,
 def _sweep(kn: LQRKnots, mudyn: Tensor, mueq: Tensor, assume_explicit: bool,
            plain: bool) -> dict:
     term = _terminal_solve(kn, mueq[:, None, None])
-    P, p = term["Pmat"], term["pvec"]
     if plain:
-        out = _sweep_loop(kn, P, p, mudyn, mueq, assume_explicit, chol_solve)
+        out = _sweep_loop(kn, term, mudyn, mueq, assume_explicit, chol_solve)
     elif fused_stage.sweep_eligible(kn.nx, kn.nu, kn.nc, assume_explicit,
-                                    kn.Q.element_size()):
-        out = fused_stage.sweep(kn, P, p, mudyn, mueq)
+                                    kn.Q.element_size(), kn.nth):
+        out = fused_stage.sweep(kn, term["Pmat"], term["pvec"], mudyn, mueq)
     else:
-        out = _sweep_loop(kn, P, p, mudyn, mueq, assume_explicit,
+        out = _sweep_loop(kn, term, mudyn, mueq, assume_explicit,
                           spd_solve.spd_solve)
     N = kn.horizon
-    for k in ("kff", "K", "zff", "Z", "Pmat", "pvec"):
-        out[k][:, N] = term[k]
+    for k, v in term.items():
+        out[k][:, N] = v
     return out
 
 
@@ -188,7 +264,9 @@ def sweep(kn: LQRKnots, mudyn: Tensor, mueq: Tensor,
     """Backward sweep over the knots (no initial-stage solve), routed by
     shape (module docstring). ``mudyn`` and ``mueq`` are ``(B,)``. Returns
     the stacked per-stage factors, T entries; the dynamics-propagation gains
-    at the last index are zero."""
+    at the last index are zero. Index 0 holds the value function at the
+    head of the knots (``Pmat, pvec`` and, with θ, ``Vxt, Vtt, vt``), the
+    carry the JAX ``sweep`` returns beside them."""
     return _sweep(kn, mudyn, mueq, assume_explicit, plain=False)
 
 
@@ -199,15 +277,23 @@ def sweep_plain(kn: LQRKnots, mudyn: Tensor, mueq: Tensor,
     return _sweep(kn, mudyn, mueq, assume_explicit, plain=True)
 
 
-def _initial_solve(P0, p0, G0, g0, mudyn):
+def _initial_solve(P0, p0, G0, g0, mudyn, Vxt0=None):
     """Solve the initial KKT ``[[P0, G0'], [G0, -μ_dyn I]] [x0; λ0] =
-    [-p0; -g0]`` by Schur elimination of λ0. ``mudyn`` is ``(B,)``."""
+    [-p0; -g0]`` by Schur elimination of λ0. ``mudyn`` is ``(B,)``. With
+    ``Vxt0`` also the θ sensitivities ``x0_th, lam0_th`` (right-hand sides
+    ``[-Vxt0; 0]``); returns ``(x0, lam0, x0_th, lam0_th)``."""
     md = mudyn[:, None, None]
     W = _sym(P0 + (G0.mT @ G0) / md)
-    rhs = -p0 - mv(G0.mT, g0) / md[..., 0]
-    x0 = chol_solve(W, rhs[..., None])[..., 0]
+    rhs = (-p0 - mv(G0.mT, g0) / md[..., 0])[..., None]
+    if Vxt0 is not None:
+        rhs = torch.cat([rhs, -Vxt0], -1)
+    X = chol_solve(W, rhs)
+    x0 = X[..., 0]
     lam0 = (mv(G0, x0) + g0) / md[..., 0]
-    return x0, lam0
+    if Vxt0 is None:
+        return x0, lam0, None, None
+    x0_th = X[..., 1:]
+    return x0, lam0, x0_th, (G0 @ x0_th) / md
 
 
 def _backward(problem: LQRProblem, mudyn, mueq, assume_explicit: bool,
@@ -215,10 +301,18 @@ def _backward(problem: LQRProblem, mudyn, mueq, assume_explicit: bool,
     md = batch_param(mudyn, problem)
     me = batch_param(mueq, problem)
     stages = _sweep(problem.knots, md, me, assume_explicit, plain)
-    x0, lam0 = _initial_solve(
-        stages["Pmat"][:, 0], stages["pvec"][:, 0], problem.G0, problem.g0, md
+    Vxt0 = stages["Vxt"][:, 0] if problem.nth else None
+    x0, lam0, x0_th, lam0_th = _initial_solve(
+        stages["Pmat"][:, 0], stages["pvec"][:, 0], problem.G0, problem.g0, md,
+        Vxt0,
     )
-    return RiccatiFactors(**stages, x0=x0, lam0=lam0)
+    if Vxt0 is None:
+        return RiccatiFactors(**stages, x0=x0, lam0=lam0)
+    return RiccatiFactors(
+        **stages, x0=x0, lam0=lam0, x0_th=x0_th, lam0_th=lam0_th,
+        th_grad=stages["vt"][:, 0] + mv(Vxt0.mT, x0),
+        th_hess=stages["Vtt"][:, 0] + Vxt0.mT @ x0_th,
+    )
 
 
 def backward(problem: LQRProblem, mudyn, mueq,
@@ -241,21 +335,44 @@ def forward_plain(factors: RiccatiFactors):
     return fused_stage.forward_loop(factors.gains(), factors.x0, factors.lam0)
 
 
-def forward(factors: RiccatiFactors):
+def forward(factors: RiccatiFactors, theta: Optional[Tensor] = None,
+            x0: Optional[Tensor] = None, lam0: Optional[Tensor] = None):
     """Forward substitution: through :func:`fused_stage.forward` (K4) when
     ``nx >= 12``, else the PyTorch loop :func:`fused_stage.forward_loop`
     (as the JAX package scans it in XLA). Returns ``(xs, us, vs, lams)``,
-    each ``(B, N+1, ·)``."""
-    nu, nx = factors.K.shape[-2:]
+    each ``(B, N+1, ·)``.
+
+    ``theta (B, nth)`` solves the problem at that parameter: θ is constant
+    over the horizon, so ``Kth θ, Zth θ, Lth θ, Yth θ`` are folded into the
+    feedforwards once and the same substitution runs. ``x0``/``lam0``
+    replace the initial-stage solution (the parallel solver seeds each leg
+    from its condensed system); by default it is ``factors.x0`` (and
+    ``lam0``) plus their θ sensitivities times θ."""
     gains = factors.gains()
+    has_th = theta is not None and factors.Kth is not None
+    if x0 is None:
+        x0 = factors.x0
+        if has_th:
+            x0 = x0 + mv(factors.x0_th, theta)
+    if lam0 is None:
+        lam0 = factors.lam0
+        if has_th:
+            lam0 = lam0 + mv(factors.lam0_th, theta)
+    if has_th:
+        th = theta[:, None]
+        for k, kth in (("kff", "Kth"), ("zff", "Zth"), ("lff", "Lth"),
+                       ("yff", "Yth")):
+            gains[k] = gains[k] + mv(getattr(factors, kth), th)
+    nu, nx = factors.K.shape[-2:]
     if fused_stage.forward_eligible(nx, nu):
-        return fused_stage.forward(gains, factors.x0, factors.lam0)
-    return fused_stage.forward_loop(gains, factors.x0, factors.lam0)
+        return fused_stage.forward(gains, x0, lam0)
+    return fused_stage.forward_loop(gains, x0, lam0)
 
 
-def solve(problem: LQRProblem, mudyn, mueq, assume_explicit: bool = False):
+def solve(problem: LQRProblem, mudyn, mueq, assume_explicit: bool = False,
+          theta: Optional[Tensor] = None):
     """Backward + forward in one call, routed. Returns (xs, us, vs, lams)."""
-    return forward(backward(problem, mudyn, mueq, assume_explicit))
+    return forward(backward(problem, mudyn, mueq, assume_explicit), theta)
 
 
 def solve_and_gains(problem: LQRProblem, mudyn, mueq,

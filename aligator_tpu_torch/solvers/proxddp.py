@@ -17,11 +17,16 @@ pool are therefore per scenario and equal what the JAX solver computes for
 that scenario alone. Each masked loop ends on ``mask.any()``, one host sync
 per iteration.
 
-What this port covers: linear rollout, the serial LQ solve
+What this port covers: linear rollout; the four LQ solvers of
+``linear_solver``: ``'serial'``
 (:func:`~aligator_tpu_torch.gar.riccati.solve_and_gains`, which routes by
 shape: small-dim problems to the fused solve K1, explicit dynamics with
 12 <= nx <= 44 to the fused backward sweep K3, the rest to the per-stage
-loop with the SPD solve K2, and forward sweeps at nx >= 12 to K4), the
+loop with the SPD solve K2, and forward sweeps at nx >= 12 to K4),
+``'serial_scan'`` (the routed ``backward``/``forward``, never K1),
+``'parallel'`` (leg condensation, :mod:`~aligator_tpu_torch.gar.parallel`)
+and ``'associative'`` (:mod:`~aligator_tpu_torch.gar.associative`, which
+falls back per scenario to ``'serial_scan'``'s solve below its μ floor); the
 three multiplier update modes, the three step-acceptance strategies, the
 BCL schedule and the regularization schedule, with Gauss-Newton Hessians.
 The other options of the JAX configuration raise ``NotImplementedError``;
@@ -43,8 +48,23 @@ from .._linalg import select as _where
 from ..core import problem as problem_mod
 from ..core.manifolds import VectorSpace
 from ..core.problem import ProblemData, TrajOptProblem
+from ..gar import associative as gar_associative
 from ..gar import lqr_problem as lqr_mod
+from ..gar import parallel as gar_parallel
 from ..gar import riccati
+
+LINEAR_SOLVERS = ("serial", "serial_scan", "parallel", "associative")
+# Newton steps taken on each LQ route, per scenario: each scenario whose
+# Newton step is kept adds one to the route that solved its LQ subproblem
+# ("associative_fallback": the serial solve an 'associative' scenario takes
+# below the μ floor). The counts accumulate on the solve's device, without
+# a host sync; read them with int()
+ROUTE_STEPS = dict.fromkeys(LINEAR_SOLVERS + ("associative_fallback",), 0)
+
+
+def _count_steps(route: str, mask: Tensor) -> None:
+    # out of place: a count held on one device takes a 0-dim sum from another
+    ROUTE_STEPS[route] = mask.sum() + ROUTE_STEPS[route]
 
 
 @dataclass(frozen=True)
@@ -92,12 +112,21 @@ class ProxDDPConfig:
     # multiplier update on BCL success: 'newton' | 'primal' | 'primal_dual'
     multiplier_update_mode: str = "newton"
     # not ported yet (raise NotImplementedError): 'exact' Hessians,
-    # 'nonlinear' rollout, 'parallel'/'associative' LQ solvers, history and
-    # callbacks
+    # 'nonlinear' rollout, history and callbacks
     hessian_approx: str = "gauss_newton"
     dphi_thresh: float = 1e-13
     rollout: str = "linear"
+    # LQ subproblem solver: 'serial' (routed by shape, K1 where it applies),
+    # 'serial_scan' (the routed backward/forward, never K1), 'parallel' (leg
+    # condensation over parallel_legs legs; linear rollout only) or
+    # 'associative' (O(log N)-depth scans; explicit dynamics only)
     linear_solver: str = "serial"
+    parallel_legs: int = 2
+    # 'associative': a scenario whose min(mu_dyn, mu) is below this floor
+    # takes the serial solve for that Newton step (the scan's element
+    # algebra stops contracting below it). None: 1e-3 in float32, 1e-7 in
+    # float64, the domains measured in the JAX package
+    associative_mu_floor: Optional[float] = None
     force_initial_condition: bool = True
     record_history: bool = False
     record_history_trajs: bool = False
@@ -168,9 +197,13 @@ class _State:
 
 
 def _check_supported(cfg: ProxDDPConfig):
+    if cfg.linear_solver not in LINEAR_SOLVERS:
+        raise ValueError(f"unknown linear_solver {cfg.linear_solver!r}")
+    if cfg.linear_solver == "parallel" and cfg.rollout != "linear":
+        # as the reference requires (solver-proxddp.hxx:169-181)
+        raise ValueError("parallel linear solver requires rollout='linear'")
     unsupported = {
         "rollout": (cfg.rollout, "linear"),
-        "linear_solver": (cfg.linear_solver, "serial"),
         "hessian_approx": (cfg.hessian_approx, "gauss_newton"),
         "record_history": (cfg.record_history, False),
         "record_history_trajs": (cfg.record_history_trajs, False),
@@ -526,6 +559,61 @@ def _backtracking_search(cfg, st: _State, try_alpha, first, step_mask, phi0,
     return st, alpha, trial, cost, phi
 
 
+def _serial_scan(lq, mudyn, mu, assume_explicit):
+    f = riccati.backward(lq, mudyn, mu, assume_explicit)
+    return (*riccati.forward(f), f.K, f.kff)
+
+
+def _associative(cfg, lq, mudyn, mu, assume_explicit, step_mask):
+    """The 'associative' route with its μ floor decided per scenario: a
+    scenario with ``min(mudyn, mu) < floor`` takes the serial solve (the
+    JAX package's ``lax.cond`` under ``vmap``); each route solves only its
+    own scenarios."""
+    floor = cfg.associative_mu_floor
+    if floor is None:
+        floor = 1e-3 if mu.dtype == torch.float32 else 1e-7
+    ok = torch.minimum(mudyn, mu) >= floor
+    _count_steps("associative", ok & step_mask)
+    _count_steps("associative_fallback", ~ok & step_mask)
+
+    def assoc(p, md, m):
+        *sol, f = gar_associative.solve(p, md, m, return_gains=True,
+                                        refine_steps=1)
+        return (*sol, f.K, f.kff)
+
+    if bool(ok.all()):
+        return assoc(lq, mudyn, mu)
+    if not bool(ok.any()):
+        return _serial_scan(lq, mudyn, mu, assume_explicit)
+    i_ok, i_no = ok.nonzero()[:, 0], (~ok).nonzero()[:, 0]
+    got = assoc(lq.map(lambda t: t[i_ok]), mudyn[i_ok], mu[i_ok])
+    fell = _serial_scan(lq.map(lambda t: t[i_no]), mudyn[i_no], mu[i_no],
+                        assume_explicit)
+    out = []
+    for a, b in zip(got, fell):
+        t = a.new_empty((ok.shape[0],) + a.shape[1:])
+        t[i_ok], t[i_no] = a, b
+        out.append(t)
+    return tuple(out)
+
+
+def _lq_solve(cfg, lq, mudyn, mu, assume_explicit: bool, step_mask):
+    """The Newton step's LQ solve on the route of ``cfg.linear_solver``.
+    Returns ``(xs, us, vs, lams, K, kff)``."""
+    route = cfg.linear_solver
+    if route == "associative":
+        return _associative(cfg, lq, mudyn, mu, assume_explicit, step_mask)
+    _count_steps(route, step_mask)
+    if route == "parallel":
+        *sol, gains = gar_parallel.solve(lq, mudyn, mu, cfg.parallel_legs,
+                                         assume_explicit, return_gains=True)
+        return (*sol, gains.K, gains.kff)
+    if route == "serial_scan":
+        return _serial_scan(lq, mudyn, mu, assume_explicit)
+    *sol, gains = riccati.solve_and_gains(lq, mudyn, mu, assume_explicit)
+    return (*sol, gains["K"], gains["kff"])
+
+
 def _newton_step(problem, cfg, st: _State, data: ProblemData, step_mask,
                  assume_explicit: bool) -> _State:
     """One Newton iteration for the batch; the caller keeps it only for the
@@ -544,8 +632,8 @@ def _newton_step(problem, cfg, st: _State, data: ProblemData, step_mask,
 
     mudyn = cfg.dyn_al_scale * st.mu
     lq = _assemble_lq(problem, cfg, data, m, Lxs, Lus, st.preg, st.mu)
-    dxs, dus_p, dvs_p, dlams, gains = riccati.solve_and_gains(
-        lq, mudyn, st.mu, assume_explicit
+    dxs, dus_p, dvs_p, dlams, gain_K, gain_kff = _lq_solve(
+        cfg, lq, mudyn, st.mu, assume_explicit, step_mask
     )
     dus = dus_p[:, :N]
     dvs = dvs_p[:, :N, :nc]
@@ -603,7 +691,7 @@ def _newton_step(problem, cfg, st: _State, data: ProblemData, step_mask,
         st, xs=xs, us=us, vs=vs, vs_term=vs_term, lams=lams,
         cost=torch.where(trial_ok, cost, st.cost),
         merit=torch.where(trial_ok, phi, st.merit),
-        K=gains["K"], kff=gains["kff"],
+        K=gain_K, kff=gain_kff,
         preg=new_preg, preg_last=new_preg, fail=st.fail | fail,
         newton_steps=st.newton_steps + 1,
     )
@@ -671,6 +759,9 @@ def solve(problem: TrajOptProblem, cfg: ProxDDPConfig = ProxDDPConfig(),
     assume_explicit = isinstance(space, VectorSpace) and getattr(
         problem.stages.dynamics, "is_explicit", True
     )
+    if cfg.linear_solver == "associative" and not assume_explicit:
+        raise ValueError("associative linear solver requires explicit "
+                         "dynamics on a vector space")
 
     zero_i = torch.zeros((B,), dtype=torch.int32, device=device)
     false_b = torch.zeros((B,), dtype=torch.bool, device=device)

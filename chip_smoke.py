@@ -18,7 +18,8 @@ any failed check raises and the script exits non-zero:
    to the returned tensors, at most three device operations) at the SE(2)
    shape and at cartpole's over 101 knots;
    K2 at every shape the paths launch (the LQ loop's at batch 16 and 256,
-   the contact KKT's at both walk batches), K5 at both walk batches; K3 and
+   the contact KKT's at both walk batches, the parallel legs' θ sweep, the
+   associative leaves and gain recovery), K5 at both walk batches; K3 and
    K4 also print their shared memory, registers and resident blocks per SM
    at the main shapes, and K3 its time at batches of 132 to 1024 (1 to 7.8
    scenarios for each of the 132 SMs);
@@ -40,7 +41,22 @@ any failed check raises and the script exits non-zero:
    CPU in fp64 and checked, and 2 scenarios solved on the card in fp32 step
    by step against the JAX package's fp32 solve of them (a committed
    reference: which Newton steps are rejected, infeasibilities per step);
-7. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
+7. the parallel-in-time LQ solvers, with the plain versions patched to raise
+   and launch counts checked against the route: (a) the latency of one LQ
+   solve (N = 2048, nx = 4, nu = 2, nc = 0, fp32, mu = 1e-3; the
+   ``bench.py:297-310`` protocol) by the serial solve (K1), the associative
+   scan (one refinement step) and 8 parallel legs, at B = 1 and 1024, by the
+   chained method of ``bench_latency.chained_latency``, with each fp32
+   solution's KKT error in fp64 and its distance to the fp64 CPU serial
+   solve; (b) humanoid-dims ProxDDP on ``linear_solver='parallel'`` (4
+   legs) at the bench's batch, solves/s beside the serial route's, and 16
+   scenarios again on the CPU in fp64; (c) ProxDDP on
+   ``linear_solver='associative'`` on the double-integrator LQR with
+   ``|u| <= 0.2`` (N = 100, batch 4096, fp64), the Newton steps on each
+   route counted, against ``'serial_scan'`` on the card and 16 scenarios on
+   the CPU, and the same problem in fp32 below the mu floor, where every
+   step takes the serial solve;
+8. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -104,6 +120,22 @@ TALOS_CPU_SCENARIOS = 2
 TALOS_CPU_TRAJ_TOL = 1e-6
 TALOS_FP32_TOL = 1e-4
 
+# parallel-in-time phase (bench.py:297-324, bench_latency.py)
+LAT_N, LAT_DIMS, LAT_MU = 2048, (4, 2, 0), 1e-3
+LAT_BATCHES = (1, 1024)
+LAT_LEGS = 8
+LAT_CPU_SCENARIOS = 2
+# each fp32 solution, evaluated in fp64: its KKT residuals (max norm), and
+# its distance to the fp64 CPU serial solve relative to that solve's scale.
+# The port's float32 solves on the CPU reach 5.4e-5 / 7.6e-6 (serial),
+# 9.4e-7 / 1.9e-7 (associative, one refinement step) and 7.3e-6 / 1.4e-6
+# (8 legs) on this problem
+LAT_KKT_TOL = 1e-3
+LAT_DIST_TOL = 1e-4
+PAR_LEGS = 4
+ASSOC_BATCH, ASSOC_NSTEPS, ASSOC_U_BOUND = 4096, 100, 0.2
+ASSOC_TOL = 1e-6  # card 'associative' vs card 'serial_scan' and vs the CPU, fp64
+
 
 def check(cond, msg):
     if not cond:
@@ -131,14 +163,16 @@ def build_phase():
 
     from aligator_tpu_torch.gar import fused_riccati as fr
 
-    # K1 is built a shape at a time: its domain samples, with the others
+    # K1 is built a shape at a time: its domain samples and the latency
+    # phase's shape, with the others
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu") if p.stem != fr._SOURCE)
-    variants = names + [fr.variant(*s) for s in fr.DOMAIN_SAMPLES]
+    shapes = list(fr.DOMAIN_SAMPLES) + [(*LAT_DIMS, True)]
+    variants = names + [fr.variant(*s) for s in dict.fromkeys(shapes)]
     t0 = time.perf_counter()
     _build.build(variants)
     dt = time.perf_counter() - t0
     print(f"[build] {len(variants)} libraries ({names} and K1 at "
-          f"{len(fr.DOMAIN_SAMPLES)} shapes) in {dt:.1f} s")
+          f"{len(variants) - len(names)} shapes) in {dt:.1f} s")
     for v in variants:
         secs, log = _build.BUILD_LOG[_build.label(v)]
         print(f"[build] {_build.label(v)}: built {secs:.1f} s after the start")
@@ -153,12 +187,7 @@ def build_phase():
 
 def cast(problem, dtype):
     """The LQ problems with every tensor cast to ``dtype``."""
-    from aligator_tpu_torch.gar.lqr_problem import LQRKnots, LQRProblem
-
-    kn = problem.knots
-    knots = LQRKnots(**{f.name: getattr(kn, f.name).to(dtype)
-                        for f in dataclasses.fields(kn)})
-    return LQRProblem(knots=knots, G0=problem.G0.to(dtype), g0=problem.g0.to(dtype))
+    return problem.map(lambda t: t.to(dtype))
 
 
 def abs_err(got, ref):
@@ -437,8 +466,7 @@ def k1_problem(B, T, nx, nu, nc, explicit, dtype, seed):
     kn.R[:, -1] = torch.eye(nu, device="cuda", dtype=torch.float64)
     for k in ("S", "r", "D", "A", "B", "E", "f"):
         getattr(kn, k)[:, -1] = 0.0
-    for f in dataclasses.fields(kn):
-        setattr(kn, f.name, getattr(kn, f.name).to(dtype))
+    kn = kn.map(lambda t: t.to(dtype))
     G0 = torch.eye(nx, dtype=dtype, device="cuda").expand(B, nx, nx).contiguous()
     g0 = torch.randn((B, nx), generator=g, device="cuda", dtype=torch.float64).to(dtype)
     mus = 10 ** (3 * torch.rand((2, B), generator=g, device="cuda",
@@ -464,29 +492,49 @@ def k2_phase():
     # and at the walk's batch 16; the contact-KKT pair (mass matrix n = 28,
     # Delassus n = 12, r = 3 nv = 84) at K = B N for both walk batches
     n_walk = 2 * TALOS_T_SS + 3 * TALOS_T_DS
-    shapes = [("LQ loop", M, n, 57) for M in (LQR_BATCH, TALOS_BATCHES[0])
+    f32, f64 = torch.float32, torch.float64
+    shapes = [("LQ loop", M, n, 57, f32) for M in (LQR_BATCH, TALOS_BATCHES[0])
               for n in (56, 22)]
-    shapes += [("contact KKT", b * n_walk, n, 84) for b in TALOS_BATCHES for n in (28, 12)]
+    shapes += [("contact KKT", b * n_walk, n, 84, f32) for b in TALOS_BATCHES
+               for n in (28, 12)]
+    # the parallel-in-time phase: the legs' θ sweeps (Schur n = nx and
+    # reduced KKT n = nu against nx + 1 + nth columns; one leg and three in a
+    # group at humanoid dims, one and seven at the latency shape), the
+    # associative leaves' R̄ solve (nu against 2 nx + 1) and its gain
+    # recovery (nx against nx + 1, nu against nx + 1)
+    h, (lx, lu, _) = HUMANOID_BATCH, LAT_DIMS
+    shapes += [("θ sweep", M, n, 73, f32) for M in (h, 3 * h) for n in (36, 12)]
+    shapes += [("θ sweep", M, n, 2 * lx + 1, f32) for M in (1024, 7 * 1024)
+               for n in (lx, lu)]
+    M_lqr = ASSOC_BATCH * ASSOC_NSTEPS
+    shapes += [("assoc leaves", M_lqr, 1, 5, f64), ("assoc gains", M_lqr, 2, 3, f64),
+               ("assoc gains", M_lqr, 1, 3, f64)]
+    M_lat = LAT_BATCHES[-1] * LAT_N
+    shapes += [("assoc leaves", M_lat, lu, 2 * lx + 1, f32),
+               ("assoc gains", M_lat, lx, lx + 1, f32),
+               ("assoc gains", M_lat, lu, lx + 1, f32)]
     by_shape = {}
-    for i, (what, M, n, r) in enumerate(shapes):
-        A, R = spd_batch(M, n, r, torch.float32, SEED + 10 + i)
+    for i, (what, M, n, r, dtype) in enumerate(shapes):
+        A, R = spd_batch(M, n, r, dtype, SEED + 10 + i)
         X = sp.spd_solve(A, R)
         ref = sp.spd_solve_plain(A, R)
         ref64 = sp.spd_solve_plain(A.double(), R.double())
         torch.cuda.synchronize()
         err = rel_err(X, ref)
+        tol = K2_FP32_TOL if dtype == f32 else FP64_TOL
         check(torch.isfinite(X).all().item(), "non-finite spd_solve output")
-        check(err <= K2_FP32_TOL, f"spd_solve fp32 M={M} n={n} r={r}: {err}")
+        check(err <= tol, f"spd_solve {dtype} M={M} n={n} r={r}: {err}")
         reps = 200 if M <= 512 else 50
         ms = kernel_ms(lambda: sp.launch(A, R), reps, "spd_solve_kernel")
         call_ms = avg_time_ms(lambda: sp.spd_solve(A, R), reps)
         plain_ms = avg_time_ms(lambda: sp.spd_solve_plain(A, R), 20)
         lib_ms = avg_time_ms(lambda: torch.linalg.solve(A, R), 20)
-        nbytes = 4 * M * (n * (n + 1) // 2 + 2 * n * r)  # A's lower triangle, R, X
+        # A's lower triangle, R, X
+        nbytes = A.element_size() * M * (n * (n + 1) // 2 + 2 * n * r)
         flops = M * (n ** 3 / 3 + 2 * n * n * r)
         bms, by = bound(nbytes, flops)
-        print(f"[kernel] spd_solve fp32 {what} M={M} n={n} r={r}: vs plain {err:.2e} "
-              f"(tol {K2_FP32_TOL:g}), vs fp64 plain: kernel "
+        print(f"[kernel] spd_solve {str(dtype)[6:]} {what} M={M} n={n} r={r}: vs plain "
+              f"{err:.2e} (tol {tol:g}), vs fp64 plain: kernel "
               f"{rel_err(X.double(), ref64):.2e}, plain {rel_err(ref.double(), ref64):.2e}; "
               f"kernel {ms:.4f} ms (wrapper call {call_ms:.4f} ms), plain "
               f"{plain_ms:.4f} ms, torch.linalg.solve {lib_ms:.4f} ms; bound "
@@ -553,8 +601,7 @@ def k3_phase():
     worst = max(errs.values())
     print(f"[kernel] fused_stage sweep fp32 B={B} N={N} (nx,nu,nc)={(nx, nu, nc)}: "
           f"vs plain {worst:.2e} ({max(errs, key=errs.get)}; tol {K3_FP32_TOL:g})")
-    kn64 = dataclasses.replace(kn, **{f.name: getattr(kn, f.name).double()
-                                      for f in dataclasses.fields(kn)})
+    kn64 = kn.map(torch.Tensor.double)
     ref64 = fs.sweep_plain(kn64, P.double(), p.double(), md.double(), me.double())
     for name, res in (("kernel", got), ("plain", ref)):
         e = max(rel_err(res[k].double(), ref64[k]) for k in fs.FACTOR_FIELDS)
@@ -583,8 +630,7 @@ def k3_phase():
     # by batch: 1, 2, 4 and 7.8 blocks for each of the 132 SMs
     by_batch = {}
     for Bs in (132, 264, 528, B):
-        sub = dataclasses.replace(kn, **{f.name: getattr(kn, f.name)[:Bs]
-                                         for f in dataclasses.fields(kn)})
+        sub = kn.map(lambda t: t[:Bs])
         args = (sub, P[:Bs], p[:Bs], md[:Bs], me[:Bs])
         ms_b = kernel_ms(lambda: fs.sweep(*args), 5, "sweep_kernel")
         bms_b = sweep_bound(Bs)[2]
@@ -1025,11 +1071,12 @@ def reset_counts():
 
 
 def medium_path(label, make, x0s, solve, expected, min_frac=None,
-                expect_iters=None, timed=5, cpu_scenarios=MEDIUM_CPU_SCENARIOS):
+                expect_iters=None, timed=5, cpu_scenarios=MEDIUM_CPU_SCENARIOS,
+                cpu_make=None):
     """Drive one path on the card at full batch, then its first
     ``cpu_scenarios`` scenarios on the CPU. ``make(device, x0s)`` builds the
-    problem, ``solve`` runs the solver, ``expected(result)`` gives the
-    launch counts the route implies."""
+    problem (``cpu_make(x0s)`` the CPU's, if given), ``solve`` runs the
+    solver, ``expected(result)`` gives the launch counts the route implies."""
     problem = make("cuda", x0s)
     with plain_versions_raise():
         reset_counts()
@@ -1080,7 +1127,7 @@ def medium_path(label, make, x0s, solve, expected, min_frac=None,
     n = cpu_scenarios
     if n:
         t0 = time.perf_counter()
-        rc = solve(make("cpu", x0s[:n]))
+        rc = solve(cpu_make(x0s[:n]) if cpu_make else make("cpu", x0s[:n]))
         cpu_s = time.perf_counter() - t0
         same_iters = bool((rc.num_iters == res.num_iters[:n].cpu()).all())
         same_conv = bool((rc.conv == res.conv[:n].cpu()).all())
@@ -1285,6 +1332,237 @@ def talos_fp32_check(make, cfg):
     return dict(rejected=rejected.tolist(), prim=prim.tolist(), rel_err=err)
 
 
+# ---------------------------------------------------------------- phase 7
+
+
+def route_steps():
+    from aligator_tpu_torch.solvers import proxddp
+
+    return {k: int(v) for k, v in proxddp.ROUTE_STEPS.items()}
+
+
+def reset_route_steps():
+    from aligator_tpu_torch.solvers import proxddp
+
+    for k in proxddp.ROUTE_STEPS:
+        proxddp.ROUTE_STEPS[k] = 0
+
+
+def chained_latency_ms(solve, prob, k_lo=1, k_hi=3, reps=3):
+    """Per-solve latency by the chained method of
+    ``bench_latency.chained_latency``: k solves back to back, each problem's
+    q perturbed by the previous solve's mean control (a data dependency, so
+    the solves cannot overlap), host clock to a synchronize; the latency is
+    the slope (t(k_hi) - t(k_lo)) / (k_hi - k_lo) of the best of ``reps``
+    runs, which cancels the fixed overhead of a run."""
+    q0 = prob.knots.q
+
+    def run(k, i):
+        q = q0 + i * 1e-7
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(k):
+            pr = dataclasses.replace(prob, knots=dataclasses.replace(prob.knots, q=q))
+            us = solve(pr)[1]
+            q = q0 * (1.0 + 1e-7 * torch.tanh(us.mean()))
+        float(q.sum())
+        return time.perf_counter() - t0
+
+    run(k_lo, 0), run(k_hi, 0)  # warm-up
+    t_lo = min(run(k_lo, i) for i in range(1, reps + 1))
+    t_hi = min(run(k_hi, i) for i in range(1, reps + 1))
+    return 1e3 * (t_hi - t_lo) / (k_hi - k_lo)
+
+
+def latency_phase(card):
+    """(a): one long-horizon LQ solve by the serial solve (K1), the
+    associative scan and the parallel legs, at B = 1 and 1024, on ``card``
+    (nvidia-smi's name and power limit)."""
+    from aligator_tpu_torch.gar import associative, lqr_problem, parallel, riccati
+
+    nx, nu, nc = LAT_DIMS
+    lens = sorted(set(parallel.get_work(LAT_N + 1, LAT_LEGS)[1]))
+    solvers = {
+        "serial": lambda p: riccati.solve_and_gains(p, LAT_MU, LAT_MU, True),
+        "associative": lambda p: associative.solve(p, LAT_MU, LAT_MU, refine_steps=1),
+        f"parallel{LAT_LEGS}": lambda p: parallel.solve(p, LAT_MU, LAT_MU, LAT_LEGS, True),
+    }
+    out, counted = {}, []
+    for B in LAT_BATCHES:
+        prob = k1_problem(B, LAT_N + 1, nx, nu, nc, True, torch.float32, SEED + 40)[0]
+        n = min(B, LAT_CPU_SCENARIOS)
+        cpu64 = prob.map(lambda t: t[:n].cpu().double())
+        ref = riccati.solve(cpu64, LAT_MU, LAT_MU, True)
+        scale = max(r.abs().max().item() for r in ref if r.numel())
+        for name, solve in solvers.items():
+            with plain_versions_raise():
+                reset_counts()
+                sol = solve(prob)
+                torch.cuda.synchronize()
+                launches = launch_counts()
+                ms = chained_latency_ms(solve, prob)
+            counted.append(launches)
+            got = [t[:n].cpu().double() for t in sol[:4]]
+            kkt = max(e.max().item() for e in lqr_problem.kkt_error(
+                cpu64, *got, LAT_MU, LAT_MU))
+            dist = max((g - r).abs().max().item() for g, r in zip(got, ref)
+                       if r.numel()) / scale
+            finite = all(bool(torch.isfinite(t).all()) for t in sol[:4])
+            print(f"[latency] B={B} N={LAT_N} {name}: {ms:.3f} ms a solve (chained), "
+                  f"launches a solve {dict((k, v) for k, v in launches.items() if v)}; "
+                  f"fp32 solution in fp64 ({n} scenarios): KKT {kkt:.3e} (bound "
+                  f"{LAT_KKT_TOL:g}), distance to the fp64 CPU serial solve "
+                  f"{dist:.3e} (bound {LAT_DIST_TOL:g})")
+            check(finite, f"latency {name} B={B}: non-finite solution")
+            check(kkt <= LAT_KKT_TOL, f"latency {name} B={B}: KKT {kkt}")
+            check(dist <= LAT_DIST_TOL, f"latency {name} B={B}: distance {dist}")
+            out[f"B{B}_{name}"] = dict(ms=ms, launches=launches, kkt=kkt, dist=dist)
+        ser = out[f"B{B}_serial"]["ms"]
+        print(f"[latency] {card}, B={B}: serial {ser:.3f} ms, associative "
+              f"{out[f'B{B}_associative']['ms']:.3f} ms "
+              f"(speedup {ser / out[f'B{B}_associative']['ms']:.2f}), parallel "
+              f"{out[f'B{B}_parallel{LAT_LEGS}']['ms']:.3f} ms "
+              f"(speedup {ser / out[f'B{B}_parallel{LAT_LEGS}']['ms']:.2f})")
+        del prob, sol
+    # K1 once a serial solve; K2 three times an associative solve and again
+    # for its refinement; the legs' θ sweeps 2 K2 launches a stage of each
+    # leg group, their forward below K4's nx
+    want = {"serial": dict(fused_riccati=1), "associative": dict(spd_solve=6),
+            f"parallel{LAT_LEGS}": dict(spd_solve=sum(2 * (L - 1) for L in lens))}
+    for B in LAT_BATCHES:
+        for name, w in want.items():
+            got = {k: v for k, v in out[f"B{B}_{name}"]["launches"].items() if v}
+            check(got == w, f"latency {name} B={B}: launches {got} != {w}")
+    return counted, out
+
+
+def parallel_humanoid_phase(serial_sps, card):
+    """(b): humanoid-dims ProxDDP on linear_solver='parallel'."""
+    import aligator_tpu_torch as at
+    from aligator_tpu_torch.examples import medium_dims
+    from aligator_tpu_torch.gar.parallel import get_work
+
+    N = MEDIUM_NSTEPS
+    rng = np.random.default_rng(3)
+    hx0 = np.zeros(36)
+    hx0[0] = 0.5
+    hx0s = (hx0 + 0.1 * rng.standard_normal((HUMANOID_BATCH, 36))).astype(np.float32)
+
+    def make(dev, x0s, dtype=torch.float32):
+        prob = medium_dims.make_humanoid_dims_problem(N, dtype, dev)
+        return dataclasses.replace(prob, x0=torch.tensor(x0s, dtype=dtype, device=dev))
+
+    cfg = at.solvers.ProxDDPConfig(tol=1e-3, mu_init=1e-3, max_iters=4, max_al_iters=4,
+                                   rollout="linear", ls_max_steps=6,
+                                   linear_solver="parallel", parallel_legs=PAR_LEGS)
+    lens = sorted(set(get_work(N + 1, PAR_LEGS)[1]))
+
+    def counts(res):
+        # per Newton step and leg group: 2 K2 launches a stage of the θ
+        # sweep, one K4 forward
+        steps = int(res.newton_steps.max().item())
+        return {"fused_riccati": 0, "spd_solve": steps * sum(2 * (L - 1) for L in lens),
+                "fused_stage_sweep": 0, "fused_stage_forward": steps * len(lens),
+                "fd_rows": 0}
+
+    launches, res = medium_path(
+        "humanoid_parallel", make, hx0s, lambda p: at.solvers.solve(p, cfg), counts,
+        min_frac=MIN_FRAC_CONVERGED,
+        cpu_make=lambda x0s: make("cpu", x0s, torch.float64))
+    print(f"[humanoid_parallel] {card}: {res['solves_per_sec']:.1f} solves/s on "
+          f"'parallel' ({PAR_LEGS} legs), {serial_sps:.1f} on 'serial' in this run")
+    return launches, res
+
+
+def associative_phase():
+    """(c): ProxDDP on linear_solver='associative' on the double-integrator
+    LQR with a control bound, fp64, against 'serial_scan' on the card and
+    the CPU; then fp32 below the μ floor."""
+    import aligator_tpu_torch as at
+    from aligator_tpu_torch.examples.lqr import make_lqr_problem
+
+    rng = np.random.default_rng(SEED)
+    x0s = np.array([1.0, 0.0]) + 0.1 * rng.standard_normal((ASSOC_BATCH, 2))
+
+    def make(dev, dtype=torch.float64, n=None):
+        prob = make_lqr_problem(ASSOC_NSTEPS, dtype, ASSOC_U_BOUND, device=dev)
+        return dataclasses.replace(prob, x0=torch.tensor(x0s[:n], dtype=dtype, device=dev))
+
+    def cfg(route, **kw):
+        opts = dict(tol=1e-6, mu_init=1e-2, max_iters=20, rollout="linear")
+        return at.solvers.ProxDDPConfig(**{**opts, **kw}, linear_solver=route)
+
+    def counted(prob, c):
+        with plain_versions_raise():
+            reset_counts()
+            reset_route_steps()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = at.solvers.solve(prob, c)
+            torch.cuda.synchronize()
+            return res, launch_counts(), route_steps(), time.perf_counter() - t0
+
+    prob = make("cuda")
+    res, launches, routes, secs = counted(prob, cfg("associative"))
+    base, base_launches, base_routes, base_secs = counted(prob, cfg("serial_scan"))
+    steps = int(res.newton_steps.max().item())
+    conv = res.conv.float().mean().item()
+    diff = max((getattr(res, k) - getattr(base, k)).abs().max().item()
+               for k in ("xs", "us", "lams"))
+    print(f"[assoc] 'associative' B={ASSOC_BATCH} N={ASSOC_NSTEPS} fp64: {secs:.3f} s, "
+          f"frac_converged {conv:.4f}, num_iters histogram "
+          f"{torch.bincount(res.num_iters.long()).tolist()}, Newton steps by route "
+          f"{routes}, launches {launches}; 'serial_scan' {base_secs:.3f} s, "
+          f"launches {base_launches}; max |associative - serial_scan| over xs, us, "
+          f"lams {diff:.3e} (tol {ASSOC_TOL:g})")
+    check(routes["associative"] > 0, "no Newton step took the associative route")
+    check(routes["associative"] + routes["associative_fallback"]
+          == int(res.newton_steps.sum().item()), f"route counts {routes}")
+    check(torch.equal(res.num_iters, base.num_iters) and torch.equal(res.conv, base.conv),
+          "associative and serial_scan iteration counts differ")
+    check(diff <= ASSOC_TOL, f"associative vs serial_scan: {diff}")
+    # 3 K2 launches a solve and 3 for its refinement on the scan; a
+    # scenario under the floor adds the serial solve's 2N
+    fallback = routes["associative_fallback"] > 0
+    check(launches["spd_solve"] >= 6 * steps and launches["fused_riccati"] == 0
+          and launches["fused_stage_sweep"] == 0 and launches["fused_stage_forward"] == 0
+          and (fallback or launches["spd_solve"] == 6 * steps),
+          f"associative launches {launches}")
+
+    n = MEDIUM_CPU_SCENARIOS
+    cpu = at.solvers.solve(make("cpu", n=n), cfg("associative"))
+    same = all(torch.equal(getattr(cpu, k), getattr(res, k)[:n].cpu())
+               for k in ("num_iters", "al_iter", "conv"))
+    cdiff = max((getattr(cpu, k) - getattr(res, k)[:n].cpu()).abs().max().item()
+                for k in ("xs", "us", "lams"))
+    print(f"[assoc] cpu check ({n} scenarios, fp64): num_iters/al_iter/conv equal "
+          f"{same}, max |card - cpu| {cdiff:.3e} (tol {ASSOC_TOL:g})")
+    check(same and cdiff <= ASSOC_TOL, "associative: card and CPU differ")
+
+    # float32 below the floor: every Newton step takes the serial solve
+    p32 = make("cuda", torch.float32)
+    r32, l32, routes32, _ = counted(p32, cfg("associative", mu_init=1e-4))
+    b32, _, _, _ = counted(p32, cfg("serial_scan", mu_init=1e-4))
+    equal = all(torch.equal(getattr(r32, k), getattr(b32, k))
+                for k in ("xs", "us", "vs", "lams", "K", "kff", "num_iters", "conv"))
+    print(f"[assoc] fp32 mu_init 1e-4: Newton steps by route {routes32}, launches "
+          f"{l32}; equal to 'serial_scan' {equal}")
+    check(routes32["associative"] == 0 and routes32["associative_fallback"] > 0,
+          f"fp32 below the floor: route counts {routes32}")
+    check(equal, "fp32 below the floor: results differ from serial_scan's")
+    return [launches, l32], dict(
+        secs=secs, serial_scan_secs=base_secs, frac_converged=conv, routes=routes,
+        routes_fp32=routes32, diff_serial_scan=diff, diff_cpu=cdiff)
+
+
+def parallel_in_time_phases(serial_sps, card):
+    counted, latency = latency_phase(card)
+    hl, humanoid = parallel_humanoid_phase(serial_sps, card)
+    al, assoc = associative_phase()
+    return counted + [hl] + al, dict(latency=latency, humanoid_parallel=humanoid,
+                                     associative=assoc)
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1314,13 +1592,16 @@ def main():
     se2_counts, result = timed("se2", slice_phase)
     medium_counts, medium = timed("medium", medium_phases)
     talos_counts, talos = timed("talos", talos_phases)
+    pit_counts, pit = timed("parallel-in-time", lambda: parallel_in_time_phases(
+        medium["humanoid"]["solves_per_sec"], smi))
     # each kernel's launches: the sum over the paths' counted runs
-    runs = [se2_counts, *medium_counts.values(), *talos_counts.values()]
+    runs = [se2_counts, *medium_counts.values(), *talos_counts.values(), *pit_counts]
     for k in (k1, k2, k3, k4, k5):
         k["launches"] = sum(c[k["name"]] for c in runs)
     print(json.dumps({"slice": result, "fused_riccati": k1_times,
                       "medium": medium, "medium_launches": medium_counts,
                       "talos": talos, "talos_launches": talos_counts,
+                      "parallel_in_time": pit,
                       "spd_solve": k2_extra, "fused_stage_sweep": k3_extra,
                       "fused_stage_forward": k4_shapes,
                       "fd_rows": k5_extra, "phase_s": phase_s,

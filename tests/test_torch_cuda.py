@@ -17,6 +17,7 @@ import torch
 import aligator_tpu_torch as at
 from aligator_tpu_torch import convert
 from aligator_tpu_torch.examples import medium_dims
+from aligator_tpu_torch.examples.lqr import make_lqr_problem
 from aligator_tpu_torch.examples.se2_car import create_se2_problem
 from aligator_tpu_torch.gar import (fused_riccati, fused_stage, lqr_problem,
                                     riccati, spd_solve)
@@ -183,6 +184,11 @@ def _spd_batch(rng, M, n, r, dtype, device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n,r", [(56, 57), (22, 57), (12, 1), (64, 64), (28, 84),
                                  (12, 84), (64, 128), (64, 65), (1, 1),
+                                 # the parallel-in-time paths: θ sweeps (36, 73),
+                                 # (12, 73), (4, 9), (2, 9); the associative
+                                 # leaves and gains (1, 5), (2, 3), (4, 5)
+                                 (36, 73), (12, 73), (4, 9), (2, 9), (1, 5),
+                                 (2, 3), (4, 5),
                                  # past 128 columns: R split over blocks,
                                  # (28, 192) in registers, (64, 257) in
                                  # shared memory
@@ -564,6 +570,96 @@ def test_dense_lqr_card_matches_cpu(cuda_device, plain_versions_raise, solver):
                                     cuda_device, plain_versions_raise)
         iters = int(gpu.num_iters.max())
         assert counts == dict(k2=N * (iters + 1), k3=0, k4=0, k1=0, k5=0)
+
+
+@pytest.mark.cuda
+def _theta_problem(rng, B, N, nx, nu, nc, device):
+    """Random LQ problems with θ blocks of dimension nx, float64."""
+    prob = lqr_problem.random_convex_problem(rng, B, N, nx, nu, nc, device=device)
+    kn = lqr_problem.add_parameterization(prob.knots, nx)
+    for k in ("Gx", "Gu", "gamma"):
+        t = getattr(kn, k)
+        t.copy_(torch.tensor(rng.standard_normal(t.shape), device=device))
+    kn.Gth.copy_(torch.eye(nx, device=device, dtype=torch.float64).expand_as(kn.Gth))
+    return dataclasses.replace(prob, knots=kn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,nu,nc", [(36, 12, 12), (4, 2, 1)])
+def test_theta_sweep_takes_k2_not_k1_or_k3(cuda_device, plain_versions_raise, nx, nu, nc):
+    """With θ blocks, the shapes of K3 (36, 12, 12) and K1 (4, 2, 1) take the
+    per-stage loop: 2 K2 launches a stage, the θ columns as wider
+    right-hand sides, matching the CPU's backward and forward at θ."""
+    N, B = 6, 5
+    rng = np.random.default_rng(nx)
+    prob = _theta_problem(rng, B, N, nx, nu, nc, "cpu")
+    theta = torch.tensor(rng.standard_normal((B, nx)))
+    cpu = riccati.backward(prob, 1e-3, 1e-2, True)
+    cpu_sol = riccati.forward(cpu, theta)
+    gprob = _theta_problem(np.random.default_rng(nx), B, N, nx, nu, nc, cuda_device)
+    plain_versions_raise()
+    before = _launches()
+    gpu = riccati.backward(gprob, 1e-3, 1e-2, True)
+    gpu_sol = riccati.forward(gpu, theta.to(cuda_device))
+    _, *gains = riccati.solve_and_gains(gprob, 1e-3, 1e-2, True)
+    torch.cuda.synchronize()
+    counts = {k: v - before[k] for k, v in _launches().items()}
+    k4 = 2 if nx >= 12 else 0
+    assert counts == dict(k2=4 * N, k3=0, k4=k4, k1=0, k5=0)
+    for k in ("kff", "K", "Kth", "Zth", "Lth", "Yth", "Vxt", "Vtt", "vt", "x0_th",
+              "th_grad", "th_hess"):
+        assert _rel(getattr(gpu, k).cpu(), getattr(cpu, k)) <= TOL[torch.float64], k
+    for g, c in zip(gpu_sol, cpu_sol):
+        assert _rel(g.cpu(), c) <= TOL[torch.float64]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,legs", [(11, 4), (12, 3)])  # T = 12: 3 each; T = 13: 5, 4, 4
+def test_parallel_proxddp_card_matches_cpu(cuda_device, plain_versions_raise, N, legs):
+    """linear_solver='parallel' at humanoid dims, float64: the legs' θ sweeps
+    take K2 (2 launches a stage of a leg group), their forwards K4 (one a
+    group), never K1 or K3; the card matches the CPU."""
+    rng = np.random.default_rng(3)
+    x0s = rng.standard_normal((8, 36)) * 0.1
+    x0s[:, 0] += 0.5
+
+    def make(dev):
+        prob = medium_dims.make_humanoid_dims_problem(N, torch.float64, dev)
+        return dataclasses.replace(prob, x0=torch.tensor(x0s, device=dev))
+
+    cfg = at.solvers.ProxDDPConfig(tol=1e-3, mu_init=1e-3, max_iters=4, max_al_iters=4,
+                                   ls_max_steps=6, linear_solver="parallel",
+                                   parallel_legs=legs)
+    gpu, counts = _card_and_cpu(make, lambda p: at.solvers.solve(p, cfg),
+                                cuda_device, plain_versions_raise)
+    steps = int(gpu.newton_steps.max())
+    _, lens = at.gar.parallel.get_work(N + 1, legs)
+    groups = sorted(set(lens))
+    assert counts == dict(k2=steps * sum(2 * (L - 1) for L in groups), k3=0,
+                          k4=steps * len(groups), k1=0, k5=0)
+
+
+@pytest.mark.cuda
+def test_associative_proxddp_card_matches_cpu(cuda_device, plain_versions_raise):
+    """linear_solver='associative' on the LQR with a control bound, float64:
+    every Newton step on the scan (μ above the floor), 3 K2 launches a solve
+    (the leaves' R̄ solve, the gain recovery's two) and one refinement solve
+    more; the card matches the CPU."""
+    x0s = np.array([1.0, 0.0]) + 0.1 * np.random.default_rng(11).standard_normal((16, 2))
+
+    def make(dev):
+        prob = make_lqr_problem(24, torch.float64, u_bound=1.0, device=dev)
+        return dataclasses.replace(prob, x0=torch.tensor(x0s, device=dev))
+
+    cfg = at.solvers.ProxDDPConfig(tol=1e-6, mu_init=1e-2, max_iters=20,
+                                   linear_solver="associative")
+    steps_before = int(at.solvers.proxddp.ROUTE_STEPS["associative"])
+    gpu, counts = _card_and_cpu(make, lambda p: at.solvers.solve(p, cfg),
+                                cuda_device, plain_versions_raise)
+    steps = int(gpu.newton_steps.max())
+    assert counts == dict(k2=6 * steps, k3=0, k4=0, k1=0, k5=0)
+    assert int(at.solvers.proxddp.ROUTE_STEPS["associative"]) > steps_before
+    assert gpu.conv.all() and (gpu.vs != 0).any()
 
 
 @pytest.mark.cuda

@@ -176,9 +176,7 @@ def test_kernel_rejects_uninstantiated_shapes():
     for prob in (_torch_batch(3, 9, 2, 0, 2), partial):
         with pytest.raises(ValueError, match="outside its domain"):
             fused_riccati.launch(prob, 1e-3, 1e-3, True)
-    half = dataclasses.replace(tp, knots=lqr_problem.LQRKnots(**{
-        f.name: getattr(tp.knots, f.name).half()
-        for f in dataclasses.fields(tp.knots)}))
+    half = dataclasses.replace(tp, knots=tp.knots.map(torch.Tensor.half))
     with pytest.raises(ValueError, match="float32/float64"):
         fused_riccati.launch(half, 1e-3, 1e-3, True)
 

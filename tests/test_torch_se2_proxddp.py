@@ -177,7 +177,7 @@ def test_batched_proxddp_backtracking_bounds_matches_jax():
 
 
 @pytest.mark.parametrize("option", [
-    dict(rollout="nonlinear"), dict(linear_solver="parallel"),
+    dict(rollout="nonlinear"), dict(verbose=True),
     dict(hessian_approx="exact"), dict(record_history=True),
 ])
 def test_unported_options_raise(option):

@@ -139,13 +139,7 @@ def main():
     prob, mud, mue = cs.k1_problem(Bmax, T, nx, nu, nc, expl, dt, cs.SEED + 40)
 
     def sub(bs):
-        import dataclasses
-
-        kn = prob.knots
-        knots = dataclasses.replace(kn, **{f.name: getattr(kn, f.name)[:bs]
-                                           for f in dataclasses.fields(kn)})
-        return (dataclasses.replace(prob, knots=knots, G0=prob.G0[:bs],
-                                    g0=prob.g0[:bs]), mud[:bs], mue[:bs])
+        return prob.map(lambda t: t[:bs]), mud[:bs], mue[:bs]
 
     for bs in args.batches:
         p, a, b = sub(bs)

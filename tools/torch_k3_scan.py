@@ -20,7 +20,6 @@ spills and each kernel's instruction count (cuobjdump) are printed too.
 
 import argparse
 import ctypes
-import dataclasses
 import pathlib
 import re
 import shutil
@@ -122,8 +121,7 @@ def main():
     ref = fs.sweep(kn, P, p, md, me)
 
     def runner(lib, bs):
-        sub = dataclasses.replace(kn, **{f.name: getattr(kn, f.name)[:bs]
-                                         for f in dataclasses.fields(kn)})
+        sub = kn.map(lambda t: t[:bs])
         out = fs.factor_buffers(sub.Q, N, NU, NC)
         ins = [getattr(sub, k).contiguous() for k in fs.STAGE_FIELDS] + [
             P[:bs], p[:bs], md[:bs], me[:bs]]
