@@ -12,14 +12,28 @@ import numpy as np
 import torch
 
 from ._device import resolve
+from .examples.cartpole import cartpole_problem
+from .examples.inverse_lqr import lqr_template
+from .examples.linear_euler import linear_euler_problem
 from .examples.medium_dims import linear_problem
+from .examples.partial_initial_condition import partial_initial_condition_problem
 from .examples.se2_car import se2_problem
 from .examples.talos_walk import talos_walk_problem
+from .examples.theta_family import double_integrator_family
 from .gar.lqr_problem import LQRKnots, LQRProblem
 from .modelling.multibody import model as rbd
 
 KNOT_FIELDS = ("Q", "S", "R", "q", "r", "A", "B", "E", "f", "C", "D", "d")
 THETA_FIELDS = ("Gx", "Gu", "Gth", "gamma")
+
+
+def _loader(params, device, dtype=None):
+    dev = resolve(device)
+
+    def t(name):
+        return torch.tensor(np.asarray(params[name]), dtype=dtype, device=dev)
+
+    return t
 
 
 def lqr_problem_from_numpy(arrays, device="cuda") -> LQRProblem:
@@ -113,3 +127,58 @@ def talos_problem_from_numpy(params, dtype=None, device="cuda"):
         kd=float(params["kd"]), prox_mu=float(params["prox_mu"]),
         u_box=(t("u_lower"), t("u_upper")),
     )
+
+
+def cartpole_problem_from_numpy(params, nsteps: int = 100, device="cuda",
+                                u_bound=None, integrator: str = "rk2"):
+    """The cartpole problem (:func:`~.examples.cartpole.cartpole_problem`)
+    from its leaves: ``x0 (B, 4)`` (or ``(4,)``), the scalars ``mc``,
+    ``mp``, ``length``, ``gravity`` and ``timestep``, ``x_target (4,)`` and
+    the weights ``w_x``, ``w_u``, ``w_term``."""
+    t = _loader(params, device)
+    return cartpole_problem(
+        x0=t("x0"), mc=t("mc"), mp=t("mp"), length=t("length"),
+        gravity=t("gravity"), timestep=t("timestep"), x_target=t("x_target"),
+        w_x=t("w_x"), w_u=t("w_u"), w_term=t("w_term"), nsteps=nsteps,
+        u_bound=u_bound, integrator=integrator,
+    )
+
+
+def linear_euler_problem_from_numpy(params, nsteps: int = 20, device="cuda"):
+    """The linear-ODE Euler problem
+    (:func:`~.examples.linear_euler.linear_euler_problem`) from its leaves
+    ``A``, ``B``, ``c`` (the ODE), ``w_x``, ``w_u``, the scalar
+    ``timestep`` and ``x0``."""
+    t = _loader(params, device)
+    return linear_euler_problem(t("A"), t("B"), t("c"), t("w_x"), t("w_u"),
+                                t("timestep"), t("x0"), nsteps)
+
+
+def partial_initial_condition_from_numpy(params, nsteps: int = 100,
+                                         device="cuda"):
+    """The partial-initial-condition problem
+    (:func:`~.examples.partial_initial_condition.partial_initial_condition_problem`)
+    from its leaves ``A``, ``B``, ``w_u``, ``w_term``, ``x0`` and the
+    indices ``pinned`` of the constrained components."""
+    t = _loader(params, device)
+    return partial_initial_condition_problem(
+        t("A"), t("B"), t("w_u"), t("w_term"), t("x0"),
+        tuple(int(i) for i in params["pinned"]), nsteps)
+
+
+def inverse_lqr_template_from_numpy(params, nsteps: int = 40, device="cuda"):
+    """The inverse-LQR template (:func:`~.examples.inverse_lqr.lqr_template`)
+    from the dynamics ``A (nx, nx)`` and ``B (nx, nu)``."""
+    t = _loader(params, device)
+    return lqr_template(t("A"), t("B"), nsteps)
+
+
+def theta_family_from_numpy(params, nsteps: int = 20, device="cuda",
+                            u_bound=None):
+    """The θ family
+    (:func:`~.examples.theta_family.double_integrator_family`) from its
+    leaves ``A``, ``B``, ``Q``, ``R``, ``w_term`` and ``x0 (nx,)``; returns
+    ``problem_of_theta``."""
+    t = _loader(params, device)
+    return double_integrator_family(t("A"), t("B"), t("Q"), t("R"), t("w_term"),
+                                    t("x0"), nsteps, u_bound=u_bound)

@@ -64,6 +64,27 @@ class Cost:
 
 
 @dataclass
+class ConstantCost(Cost):
+    """ℓ = c."""
+
+    c: Tensor
+
+    def value(self, space, x, u):
+        lead = torch.broadcast_shapes(x.shape[:-1], u.shape[:-1])
+        return stage_param(torch.as_tensor(self.c), x, 0).expand(lead)
+
+    def gradients(self, space, x, u):
+        lead = torch.broadcast_shapes(x.shape[:-1], u.shape[:-1])
+        return x.new_zeros(lead + (space.ndx,)), x.new_zeros(lead + u.shape[-1:])
+
+    def hessians(self, space, x, u):
+        lead = torch.broadcast_shapes(x.shape[:-1], u.shape[:-1])
+        nd, nu = space.ndx, u.shape[-1]
+        return (x.new_zeros(lead + (nd, nd)), x.new_zeros(lead + (nd, nu)),
+                x.new_zeros(lead + (nu, nu)))
+
+
+@dataclass
 class QuadraticCost(Cost):
     """ℓ = ½ dx'Q dx + dx'N u + ½ u'R u + q'dx + r'u + c with dx = x ⊖ 0."""
 
@@ -151,6 +172,38 @@ def QuadraticControlCost(weights: Tensor, target=None) -> QuadraticResidualCost:
 
 
 @dataclass
+class LogResidualCost(Cost):
+    """Pseudo-Huber cost ℓ = Σ w_i ln(1 + r_i²/s²) on a residual; autodiff
+    derivatives."""
+
+    residual: StageFunction
+    weights: Tensor  # (nr,)
+    scale: Tensor
+
+    def value(self, space, x, u):
+        r = self.residual.value(space, x, u)
+        return (self.weights * torch.log1p((r / self.scale) ** 2)).sum(-1)
+
+
+@dataclass
+class RelaxedLogBarrierCost(Cost):
+    """Relaxed log-barrier on a residual: −w·log(r) for r > δ, its quadratic
+    extension below δ; autodiff derivatives."""
+
+    residual: StageFunction
+    weights: Tensor  # (nr,)
+    threshold: Tensor
+
+    def value(self, space, x, u):
+        r = self.residual.value(space, x, u)
+        d = self.threshold
+        quad = 0.5 * (((r - 2.0 * d) / d) ** 2 - 1.0) - torch.log(d)
+        above = r > d
+        val = torch.where(above, -torch.log(torch.where(above, r, d)), quad)
+        return (self.weights * val).sum(-1)
+
+
+@dataclass
 class CostStack(Cost):
     """Weighted sum of costs."""
 
@@ -185,3 +238,19 @@ class CostStack(Cost):
             Lxu = Lxu + w * hxu
             Luu = Luu + w * huu
         return Lxx, Lxu, Luu
+
+
+@dataclass
+class DirectSumCost(Cost):
+    """A cost on the sub-state ``x[x_slice]`` and sub-control
+    ``u[u_slice]``, evaluated on ``sub_space``; autodiff derivatives."""
+
+    cost: Cost
+    sub_space: Manifold = None
+    x_slice: tuple = ()
+    u_slice: tuple = ()
+
+    def value(self, space, x, u):
+        xs = x[..., self.x_slice[0]:self.x_slice[1]]
+        us = u[..., self.u_slice[0]:self.u_slice[1]]
+        return self.cost.value(self.sub_space, xs, us)

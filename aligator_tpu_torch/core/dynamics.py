@@ -4,7 +4,9 @@ PyTorch counterpart of ``aligator_tpu/core/dynamics.py``. An explicit
 dynamics is a map ``xnext = forward(x, u)``; the implicit residual used by
 the solvers is ``value(x, u, y) = y ⊖ forward(x, u)`` with tangent-space
 Jacobians ``A = ∂value/∂x``, ``B = ∂value/∂u``, ``E = ∂value/∂y``
-(``E = −I`` on vector spaces).
+(``E = −I`` on vector spaces). An implicit dynamics
+(:class:`ImplicitDynamics`) defines the residual itself and solves it for
+``y`` by Newton steps.
 """
 
 from __future__ import annotations
@@ -68,3 +70,52 @@ class LinearDiscreteDynamics(ExplicitDynamics):
             self.B.expand(lead + self.B.shape[-2:]),
             E.expand(lead + (n, n)),
         )
+
+
+class ImplicitDynamics(ExplicitDynamics):
+    """Implicit discrete dynamics r(x, u, y) = 0 (``aligator_tpu/core/
+    dynamics.py:79-119``). Subclasses implement ``residual``; ``forward``
+    solves it by a fixed number of Newton steps on the manifold seeded at
+    ``x``, with no exit that depends on the data, so every scenario of a
+    batch takes the same steps, as each does under the JAX package's
+    ``lax.scan``."""
+
+    is_explicit = False
+    newton_iters: int = 5
+
+    def residual(self, space, x, u, y):
+        raise NotImplementedError
+
+    def forward_with_gap(self, space: Manifold, x: Tensor, u: Tensor,
+                         gap: Tensor | None = None, iters: int | None = None):
+        """Solve ``r(x, u, y) + gap = 0`` for ``y`` by ``iters`` Newton steps
+        (default ``newton_iters``), each a batched dense solve against the
+        Jacobian ``∂r/∂y`` (:meth:`_jacobian_y`)."""
+        iters = self.newton_iters if iters is None else iters
+        y = x
+        for _ in range(iters):
+            r = self.residual(space, x, u, y)
+            if gap is not None:
+                r = r + gap
+            E = self._jacobian_y(space, x, u, y)
+            y = space.integrate(y, -torch.linalg.solve(E, r))
+        return y
+
+    def _jacobian_y(self, space, x, u, y) -> Tensor:
+        """``∂r/∂y (..., ndx, ndx)`` in tangent coordinates at ``y``, by
+        reverse-mode autograd, one backward pass a residual row (a fraction
+        of what :func:`batched_jacfwd`'s nested ``torch.func`` transforms
+        cost at these sizes); the solvers never call ``forward`` inside a
+        ``torch.func`` transform."""
+        with torch.enable_grad():
+            lead = torch.broadcast_shapes(x.shape[:-1], u.shape[:-1], y.shape[:-1])
+            dy = y.new_zeros(lead + (space.ndx,), requires_grad=True)
+            r = self.residual(space, x.detach(), u.detach(),
+                              space.integrate(y.detach(), dy))
+            rows = [torch.autograd.grad(r[..., i].sum(), dy,
+                                        retain_graph=i + 1 < r.shape[-1])[0]
+                    for i in range(r.shape[-1])]
+        return torch.stack(rows, -2)
+
+    def forward(self, space, x, u):
+        return self.forward_with_gap(space, x, u)

@@ -12,6 +12,7 @@ from dataclasses import dataclass
 import torch
 from torch import Tensor
 
+from .._linalg import mv
 from .manifolds import Manifold, batched_jacfwd
 
 
@@ -94,3 +95,114 @@ class ControlErrorResidual(StageFunction):
         lead = torch.broadcast_shapes(x.shape[:-1], u.shape[:-1])
         eye = torch.eye(nu, dtype=u.dtype, device=u.device)
         return u.new_zeros(lead + (nu, space.ndx)), eye.expand(lead + (nu, nu))
+
+
+def _lead(x: Tensor, u: Tensor):
+    return torch.broadcast_shapes(x.shape[:-1], u.shape[:-1])
+
+
+@dataclass
+class LinearFunction(StageFunction):
+    """r(x, u) = A dx + B u + c, ``dx = x ⊖ neutral`` (x itself on a vector
+    space)."""
+
+    A: Tensor  # (nr, ndx)
+    B: Tensor  # (nr, nu)
+    c: Tensor  # (nr,)
+
+    def dim(self, space, nu):
+        return self.A.shape[-2]
+
+    def value(self, space, x, u):
+        dx = space.difference(space.neutral(x.dtype, x.device), x)
+        return mv(self.A, dx) + mv(self.B, u) + self.c
+
+    def jacobians(self, space, x, u):
+        lead = _lead(x, u)
+        return (self.A.expand(lead + self.A.shape[-2:]),
+                self.B.expand(lead + self.B.shape[-2:]))
+
+
+@dataclass
+class ControlBoxFunction(StageFunction):
+    """r(u) = [u − umax; umin − u] ≤ 0, control bounds for a
+    :class:`~.sets.NegativeOrthant`."""
+
+    umin: Tensor
+    umax: Tensor
+
+    def dim(self, space, nu):
+        return 2 * nu
+
+    def value(self, space, x, u):
+        return torch.cat([u - self.umax, self.umin - u], -1)
+
+    def jacobians(self, space, x, u):
+        lead, nu = _lead(x, u), u.shape[-1]
+        eye = torch.eye(nu, dtype=u.dtype, device=u.device)
+        Ju = torch.cat([eye, -eye], 0)
+        return u.new_zeros(lead + (2 * nu, space.ndx)), Ju.expand(lead + Ju.shape)
+
+
+@dataclass
+class FunctionSlice(StageFunction):
+    """The rows ``indices`` of another function's residual."""
+
+    func: StageFunction
+    indices: tuple = ()
+
+    def dim(self, space, nu):
+        return len(self.indices)
+
+    def value(self, space, x, u):
+        return self.func.value(space, x, u)[..., list(self.indices)]
+
+    def jacobians(self, space, x, u):
+        Jx, Ju = self.func.jacobians(space, x, u)
+        idx = list(self.indices)
+        return Jx[..., idx, :], Ju[..., idx, :]
+
+
+@dataclass
+class GatedFunction(StageFunction):
+    """r(x, u) = gate · f(x, u): a scalar gate, or one per stage (an ``(N,)``
+    leaf), that switches a function's rows on (1) or off (0) stage by
+    stage."""
+
+    func: StageFunction
+    gate: Tensor | float = 1.0
+
+    def dim(self, space, nu):
+        return self.func.dim(space, nu)
+
+    def _gate(self, x):
+        g = stage_param(torch.as_tensor(self.gate, dtype=x.dtype, device=x.device),
+                        x, 0)
+        return g[..., None]
+
+    def value(self, space, x, u):
+        return self._gate(x) * self.func.value(space, x, u)
+
+    def jacobians(self, space, x, u):
+        Jx, Ju = self.func.jacobians(space, x, u)
+        g = self._gate(x)[..., None]
+        return g * Jx, g * Ju
+
+
+@dataclass
+class LinearFunctionComposition(StageFunction):
+    """r(x, u) = A f(x, u) + b."""
+
+    func: StageFunction
+    A: Tensor
+    b: Tensor
+
+    def dim(self, space, nu):
+        return self.A.shape[-2]
+
+    def value(self, space, x, u):
+        return mv(self.A, self.func.value(space, x, u)) + self.b
+
+    def jacobians(self, space, x, u):
+        Jx, Ju = self.func.jacobians(space, x, u)
+        return self.A @ Jx, self.A @ Ju

@@ -49,6 +49,10 @@ class Manifold:
     def difference(self, x0: Tensor, x1: Tensor) -> Tensor:
         raise NotImplementedError
 
+    def interpolate(self, x0: Tensor, x1: Tensor, t) -> Tensor:
+        """The point at fraction ``t`` of the geodesic from ``x0`` to ``x1``."""
+        return self.integrate(x0, t * self.difference(x0, x1))
+
     def jintegrate(self, x: Tensor, v: Tensor, arg: int) -> Tensor:
         """d/d(arg) of ``integrate(x ⊕ dx, v + dv)`` in tangent coords at 0."""
         if arg == 0:

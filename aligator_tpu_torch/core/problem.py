@@ -10,10 +10,16 @@ Trajectories are ``xs (B, N+1, nx)`` and ``us (B, N, nu)``; stage functions
 evaluate on the whole ``(B, N)`` block at once, and autodiff Jacobians run
 over the flattened (batch × stage) axis (:func:`~.manifolds.batched_jacfwd`),
 where the JAX package ``vmap``s over stages inside a ``vmap`` over scenarios.
+
+:func:`replicate_stage` and :func:`stack_stages` give a stage model whose
+tensor leaves carry a leading stage axis (``nstack`` stages), as the JAX
+package stacks every problem's stages; such a model is evaluated one stage
+at a time (:meth:`StageModel.at`), each over the whole batch.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -22,8 +28,40 @@ from torch import Tensor
 
 from .costs import Cost
 from .dynamics import ExplicitDynamics
+from .functions import StageFunction
 from .manifolds import Manifold
 from .sets import ConstraintSetProduct
+
+
+def _map_leaves(obj, fn):
+    """``obj`` with ``fn`` applied to every tensor leaf of its dataclasses
+    and tuples (the manifold and the integer metadata are kept)."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, tuple):
+        return tuple(_map_leaves(o, fn) for o in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: _map_leaves(getattr(obj, f.name), fn)
+            for f in dataclasses.fields(obj) if f.init
+        })
+    return obj
+
+
+def _zip_leaves(objs, fn):
+    """One object of the structure of ``objs[0]`` whose tensor leaves are
+    ``fn`` of the matching leaves of all ``objs``."""
+    first = objs[0]
+    if isinstance(first, torch.Tensor):
+        return fn(objs)
+    if isinstance(first, tuple):
+        return tuple(_zip_leaves(o, fn) for o in zip(*objs))
+    if dataclasses.is_dataclass(first) and not isinstance(first, type):
+        return dataclasses.replace(first, **{
+            f.name: _zip_leaves([getattr(o, f.name) for o in objs], fn)
+            for f in dataclasses.fields(first) if f.init
+        })
+    return first
 
 
 @dataclass
@@ -36,10 +74,17 @@ class StageModel:
     space: Optional[Manifold] = None
     nu: int = 0
     cstr_dims: tuple = ()
+    # stages stacked along a leading axis of the tensor leaves; 0: one
+    # model shared by every stage
+    nstack: int = 0
 
     @property
     def nc(self) -> int:
         return sum(self.cstr_dims)
+
+    def at(self, t: int) -> "StageModel":
+        """The model of stage ``t`` of a stacked model."""
+        return dataclasses.replace(_map_leaves(self, lambda a: a[t]), nstack=0)
 
     def constraint_values(self, x: Tensor, u: Tensor) -> Tensor:
         if not self.constraints:
@@ -71,10 +116,40 @@ def make_stage(cost: Cost, dynamics: ExplicitDynamics, space: Manifold,
                       cstr_dims=dims)
 
 
+def replicate_stage(stage: StageModel, N: int) -> StageModel:
+    """``stage`` with every tensor leaf broadcast to a leading stage axis of
+    size N."""
+    out = _map_leaves(stage, lambda a: a.expand((N,) + a.shape))
+    return dataclasses.replace(out, nstack=N)
+
+
+def stack_stages(stages: list) -> StageModel:
+    """Stack stage models of one structure along a new leading axis."""
+    out = _zip_leaves(list(stages), torch.stack)
+    return dataclasses.replace(out, nstack=len(stages))
+
+
+def _per_stage(stage: StageModel, fn, *args):
+    """``fn(stage, *args)`` on ``(B, N, ·)`` blocks; a stacked model is
+    evaluated one stage at a time and the results stacked on axis 1."""
+    if not stage.nstack:
+        return fn(stage, *args)
+    outs = [fn(stage.at(t), *(a[:, t] for a in args)) for t in range(stage.nstack)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o, 1) for o in zip(*outs))
+    return torch.stack(outs, 1)
+
+
 @dataclass
 class TrajOptProblem:
-    """Batched trajectory optimization problem over horizon N with the
-    initial condition ``xs[:, 0] ⊖ x0 = 0``."""
+    """Batched trajectory optimization problem over horizon N.
+
+    The default initial condition is ``xs[:, 0] ⊖ x0 = 0``. A general
+    residual ``g(x_0) = 0`` of dimension ``init_cstr_dim <= ndx`` (a
+    :class:`~.functions.FunctionSlice` of a state error pins part of the
+    state) replaces it through ``init_constraint``; its value and Jacobian
+    are padded with zero rows to ``ndx`` rows, which the initial KKT solve
+    treats as inactive rows (zero multiplier), as the JAX package does."""
 
     stages: StageModel
     term_cost: Cost
@@ -82,6 +157,8 @@ class TrajOptProblem:
     term_constraints: tuple = ()  # ((StageFunction, ConstraintSet), ...)
     nsteps: int = 0
     term_cstr_dims: tuple = ()
+    init_constraint: Optional[StageFunction] = None
+    init_cstr_dim: int = -1  # -1: the full-state default
 
     @property
     def batch(self) -> int:
@@ -127,23 +204,47 @@ class TrajOptProblem:
         )
 
     def init_condition_residual(self, x: Tensor) -> Tensor:
-        return self.space.difference(self.x0, x)
+        """Initial-condition residual, zero-padded to ``(B, ndx)``."""
+        if self.init_constraint is None:
+            return self.space.difference(self.x0, x)
+        r = self.init_constraint.value(self.space, x, x.new_zeros(x.shape[:-1] + (self.nu,)))
+        pad = r.new_zeros(r.shape[:-1] + (self.space.ndx - r.shape[-1],))
+        return torch.cat([r, pad], -1)
 
     def init_condition_jacobian(self, x: Tensor) -> Tensor:
-        return self.space.jdifference(self.x0, x, 1)
+        """∂(initial residual)/∂x, zero-padded to ``(B, ndx, ndx)``."""
+        if self.init_constraint is None:
+            return self.space.jdifference(self.x0, x, 1)
+        J = self.init_constraint.jacobians(
+            self.space, x, x.new_zeros(x.shape[:-1] + (self.nu,)))[0]
+        pad = J.new_zeros(J.shape[:-2] + (self.space.ndx - J.shape[-2], J.shape[-1]))
+        return torch.cat([J, pad], -2)
 
 
 def make_problem(x0: Tensor, stage: StageModel, nsteps: int, term_cost: Cost,
-                 term_constraints=()) -> TrajOptProblem:
+                 term_constraints=(),
+                 init_constraint: Optional[StageFunction] = None) -> TrajOptProblem:
     """Build a TrajOptProblem; ``x0`` is ``(B, nx)`` (or ``(nx,)`` for one
-    scenario)."""
+    scenario). ``stage`` is shared by every stage, or stacked
+    (:func:`stack_stages`, one model a stage); ``init_constraint`` replaces
+    the full-state initial condition by a residual ``g(x_0) = 0`` of
+    dimension <= ndx."""
     x0 = torch.as_tensor(x0)
     if x0.ndim == 1:
         x0 = x0[None]
-    tdims = tuple(f.dim(stage.space, stage.nu) for f, _ in term_constraints)
+    if stage.nstack not in (0, nsteps):
+        raise ValueError(f"{stage.nstack} stacked stages for {nsteps} steps")
+    space, nu = stage.space, stage.nu
+    tdims = tuple(f.dim(space, nu) for f, _ in term_constraints)
+    init_dim = -1
+    if init_constraint is not None:
+        init_dim = init_constraint.dim(space, nu)
+        if init_dim > space.ndx:
+            raise ValueError(f"init_constraint dim {init_dim} exceeds ndx={space.ndx}")
     return TrajOptProblem(stages=stage, term_cost=term_cost, x0=x0,
                           term_constraints=tuple(term_constraints),
-                          nsteps=nsteps, term_cstr_dims=tdims)
+                          nsteps=nsteps, term_cstr_dims=tdims,
+                          init_constraint=init_constraint, init_cstr_dim=init_dim)
 
 
 @dataclass
@@ -180,9 +281,12 @@ def evaluate(problem: TrajOptProblem, xs: Tensor, us: Tensor) -> ProblemData:
     """Costs, dynamics residuals and constraint values along (xs, us)."""
     space, stage, N = problem.space, problem.stages, problem.nsteps
     x, y = xs[:, :N], xs[:, 1:]
-    costs = stage.cost.value(space, x, us)
-    dyn_res = stage.dynamics.residual(space, x, us, y)
-    cstr_vals = stage.constraint_values(x, us)
+
+    def values(st, x, u, y):
+        return (st.cost.value(space, x, u), st.dynamics.residual(space, x, u, y),
+                st.constraint_values(x, u))
+
+    costs, dyn_res, cstr_vals = _per_stage(stage, values, x, us, y)
     xN = xs[:, N]
     u0 = xs.new_zeros(xN.shape[:-1] + (problem.nu,))
     tc = problem.term_cost.value(space, xN, u0)
@@ -197,6 +301,32 @@ def evaluate(problem: TrajOptProblem, xs: Tensor, us: Tensor) -> ProblemData:
     )
 
 
+def dynamics_vhp(problem: TrajOptProblem, xs: Tensor, us: Tensor,
+                 lams_next: Tensor):
+    """``(Hxx (B, N, ndx, ndx), Hxu (B, N, ndx, nu), Huu (B, N, nu, nu))``:
+    the tangent-space Hessian blocks of ``λ_{t+1}ᵀ r_t(x, u, x_{t+1})`` wrt
+    ``(x, u)`` for every stage, the terms ``hessian_approx='exact'`` adds to
+    the LQ knots (the JAX package's ``ProblemData.Hxx, Hxu, Huu``).
+    ``torch.func.hessian`` of the contracted residual under
+    ``torch.func.vmap`` over the flattened batch × stage axis."""
+    space, N, ndx = problem.space, problem.nsteps, problem.space.ndx
+
+    def one(st, x, u, y, lam):
+        def g(z, x, u, y, lam):
+            r = st.dynamics.residual(space, space.integrate(x, z[:ndx]),
+                                     u + z[ndx:], y)
+            return (lam * r).sum(-1)
+
+        lead = x.shape[:-1]
+        flat = [a.reshape((-1, a.shape[-1])) for a in (x, u, y, lam)]
+        z = x.new_zeros(ndx + u.shape[-1])
+        H = torch.func.vmap(torch.func.hessian(g), in_dims=(None, 0, 0, 0, 0))(
+            z, *flat).reshape(lead + z.shape + z.shape)
+        return H[..., :ndx, :ndx], H[..., :ndx, ndx:], H[..., ndx:, ndx:]
+
+    return _per_stage(problem.stages, one, xs[:, :N], us, xs[:, 1:], lams_next)
+
+
 def compute_derivatives(problem: TrajOptProblem, xs: Tensor,
                         us: Tensor) -> ProblemData:
     """Evaluation plus first- and second-order (Gauss-Newton) derivatives."""
@@ -204,10 +334,17 @@ def compute_derivatives(problem: TrajOptProblem, xs: Tensor,
     Bsz, ndx, nu = xs.shape[0], space.ndx, problem.nu
     data = evaluate(problem, xs, us)
     x, y = xs[:, :N], xs[:, 1:]
-    Lx, Lu = stage.cost.gradients(space, x, us)
-    Lxx, Lxu, Luu = stage.cost.hessians(space, x, us)
-    A, Bm, E = stage.dynamics.jacobians(space, x, us, y)
-    cJx, cJu = stage.constraint_jacobians(x, us)
+
+    def derivs(st, x, u, y):
+        lead = x.shape[:-1]
+        cost = [_bcast(a, lead + s) for a, s in zip(
+            (*st.cost.gradients(space, x, u), *st.cost.hessians(space, x, u)),
+            ((ndx,), (nu,), (ndx, ndx), (ndx, nu), (nu, nu)))]
+        return (*cost, *st.dynamics.jacobians(space, x, u, y),
+                *st.constraint_jacobians(x, u))
+
+    Lx, Lu, Lxx, Lxu, Luu, A, Bm, E, cJx, cJu = _per_stage(
+        stage, derivs, x, us, y)
 
     xN = xs[:, N]
     u0 = xs.new_zeros(xN.shape[:-1] + (nu,))

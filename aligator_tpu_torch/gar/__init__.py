@@ -11,7 +11,7 @@ from .lqr_problem import (
     split_solution,
 )
 from .riccati import RiccatiFactors, backward, forward, solve, solve_and_gains
-from . import (associative, block_tridiag, fused_riccati, fused_stage,
+from . import (associative, block_tridiag, diff, fused_riccati, fused_stage,
                parallel, spd_solve)
 
 __all__ = [
@@ -30,6 +30,7 @@ __all__ = [
     "solve_and_gains",
     "associative",
     "block_tridiag",
+    "diff",
     "fused_riccati",
     "fused_stage",
     "parallel",

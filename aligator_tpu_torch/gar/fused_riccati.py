@@ -32,14 +32,14 @@ from .lqr_problem import LQRProblem, batch_param
 LAUNCHES = 0
 MAX_NX = MAX_NU = 8
 # (nx, nu, nc, explicit E) that sample the domain: the examples' shapes
-# (lqr.py with u_bound, linear_euler.py, cartpole), the SE(2) car with and
-# without control bounds, and the corners nx = nu = 8 with a state and
-# control box (nc = 2 (nx + nu)); the card tests and chip_smoke.py build
-# and check each
+# (lqr.py with u_bound, linear_euler.py, cartpole with RK2 and with the
+# implicit midpoint rule), the SE(2) car with and without control bounds,
+# and the corners nx = nu = 8 with a state and control box (nc = 2 (nx +
+# nu)); the card tests and chip_smoke.py build and check each
 DOMAIN_SAMPLES = (
     (1, 1, 0, True), (2, 1, 1, True), (2, 2, 0, True), (4, 1, 1, True),
-    (3, 2, 0, False), (3, 2, 2, False), (4, 2, 2, False), (5, 3, 0, True),
-    (8, 8, 16, False), (8, 8, 32, True),
+    (4, 1, 1, False), (3, 2, 0, False), (3, 2, 2, False), (4, 2, 2, False),
+    (5, 3, 0, True), (8, 8, 16, False), (8, 8, 32, True),
 )
 # the kernel's pointer order: knots, initial condition and mu, then the
 # solution and the gains

@@ -1,11 +1,14 @@
-"""Continuous dynamics (ODEs) and the explicit and semi-implicit Euler
-integrators.
+"""Continuous dynamics (ODEs) and their integrators.
 
-PyTorch counterpart of ``ODE``, ``IntegratorEuler`` and
-``IntegratorSemiImplEuler`` in ``aligator_tpu/modelling/dynamics/ode.py``.
-An ODE provides ``xdot(space, x, u) ∈ T_x M`` in tangent coordinates; an
-integrator is an :class:`~aligator_tpu_torch.core.dynamics.ExplicitDynamics`
-that advances along the manifold with ``space.integrate``.
+PyTorch counterpart of ``aligator_tpu/modelling/dynamics/ode.py``: the DAE
+surface ``ContinuousDynamics``, ``ODE`` and ``LinearODE``; the explicit
+Euler, semi-implicit Euler, RK2 and RK4 integrators, and the implicit
+midpoint rule. An ODE provides ``xdot(space, x, u) ∈ T_x M`` in tangent
+coordinates; an explicit integrator is an
+:class:`~aligator_tpu_torch.core.dynamics.ExplicitDynamics` that advances
+along the manifold with ``space.integrate``; the midpoint rule is an
+:class:`~aligator_tpu_torch.core.dynamics.ImplicitDynamics`, solved for the
+next state by Newton steps.
 """
 
 from __future__ import annotations
@@ -15,11 +18,20 @@ from dataclasses import dataclass
 import torch
 from torch import Tensor
 
-from ...core.dynamics import ExplicitDynamics
+from ..._linalg import mv
+from ...core.dynamics import ExplicitDynamics, ImplicitDynamics
 from ...core.manifolds import Manifold, TangentBundle
 
 
-class ODE:
+class ContinuousDynamics:
+    """Implicit continuous dynamics (DAE) ``r(x, u, ẋ) = 0``; an ODE is the
+    case ``r = ẋ − f(x, u)``."""
+
+    def residual(self, space: Manifold, x: Tensor, u: Tensor, xdot: Tensor):
+        raise NotImplementedError
+
+
+class ODE(ContinuousDynamics):
     """Continuous dynamics ẋ = f(x, u) in tangent coordinates."""
 
     def xdot(self, space: Manifold, x: Tensor, u: Tensor) -> Tensor:
@@ -27,6 +39,18 @@ class ODE:
 
     def residual(self, space, x, u, xdot):
         return xdot - self.xdot(space, x, u)
+
+
+@dataclass
+class LinearODE(ODE):
+    """ẋ = A x + B u + c on a vector space."""
+
+    A: Tensor
+    B: Tensor
+    c: Tensor
+
+    def xdot(self, space, x, u):
+        return mv(self.A, x) + mv(self.B, u) + self.c
 
 
 @dataclass
@@ -95,3 +119,48 @@ class IntegratorSemiImplEuler(ExplicitDynamics):
         E = torch.cat([torch.cat([Jd0, zero], -1),
                        torch.cat([zero, -eye.expand(Jd0.shape)], -1)], -2)
         return A, B, E
+
+
+@dataclass
+class IntegratorRK2(ExplicitDynamics):
+    """Explicit midpoint RK2: x₁ = x ⊕ (h/2·f(x, u)); x⁺ = x ⊕ (h·f(x₁, u))."""
+
+    ode: ODE
+    timestep: Tensor
+
+    def forward(self, space, x, u):
+        h = self.timestep
+        x1 = space.integrate(x, 0.5 * h * self.ode.xdot(space, x, u))
+        return space.integrate(x, h * self.ode.xdot(space, x1, u))
+
+
+@dataclass
+class IntegratorRK4(ExplicitDynamics):
+    """Classic RK4 on the manifold, the tangent increments composed with ⊕."""
+
+    ode: ODE
+    timestep: Tensor
+
+    def forward(self, space, x, u):
+        h = self.timestep
+        k1 = self.ode.xdot(space, x, u)
+        k2 = self.ode.xdot(space, space.integrate(x, 0.5 * h * k1), u)
+        k3 = self.ode.xdot(space, space.integrate(x, 0.5 * h * k2), u)
+        k4 = self.ode.xdot(space, space.integrate(x, h * k3), u)
+        return space.integrate(x, (h / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4))
+
+
+@dataclass
+class IntegratorMidpoint(ImplicitDynamics):
+    """Implicit midpoint rule: r(x, u, y) = (y ⊖ x) − h·f(mid(x, y), u) = 0,
+    solved for y by ``newton_iters`` Newton steps in ``forward``. Its
+    Jacobian ``E = ∂r/∂y`` is not −I, so its LQ subproblems take the
+    general-E branch of the Riccati solvers."""
+
+    ode: ODE
+    timestep: Tensor
+    newton_iters: int = 5
+
+    def residual(self, space, x, u, y):
+        mid = space.interpolate(x, y, 0.5)
+        return space.difference(x, y) - self.timestep * self.ode.xdot(space, mid, u)

@@ -1,8 +1,10 @@
 """solvers — batched ProxDDP and FDDP."""
 
-from . import fddp
+from . import fddp, sensitivity
 from .fddp import FDDPConfig, FDDPResults
 from .proxddp import ProxDDPConfig, ProxDDPResults, solve
+from .sensitivity import solve_with_sensitivities, theta_sensitivities
 
 __all__ = ["FDDPConfig", "FDDPResults", "ProxDDPConfig", "ProxDDPResults",
-           "fddp", "solve"]
+           "fddp", "sensitivity", "solve", "solve_with_sensitivities",
+           "theta_sensitivities"]

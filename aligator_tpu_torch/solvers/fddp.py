@@ -14,6 +14,12 @@ scenarios still searching. The backward pass solves each stage's
 (the SPD kernel K2 on the card, one launch per stage); the transition
 Jacobians ``-E^{-1}[A B]`` are a torch solve, as the JAX package computes
 them outside any kernel.
+
+History, verbose rows and callbacks take the form of ProxDDP's here
+(:mod:`.proxddp`): batch-first histories (``history (B, max_iters, 6)``:
+[prim, dual, cost, alpha, preg, d1]; ``history_xs``, ``history_us``), one
+verbose row per running scenario, and one callback a iteration with the
+batch's trace dict of ``(B,)`` tensors and its ``"running"`` mask.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from .._linalg import select as _where
 from ..core import problem as problem_mod
 from ..core.problem import TrajOptProblem
 from ..gar import spd_solve
+from ..utils import logger as logger_mod
+from .proxddp import record_row
 
 
 @dataclass(frozen=True)
@@ -51,7 +59,8 @@ class FDDPConfig:
     th_accept_neg_step: float = 2.0
     ls_alpha_min: float = 2.0**-9
     ls_beta: float = 0.5
-    # not ported yet (raise NotImplementedError)
+    # per-iteration traces [prim, dual, cost, alpha, preg, d1]; with
+    # record_history_trajs also the iterates
     record_history: bool = False
     record_history_trajs: bool = False
     verbose: bool = False
@@ -71,6 +80,9 @@ class FDDPResults:
     traj_cost: Tensor  # (B,)
     K: Tensor  # (B, N, nu, ndx) feedback gains of the last backward pass
     kff: Tensor  # (B, N, nu)
+    history: Optional[Tensor] = None  # (B, max_iters, 6)
+    history_xs: Optional[Tensor] = None  # (B, max_iters, N+1, nx)
+    history_us: Optional[Tensor] = None  # (B, max_iters, N, nu)
 
 
 @dataclass
@@ -86,18 +98,8 @@ class _State:
     dual: Tensor
     K: Tensor
     kff: Tensor
-
-
-def _check_supported(cfg: FDDPConfig):
-    for name, ported in (("record_history", False),
-                         ("record_history_trajs", False), ("verbose", False),
-                         ("callback", None)):
-        got = getattr(cfg, name)
-        if got != ported:
-            raise NotImplementedError(
-                f"FDDPConfig.{name}={got!r} is not ported yet; the port "
-                f"supports {name}={ported!r}"
-            )
+    alpha_last: Tensor  # step length of the last line search
+    d1_last: Tensor  # its first-order model term
 
 
 def _gaps(problem: TrajOptProblem, xs: Tensor, us: Tensor) -> Tensor:
@@ -236,16 +238,39 @@ def _step(problem, cfg: FDDPConfig, st: _State, data, fs, bw,
         st, xs=xs_t, us=us_t, cost=cost, preg=preg,
         conv=st.conv | (d1.abs() < cfg.th_grad),
         fail=st.fail | (inc & (preg >= cfg.reg_max)),
+        alpha_last=alpha, d1_last=d1,
     )
 
 
-def _iteration(problem, cfg: FDDPConfig, st: _State, run: Tensor) -> _State:
+def _trace(cfg: FDDPConfig, st: _State, run: Tensor, hist: dict, cost) -> None:
+    """History rows, verbose rows and the callback for the scenarios of
+    ``run`` (the iterate and its metrics at the start of the iteration)."""
+    if "history" in hist:
+        row = torch.stack([st.prim, st.dual, cost, st.alpha_last, st.preg,
+                           st.d1_last], -1)
+        record_row(hist["history"], st.iter, run, row)
+    if "history_xs" in hist:
+        record_row(hist["history_xs"], st.iter, run, st.xs)
+        record_row(hist["history_us"], st.iter, run, st.us)
+    if cfg.verbose or cfg.callback is not None:
+        trace = dict(iter=st.iter + 1, alpha=st.alpha_last, prim_err=st.prim,
+                     dual_err=st.dual, preg=st.preg, dphi0=st.d1_last, cost=cost,
+                     running=run)
+        if cfg.verbose:
+            logger_mod.log_rows(trace)
+        if cfg.callback is not None:
+            cfg.callback(trace)
+
+
+def _iteration(problem, cfg: FDDPConfig, st: _State, run: Tensor,
+               hist: dict) -> _State:
     """One FDDP iteration for the scenarios of ``run``."""
     data = problem_mod.compute_derivatives(problem, st.xs, st.us)
     fs = _gaps(problem, st.xs, st.us)
     bw = _backward(problem, data, fs, st.preg)
     prim, dual = infnorm(fs), infnorm(bw["Qu"])
     st = dataclasses.replace(st, prim=prim, dual=dual, K=bw["K"], kff=bw["kff"])
+    _trace(cfg, st, run, hist, data.cost)
     converged = torch.maximum(prim, dual) < cfg.tol
     step = run & ~converged
     if bool(step.any()):
@@ -258,7 +283,6 @@ def solve(problem: TrajOptProblem, cfg: FDDPConfig = FDDPConfig(),
           us_init: Optional[Tensor] = None) -> FDDPResults:
     """Run FDDP on every scenario of ``problem`` (one per row of
     ``problem.x0``), on the device the problem's tensors live on."""
-    _check_supported(cfg)
     if problem.nc > 0 or problem.nc_term > 0:
         warnings.warn(
             "FDDP cannot handle constraints; they will be IGNORED "
@@ -283,12 +307,19 @@ def solve(problem: TrajOptProblem, cfg: FDDPConfig = FDDPConfig(),
         preg=full(cfg.reg_init), iter=full(0, torch.int32), conv=false_b,
         fail=false_b, prim=full(torch.inf), dual=full(torch.inf),
         K=x0.new_zeros((Bsz, N, nu, ndx)), kff=x0.new_zeros((Bsz, N, nu)),
+        alpha_last=full(0.0), d1_last=full(0.0),
     )
+    hist = {}
+    if cfg.record_history:
+        hist["history"] = x0.new_zeros((Bsz, cfg.max_iters, 6))
+    if cfg.record_history_trajs:
+        hist["history_xs"] = x0.new_zeros((Bsz, cfg.max_iters) + xs_init.shape[1:])
+        hist["history_us"] = x0.new_zeros((Bsz, cfg.max_iters) + us_init.shape[1:])
     while True:
         run = (st.iter < cfg.max_iters) & ~st.conv & ~st.fail
         if not bool(run.any()):
             break
-        st = _where(run, _iteration(problem, cfg, st, run), st)
+        st = _where(run, _iteration(problem, cfg, st, run, hist), st)
 
     # final metrics
     data = problem_mod.compute_derivatives(problem, st.xs, st.us)
@@ -298,5 +329,5 @@ def solve(problem: TrajOptProblem, cfg: FDDPConfig = FDDPConfig(),
     return FDDPResults(
         xs=st.xs, us=st.us, conv=st.conv | (torch.maximum(prim, dual) < cfg.tol),
         num_iters=st.iter, prim_infeas=prim, dual_infeas=dual,
-        traj_cost=data.cost, K=bw["K"], kff=bw["kff"],
+        traj_cost=data.cost, K=bw["K"], kff=bw["kff"], **hist,
     )

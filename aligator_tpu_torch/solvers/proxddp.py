@@ -17,8 +17,10 @@ pool are therefore per scenario and equal what the JAX solver computes for
 that scenario alone. Each masked loop ends on ``mask.any()``, one host sync
 per iteration.
 
-What this port covers: linear rollout; the four LQ solvers of
-``linear_solver``: ``'serial'``
+What this port covers: the linear and the nonlinear rollout (a closed-loop
+rollout through the dynamics, stage by stage over the whole batch, with
+``forward_with_gap`` Newton steps for implicit dynamics); the four LQ
+solvers of ``linear_solver``: ``'serial'``
 (:func:`~aligator_tpu_torch.gar.riccati.solve_and_gains`, which routes by
 shape: small-dim problems to the fused solve K1, explicit dynamics with
 12 <= nx <= 44 to the fused backward sweep K3, the rest to the per-stage
@@ -28,22 +30,34 @@ loop with the SPD solve K2, and forward sweeps at nx >= 12 to K4),
 and ``'associative'`` (:mod:`~aligator_tpu_torch.gar.associative`, which
 falls back per scenario to ``'serial_scan'``'s solve below its μ floor); the
 three multiplier update modes, the three step-acceptance strategies, the
-BCL schedule and the regularization schedule, with Gauss-Newton Hessians.
-The other options of the JAX configuration raise ``NotImplementedError``;
-its ``lq_spd_lanes``, ``lq_stage_fused`` and ``lq_scan_unroll`` knobs have
-no counterpart, since the routing follows the shape alone.
+BCL schedule and the regularization schedule; Gauss-Newton or ``'exact'``
+Hessians (:func:`~aligator_tpu_torch.core.problem.dynamics_vhp`); a general
+``init_constraint``; history, verbose rows and callbacks. The JAX
+configuration's ``lq_spd_lanes``, ``lq_stage_fused`` and ``lq_scan_unroll``
+knobs have no counterpart, since the routing follows the shape alone.
+
+Where the port differs in form from the JAX package: the history fields of
+:class:`ProxDDPResults` are batch first (``history (B, max_iters, 8)``,
+``history_xs (B, max_iters, N+1, nx)``, ...); ``verbose`` prints one row per
+running scenario and iteration (the JAX package prints one per ``vmap``
+element through ``jax.debug.callback``), each led by the scenario's index;
+``callback`` is called once per iteration with the trace dict of the whole
+batch, each value a ``(B,)`` tensor, and ``"running"`` the mask of the
+scenarios that took this iteration.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Callable, Optional
 
 import torch
 from torch import Tensor
 
-from .._linalg import infnorm, mtv
+from .._linalg import infnorm, mtv, mv
 from .._linalg import select as _where
 from ..core import problem as problem_mod
 from ..core.manifolds import VectorSpace
@@ -52,6 +66,7 @@ from ..gar import associative as gar_associative
 from ..gar import lqr_problem as lqr_mod
 from ..gar import parallel as gar_parallel
 from ..gar import riccati
+from ..utils import logger as logger_mod
 
 LINEAR_SOLVERS = ("serial", "serial_scan", "parallel", "associative")
 # Newton steps taken on each LQ route, per scenario: each scenario whose
@@ -111,11 +126,14 @@ class ProxDDPConfig:
     filter_size: int = 40
     # multiplier update on BCL success: 'newton' | 'primal' | 'primal_dual'
     multiplier_update_mode: str = "newton"
-    # not ported yet (raise NotImplementedError): 'exact' Hessians,
-    # 'nonlinear' rollout, history and callbacks
+    # 'gauss_newton', or 'exact': adds the costate-contracted Hessians of
+    # the dynamics residuals to the LQ knots
     hessian_approx: str = "gauss_newton"
     dphi_thresh: float = 1e-13
+    # 'linear' or 'nonlinear' (closed-loop rollout through the dynamics)
     rollout: str = "linear"
+    # Newton steps of an implicit dynamics inside the nonlinear rollout
+    rollout_max_iters: int = 1
     # LQ subproblem solver: 'serial' (routed by shape, K1 where it applies),
     # 'serial_scan' (the routed backward/forward, never K1), 'parallel' (leg
     # condensation over parallel_legs legs; linear rollout only) or
@@ -128,9 +146,13 @@ class ProxDDPConfig:
     # float64, the domains measured in the JAX package
     associative_mu_floor: Optional[float] = None
     force_initial_condition: bool = True
+    # per-iteration traces [prim, dual, inner_crit, cost, merit, mu,
+    # al_iter, alpha]; with record_history_trajs also the iterates
     record_history: bool = False
     record_history_trajs: bool = False
+    # one logger row per running scenario and iteration
     verbose: bool = False
+    # called once per iteration with the batch's trace dict (module docstring)
     callback: Optional[Callable[[dict], None]] = None
     # initial BCL tolerances
     inner_tol0: float = 1.0
@@ -161,6 +183,17 @@ class ProxDDPResults:
     K: Tensor  # (B, N, nu, ndx) feedback gains of the last LQ solve
     kff: Tensor  # (B, N, nu)
     mu_final: Tensor  # (B,)
+    # per-iteration traces (record_history):
+    # [prim, dual, inner_crit, cost, merit, mu, al_iter, alpha]
+    history: Optional[Tensor] = None  # (B, max_iters, 8)
+    # the iterates at the start of each iteration (record_history_trajs)
+    history_xs: Optional[Tensor] = None  # (B, max_iters, N+1, nx)
+    history_us: Optional[Tensor] = None  # (B, max_iters, N, nu)
+    history_vs: Optional[Tensor] = None  # (B, max_iters, N, nc)
+    history_lams: Optional[Tensor] = None  # (B, max_iters, N+1, ndx)
+    # dV/dθ and d²V/dθ² of a parametric family (solvers.sensitivity)
+    th_grad: Optional[Tensor] = None  # (B, nth)
+    th_hess: Optional[Tensor] = None  # (B, nth, nth)
 
 
 @dataclass
@@ -194,28 +227,20 @@ class _State:
     filter_valid: Tensor  # (B, F)
     K: Tensor
     kff: Tensor
+    alpha_last: Tensor  # accepted step length of the last Newton step
+    dphi_last: Tensor  # merit directional derivative of the last step
 
 
 def _check_supported(cfg: ProxDDPConfig):
     if cfg.linear_solver not in LINEAR_SOLVERS:
         raise ValueError(f"unknown linear_solver {cfg.linear_solver!r}")
+    if cfg.rollout not in ("linear", "nonlinear"):
+        raise ValueError(f"unknown rollout {cfg.rollout!r}")
     if cfg.linear_solver == "parallel" and cfg.rollout != "linear":
         # as the reference requires (solver-proxddp.hxx:169-181)
         raise ValueError("parallel linear solver requires rollout='linear'")
-    unsupported = {
-        "rollout": (cfg.rollout, "linear"),
-        "hessian_approx": (cfg.hessian_approx, "gauss_newton"),
-        "record_history": (cfg.record_history, False),
-        "record_history_trajs": (cfg.record_history_trajs, False),
-        "verbose": (cfg.verbose, False),
-        "callback": (cfg.callback, None),
-    }
-    for name, (got, ported) in unsupported.items():
-        if got != ported:
-            raise NotImplementedError(
-                f"ProxDDPConfig.{name}={got!r} is not ported yet; the port "
-                f"supports {name}={ported!r}"
-            )
+    if cfg.hessian_approx not in ("gauss_newton", "exact"):
+        raise ValueError(f"unknown hessian_approx {cfg.hessian_approx!r}")
     if cfg.ls_strategy not in ("filter", "armijo", "nonmonotone"):
         raise ValueError(f"unknown ls_strategy {cfg.ls_strategy!r}")
     if cfg.ls_interp not in ("bisection", "quadratic", "cubic"):
@@ -325,9 +350,11 @@ def _criteria(st: _State, m, Lxs, Lus):
 
 
 def _assemble_lq(problem, cfg, data: ProblemData, m, Lxs, Lus, preg,
-                 mu) -> lqr_mod.LQRProblem:
+                 mu, vhp=None) -> lqr_mod.LQRProblem:
     """Fill the proximal LQ subproblems from stage data, with active-set
-    projected constraint Jacobians."""
+    projected constraint Jacobians; ``vhp``, the dynamics' Hessian terms of
+    'exact' mode (:func:`~..core.problem.dynamics_vhp`), adds to the
+    knots."""
     N = problem.nsteps
     ndx, nu = problem.space.ndx, problem.nu
     nc, nct = problem.nc, problem.nc_term
@@ -349,9 +376,15 @@ def _assemble_lq(problem, cfg, data: ProblemData, m, Lxs, Lus, preg,
 
     Q = data.Lxx + preg4 * eye_x
     q = Lxs + torch.cat([corr_x, corr_xt[:, None]], 1)
-    S = torch.cat([data.Lxu, data.Lxu.new_zeros((Bsz, 1, ndx, nu))], 1)
+    Lxu, Luu = data.Lxu, data.Luu
+    if vhp is not None:
+        Hxx, Hxu, Huu = vhp
+        Q = torch.cat([Q[:, :N] + Hxx, Q[:, N:]], 1)
+        Lxu = Lxu + Hxu
+        Luu = Luu + Huu
+    S = torch.cat([Lxu, Lxu.new_zeros((Bsz, 1, ndx, nu))], 1)
     R = torch.cat(
-        [data.Luu + preg4 * eye_u, eye_u.expand(Bsz, 1, nu, nu)], 1
+        [Luu + preg4 * eye_u, eye_u.expand(Bsz, 1, nu, nu)], 1
     )
     r = torch.cat([Lus + corr_u, Lus.new_zeros((Bsz, 1, nu))], 1)
     zx = data.A.new_zeros((Bsz, 1, ndx, ndx))
@@ -384,21 +417,137 @@ def _assemble_lq(problem, cfg, data: ProblemData, m, Lxs, Lus, preg,
 # ---------------------------------------------------------------------------
 
 
-def _forward_pass(problem, cfg, st: _State, steps, alpha: Tensor):
-    """Trial point of a linear step of length ``alpha (B,)``, its cost, merit
-    and primal infeasibility."""
-    dxs, dus, dvs, dvs_t, dlams = steps
-    a3 = alpha[:, None, None]
-    txs = problem.space.integrate(st.xs, a3 * dxs)
-    tus = st.us + a3 * dus
-    tvs = st.vs + a3 * dvs
-    tvt = st.vs_term + alpha[:, None] * dvs_t
-    tlams = st.lams + a3 * dlams
-    data = problem_mod.evaluate(problem, txs, tus)
+def _nonlinear_rollout(problem, cfg, st: _State, gains: dict, dx0: Tensor,
+                       dlam0: Tensor, alpha: Tensor):
+    """Trial point of a closed-loop rollout of step length ``alpha (B,)``
+    from the Newton step's ``dx0``, ``dlam0`` at the first stage: stage by
+    stage over the whole batch, the LQ gains applied to the state
+    deviation, the dynamics advanced (``forward`` then ``integrate`` by the
+    slack; ``forward_with_gap`` for implicit dynamics). Returns the trial
+    point and the slacks ``(B, N, ndx)``, whose negative is the dynamics
+    gap of the trial point."""
+    space, stage, N = problem.space, problem.stages, problem.nsteps
+    nc, nct = problem.nc, problem.nc_term
+    mudyn = (cfg.dyn_al_scale * st.mu)[:, None]
+    a1 = alpha[:, None]
+    dx = a1 * dx0
+    x = space.integrate(st.xs[:, 0], dx)
+    xs, us, vs, lams, slacks = [x], [], [], [st.lams[:, 0] + a1 * dlam0], []
+    for t in range(N):
+        g = {k: v[:, t] for k, v in gains.items()}
+        u = st.us[:, t] + a1 * g["kff"] + mv(g["K"], dx)
+        v = st.vs[:, t] + a1 * g["zff"][:, :nc] + mv(g["Z"][:, :nc], dx)
+        lam = st.lams[:, t + 1] + a1 * g["lff"] + mv(g["L"], dx)
+        slack = mudyn * (st.prev_lams[:, t + 1] - lam)
+        dyn = (stage.at(t) if stage.nstack else stage).dynamics
+        if dyn.is_explicit:
+            x = space.integrate(dyn.forward(space, x, u), slack)
+        else:
+            x = dyn.forward_with_gap(space, x, u, slack, iters=cfg.rollout_max_iters)
+        dx = space.difference(st.xs[:, t + 1], x)
+        for out, val in ((xs, x), (us, u), (vs, v), (lams, lam), (slacks, slack)):
+            out.append(val)
+    vt = (st.vs_term + a1 * gains["zff"][:, N, :nct]
+          + mv(gains["Z"][:, N, :nct], dx))
+    return (torch.stack(xs, 1), torch.stack(us, 1), torch.stack(vs, 1), vt,
+            torch.stack(lams, 1)), torch.stack(slacks, 1)
+
+
+def _trial_values(problem, cfg, st, data: ProblemData, trial):
+    """``(trial, cost, merit, primal infeasibility)`` of a trial point."""
+    _, _, tvs, tvt, tlams = trial
     m = _compute_multipliers(problem, cfg, data, st, tlams, tvs, tvt)
     phi = _merit_value(cfg, st.mu, data.cost, m)
     prim = torch.maximum(_stage_infeas(st, m), infnorm(m["dyn_slacks"]))
-    return (txs, tus, tvs, tvt, tlams), data.cost, phi, prim
+    return trial, data.cost, phi, prim
+
+
+def _nonlinear_trial(problem, cfg, st, gains: dict, dx0, dlam0, alpha):
+    trial, slacks = _nonlinear_rollout(problem, cfg, st, gains, dx0, dlam0, alpha)
+    # by construction the rollout's dynamics gap is -slack
+    data = dataclasses.replace(problem_mod.evaluate(problem, trial[0], trial[1]),
+                               dyn_res=-slacks)
+    return _trial_values(problem, cfg, st, data, trial)
+
+
+# what a nonlinear trial reads: the state's fields and the LQ gains
+_TRIAL_STATE = ("xs", "us", "vs", "vs_term", "lams", "prev_lams", "prev_vs",
+                "prev_vs_term", "mu")
+_TRIAL_GAINS = ("kff", "K", "zff", "Z", "lff", "L")
+
+
+class _TrialGraph:
+    """The nonlinear trial (rollout, evaluation, multipliers, merit) on CUDA
+    tensors, captured as one CUDA graph at the first trial of a solve and
+    replayed for every later trial, its inputs copied into the graph's
+    static tensors. A trial is some N·150 small PyTorch operations, each a
+    host launch, whose stages cannot be batched; the replay launches them
+    as one. A trial that cannot be captured (an operation that waits on the
+    host) runs eagerly, with a warning."""
+
+    def __init__(self):
+        self.graph = None
+        self.eager = False
+
+    def __call__(self, problem, cfg, st, gains: dict, dx0, dlam0, alpha):
+        if self.eager:
+            return _nonlinear_trial(problem, cfg, st, gains, dx0, dlam0, alpha)
+        ins = {k: getattr(st, k) for k in _TRIAL_STATE}
+        ins.update({f"gain_{k}": gains[k] for k in _TRIAL_GAINS},
+                   dx0=dx0, dlam0=dlam0, alpha=alpha)
+        if self.graph is None:
+            self.static = {k: v.clone() for k, v in ins.items()}
+            try:
+                self._capture(problem, cfg)
+            except RuntimeError as err:
+                warnings.warn(f"the nonlinear trial runs eagerly: its capture "
+                              f"as a CUDA graph failed ({err})")
+                self.eager = True
+                return _nonlinear_trial(problem, cfg, st, gains, dx0, dlam0, alpha)
+        for k, v in ins.items():
+            self.static[k].copy_(v)
+        self.graph.replay()
+        trial, *values = self.out
+        return tuple(t.clone() for t in trial), *(v.clone() for v in values)
+
+    def _run(self, problem, cfg):
+        s = self.static
+        st = SimpleNamespace(**{k: s[k] for k in _TRIAL_STATE})
+        gains = {k: s[f"gain_{k}"] for k in _TRIAL_GAINS}
+        return _nonlinear_trial(problem, cfg, st, gains, s["dx0"], s["dlam0"],
+                                s["alpha"])
+
+    def _capture(self, problem, cfg):
+        # a warm-up on a side stream first, as torch.cuda.graph asks: the
+        # lazy initializations (cuBLAS handles) stay out of the capture
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self._run(problem, cfg)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.out = self._run(problem, cfg)
+        self.graph = graph
+
+
+def _forward_pass(problem, cfg, st: _State, gains: dict, steps, alpha: Tensor,
+                  graph: Optional[_TrialGraph] = None):
+    """Trial point of a step of length ``alpha (B,)`` (a linear step, or the
+    nonlinear rollout along ``gains``, through ``graph`` where given), its
+    cost, merit and primal infeasibility."""
+    if cfg.rollout == "nonlinear":
+        args = (st, gains, steps[0][:, 0], steps[4][:, 0], alpha)
+        if graph is not None:
+            return graph(problem, cfg, *args)
+        return _nonlinear_trial(problem, cfg, *args)
+    dxs, dus, dvs, dvs_t, dlams = steps
+    a3 = alpha[:, None, None]
+    trial = (problem.space.integrate(st.xs, a3 * dxs), st.us + a3 * dus,
+             st.vs + a3 * dvs, st.vs_term + alpha[:, None] * dvs_t,
+             st.lams + a3 * dlams)
+    return _trial_values(problem, cfg, st, problem_mod.evaluate(problem, *trial[:2]),
+                         trial)
 
 
 # ---------------------------------------------------------------------------
@@ -559,9 +708,12 @@ def _backtracking_search(cfg, st: _State, try_alpha, first, step_mask, phi0,
     return st, alpha, trial, cost, phi
 
 
+GAINS = riccati.GAIN_FIELDS
+
+
 def _serial_scan(lq, mudyn, mu, assume_explicit):
     f = riccati.backward(lq, mudyn, mu, assume_explicit)
-    return (*riccati.forward(f), f.K, f.kff)
+    return (*riccati.forward(f), *(getattr(f, k) for k in GAINS))
 
 
 def _associative(cfg, lq, mudyn, mu, assume_explicit, step_mask):
@@ -579,7 +731,7 @@ def _associative(cfg, lq, mudyn, mu, assume_explicit, step_mask):
     def assoc(p, md, m):
         *sol, f = gar_associative.solve(p, md, m, return_gains=True,
                                         refine_steps=1)
-        return (*sol, f.K, f.kff)
+        return (*sol, *(getattr(f, k) for k in GAINS))
 
     if bool(ok.all()):
         return assoc(lq, mudyn, mu)
@@ -599,23 +751,26 @@ def _associative(cfg, lq, mudyn, mu, assume_explicit, step_mask):
 
 def _lq_solve(cfg, lq, mudyn, mu, assume_explicit: bool, step_mask):
     """The Newton step's LQ solve on the route of ``cfg.linear_solver``.
-    Returns ``(xs, us, vs, lams, K, kff)``."""
+    Returns ``(xs, us, vs, lams, gains)``, ``gains`` a dict of the per-stage
+    ``kff K zff Z lff L yff Afb`` (``'parallel'``: ``kff K`` only; it takes
+    no nonlinear rollout)."""
     route = cfg.linear_solver
     if route == "associative":
-        return _associative(cfg, lq, mudyn, mu, assume_explicit, step_mask)
+        sol = _associative(cfg, lq, mudyn, mu, assume_explicit, step_mask)
+        return (*sol[:4], dict(zip(GAINS, sol[4:])))
     _count_steps(route, step_mask)
     if route == "parallel":
         *sol, gains = gar_parallel.solve(lq, mudyn, mu, cfg.parallel_legs,
                                          assume_explicit, return_gains=True)
-        return (*sol, gains.K, gains.kff)
+        return (*sol, dict(K=gains.K, kff=gains.kff))
     if route == "serial_scan":
-        return _serial_scan(lq, mudyn, mu, assume_explicit)
-    *sol, gains = riccati.solve_and_gains(lq, mudyn, mu, assume_explicit)
-    return (*sol, gains["K"], gains["kff"])
+        sol = _serial_scan(lq, mudyn, mu, assume_explicit)
+        return (*sol[:4], dict(zip(GAINS, sol[4:])))
+    return riccati.solve_and_gains(lq, mudyn, mu, assume_explicit)
 
 
 def _newton_step(problem, cfg, st: _State, data: ProblemData, step_mask,
-                 assume_explicit: bool) -> _State:
+                 assume_explicit: bool, graph=None) -> _State:
     """One Newton iteration for the batch; the caller keeps it only for the
     scenarios of ``step_mask``, and the line search loops only over those."""
     N, nc, nct = problem.nsteps, problem.nc, problem.nc_term
@@ -626,13 +781,16 @@ def _newton_step(problem, cfg, st: _State, data: ProblemData, step_mask,
         torch.clamp(st.preg_last * cfg.reg_dec_k, min=cfg.reg_min),
     )
     st = dataclasses.replace(st, preg=preg0)
+    vhp = None
+    if cfg.hessian_approx == "exact":
+        vhp = problem_mod.dynamics_vhp(problem, st.xs, st.us, st.lams[:, 1:])
     m = _compute_multipliers(problem, cfg, data, st, st.lams, st.vs, st.vs_term)
     phi0 = _merit_value(cfg, st.mu, data.cost, m)
     Lxs, Lus = _lagrangian_grads(problem, cfg, data, st.lams, st.vs, st.vs_term)
 
     mudyn = cfg.dyn_al_scale * st.mu
-    lq = _assemble_lq(problem, cfg, data, m, Lxs, Lus, st.preg, st.mu)
-    dxs, dus_p, dvs_p, dlams, gain_K, gain_kff = _lq_solve(
+    lq = _assemble_lq(problem, cfg, data, m, Lxs, Lus, st.preg, st.mu, vhp)
+    dxs, dus_p, dvs_p, dlams, gains = _lq_solve(
         cfg, lq, mudyn, st.mu, assume_explicit, step_mask
     )
     dus = dus_p[:, :N]
@@ -650,7 +808,7 @@ def _newton_step(problem, cfg, st: _State, data: ProblemData, step_mask,
     dphi0 = (Lxs_p * dxs).flatten(1).sum(1) + (Lus_p * dus).flatten(1).sum(1)
 
     def try_alpha(alpha):
-        return _forward_pass(problem, cfg, st, steps, alpha)
+        return _forward_pass(problem, cfg, st, gains, steps, alpha, graph)
 
     if cfg.ls_strategy == "nonmonotone":
         # Zhang-Hager moving-average reference value
@@ -691,7 +849,7 @@ def _newton_step(problem, cfg, st: _State, data: ProblemData, step_mask,
         st, xs=xs, us=us, vs=vs, vs_term=vs_term, lams=lams,
         cost=torch.where(trial_ok, cost, st.cost),
         merit=torch.where(trial_ok, phi, st.merit),
-        K=gain_K, kff=gain_kff,
+        K=gains["K"], kff=gains["kff"], alpha_last=alpha, dphi_last=dphi0,
         preg=new_preg, preg_last=new_preg, fail=st.fail | fail,
         newton_steps=st.newton_steps + 1,
     )
@@ -702,8 +860,58 @@ def _running(cfg, st: _State) -> Tensor:
             & (st.al_iter < cfg.max_al_iters))
 
 
-def _iteration(problem, cfg, st: _State, run: Tensor,
-               assume_explicit: bool) -> _State:
+HISTORY_COLUMNS = ("prim", "dual", "inner_crit", "cost", "merit", "mu",
+                   "al_iter", "alpha")
+
+
+def record_row(buf: Tensor, it: Tensor, run: Tensor, value: Tensor) -> None:
+    """Write ``value[b]`` at ``buf[b, it[b]]`` for the scenarios of ``run``,
+    in place and without a host sync (the other scenarios' rows are
+    rewritten with what they held)."""
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    idx = it.clamp(max=buf.shape[1] - 1).long()
+    keep = buf[rows, idx]
+    m = run.reshape(run.shape + (1,) * (value.ndim - 1))
+    buf[rows, idx] = torch.where(m, value.to(buf.dtype), keep)
+
+
+def _history_buffers(cfg, st: _State, dtype) -> dict:
+    """The zeroed history tensors the configuration asks for."""
+    B, n = st.xs.shape[0], cfg.max_iters
+    out = {}
+    if cfg.record_history:
+        out["history"] = st.xs.new_zeros((B, n, len(HISTORY_COLUMNS)), dtype=dtype)
+    if cfg.record_history_trajs:
+        for k in ("xs", "us", "vs", "lams"):
+            t = getattr(st, k)
+            out[f"history_{k}"] = t.new_zeros((B, n) + t.shape[1:])
+    return out
+
+
+def _trace(cfg, st: _State, run, hist: dict, prim, dual, crit, cost) -> None:
+    """Record the iteration's history rows, print its verbose rows and call
+    the callback, for the scenarios of ``run``; ``st`` is the state before
+    the BCL update."""
+    if "history" in hist:
+        row = torch.stack([prim, dual, crit, cost, st.merit, st.mu,
+                           st.al_iter.to(st.mu.dtype), st.alpha_last], -1)
+        record_row(hist["history"], st.iter, run, row)
+    if cfg.record_history_trajs:
+        for k in ("xs", "us", "vs", "lams"):
+            record_row(hist[f"history_{k}"], st.iter, run, getattr(st, k))
+    if cfg.verbose or cfg.callback is not None:
+        trace = dict(iter=st.iter + 1, al_iter=st.al_iter + 1,
+                     alpha=st.alpha_last, prim_err=prim, dual_err=dual,
+                     inner_crit=crit, preg=st.preg, dphi0=st.dphi_last,
+                     cost=cost, merit=st.merit, mu=st.mu, running=run)
+        if cfg.verbose:
+            logger_mod.log_rows(trace)
+        if cfg.callback is not None:
+            cfg.callback(trace)
+
+
+def _iteration(problem, cfg, st: _State, run: Tensor, assume_explicit: bool,
+               hist: dict, graph=None) -> _State:
     """One outer iteration for the scenarios of ``run``."""
     data = problem_mod.compute_derivatives(problem, st.xs, st.us)
     m = _compute_multipliers(problem, cfg, data, st, st.lams, st.vs, st.vs_term)
@@ -711,6 +919,7 @@ def _iteration(problem, cfg, st: _State, run: Tensor,
     prim, dual, crit = _criteria(st, m, Lxs, Lus)
     st = dataclasses.replace(st, prim_infeas=prim, dual_infeas=dual,
                              inner_crit=crit, cost=data.cost)
+    _trace(cfg, st, run, hist, prim, dual, crit, data.cost)
     overall = (dual <= cfg.target_dual_tol) & (prim <= cfg.tol)
     inner_done = (crit <= st.inner_tol) | overall
     st = _bcl_update(cfg, st, m, inner_done & run)
@@ -720,7 +929,7 @@ def _iteration(problem, cfg, st: _State, run: Tensor,
     step = run & ~(st.conv | st.fail)
     if bool(step.any()):
         st = _where(step, _newton_step(problem, cfg, st, data, step,
-                                       assume_explicit), st)
+                                       assume_explicit, graph), st)
     return dataclasses.replace(st, iter=st.iter + 1)
 
 
@@ -731,6 +940,9 @@ def solve(problem: TrajOptProblem, cfg: ProxDDPConfig = ProxDDPConfig(),
     """Run ProxDDP on every scenario of ``problem`` (one per row of
     ``problem.x0``), on the device the problem's tensors live on."""
     _check_supported(cfg)
+    if problem.init_constraint is not None and cfg.force_initial_condition:
+        raise ValueError("a general init_constraint requires "
+                         "ProxDDPConfig(force_initial_condition=False)")
     space = problem.space
     N, B = problem.nsteps, problem.batch
     ndx, nu, nc, nct = space.ndx, problem.nu, problem.nc, problem.nc_term
@@ -779,13 +991,19 @@ def solve(problem: TrajOptProblem, cfg: ProxDDPConfig = ProxDDPConfig(),
         filter_valid=torch.zeros((B, cfg.filter_size), dtype=torch.bool,
                                  device=device),
         K=full((B, N + 1, nu, ndx), 0.0), kff=full((B, N + 1, nu), 0.0),
+        alpha_last=full((B,), 0.0), dphi_last=full((B,), 0.0),
     )
+    hist = _history_buffers(cfg, st, dtype)
+    graph = None
+    if cfg.rollout == "nonlinear" and x0.is_cuda and problem.stages.dynamics.is_explicit:
+        graph = _TrialGraph()
 
     while True:
         run = _running(cfg, st)
         if not bool(run.any()):
             break
-        st = _where(run, _iteration(problem, cfg, st, run, assume_explicit), st)
+        st = _where(run, _iteration(problem, cfg, st, run, assume_explicit,
+                                    hist, graph), st)
 
     # final criterion refresh
     data = problem_mod.compute_derivatives(problem, st.xs, st.us)
@@ -799,5 +1017,5 @@ def solve(problem: TrajOptProblem, cfg: ProxDDPConfig = ProxDDPConfig(),
         conv=conv, num_iters=st.iter, al_iter=st.al_iter,
         newton_steps=st.newton_steps, prim_infeas=prim, dual_infeas=dual,
         traj_cost=data.cost, merit_value=st.merit, K=st.K[:, :N],
-        kff=st.kff[:, :N], mu_final=st.mu,
+        kff=st.kff[:, :N], mu_final=st.mu, **hist,
     )

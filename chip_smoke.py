@@ -56,11 +56,38 @@ any failed check raises and the script exits non-zero:
    route counted, against ``'serial_scan'`` on the card and 16 scenarios on
    the CPU, and the same problem in fp32 below the mu floor, where every
    step takes the serial solve;
-8. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
+8. the cartpole (``examples/cartpole.py``: N = 100, |u| <= 25, float64,
+   ``rollout='nonlinear'``, the published options) at batch 1024, with the
+   plain versions patched to raise and K1's launches checked against the
+   Newton steps: solves/s, the converged fraction, the iterations, a
+   device-time breakdown of a solve cut to 2 iterations, and the first 16
+   scenarios again on the CPU for 4 iterations (the solve's path is
+   chaotic: rounding differences part card and CPU after ~6); then at
+   batch 64 with the implicit midpoint rule (K1 with general E; cut to 4
+   iterations) and with ``hessian_approx='exact'`` (cut to 20), each with
+   its CPU check; then the float32 run at batch 1024, whose converged
+   fraction gates nothing;
+9. inverse LQR (``examples/inverse_lqr.py``): 16 demonstrations and 300
+   Adam steps through ``gar.diff.solve`` on the card and again on the CPU
+   (the final loss and the first step's gradient compared), K2's launches
+   checked against the forward and adjoint solves' per-stage loops, ms a
+   step at 16 and 4096 demonstrations and a breakdown of one step;
+10. the θ sensitivities of the double-integrator family
+   (``examples/theta_family.py``, N = 20, float64) without and with the
+   active box |u| <= 0.12, at 4096 random θ: ``th_grad`` and ``th_hess``
+   against the CPU's on the first 512, 4 scenarios against central finite
+   differences of converged values, K2's launches in the θ backward, ms a
+   harvest and a breakdown of one;
+11. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
 
 Without a CUDA device it exits non-zero before printing any result.
+``--only PHASE[,PHASE...]`` runs the device and build phases and the named
+ones (``K1 K2 K3 K4 K5 se2 medium talos parallel-in-time cartpole
+inverse-lqr sensitivity``) and stops without the kernels and ok lines: a
+partial run, for development.
 """
 
+import argparse
 import contextlib
 import dataclasses
 import json
@@ -75,6 +102,7 @@ import torch
 
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 H100_FP32_FLOP_PER_S = 67e12  # fp32 outside the tensor cores
+H100_FP64_FLOP_PER_S = 34e12  # fp64 outside the tensor cores (data sheet)
 
 BATCH = 32768
 NSTEPS = 50
@@ -135,6 +163,44 @@ LAT_DIST_TOL = 1e-4
 PAR_LEGS = 4
 ASSOC_BATCH, ASSOC_NSTEPS, ASSOC_U_BOUND = 4096, 100, 0.2
 ASSOC_TOL = 1e-6  # card 'associative' vs card 'serial_scan' and vs the CPU, fp64
+
+# cartpole with the nonlinear rollout (examples/cartpole.py, float64)
+CART_BATCH = 1024
+CART_VARIANT_BATCH = 64  # the implicit midpoint rule and 'exact' Hessians
+# their depth: the midpoint rule with one Newton step a stage in the rollout
+# backtracks far (its line search runs the rollout up to 20 times an
+# iteration), 'exact' less
+CART_MIDPOINT_ITERS = 4
+CART_EXACT_ITERS = 20
+# the depth of the profiled solve (fp64, batch 1024): the profiler's
+# processing of a solve's ~64,000 kernels an iteration takes ~10 s an
+# iteration (PR 8, call 3)
+CART_PROFILE_ITERS = 2
+CART_CPU_SCENARIOS = 16
+# card vs CPU, both float64, over the CPU run's first CART_CPU_ITERS
+# iterations: the history rows and the iterate reached, max |Δ| relative to
+# max(1, max |ref|). The swing-up is chaotic in the solver's path: two CPU
+# solves whose initial states differ by 1e-15 relative part by 1.6e-5 at
+# iteration 6 and by 29% in their trajectories at iteration 30
+# (tools/torch_cartpole_divergence.py), as the card's and the CPU's did
+# (PR 8, calls 1 and 2: 27% in the history at 30 iterations, 2.0 in the
+# trajectories at 300), so only the first iterations can agree
+CART_CPU_ITERS = 4
+CART_CPU_TOL = 1e-6
+# inverse LQR (examples/inverse_lqr.py)
+INV_DEMOS = (16, 4096)
+INV_STEPS = 300
+INV_TIMED_STEPS = 10
+INV_LOSS_TOL = 1e-6  # final loss, card vs CPU, relative
+INV_GRAD_TOL = 1e-8  # first step's gradient, card vs CPU, relative
+# θ sensitivities (examples/theta_family.py)
+SENS_BATCH = 4096
+# the first scenarios solved and harvested again on the CPU: all 4096 of
+# the box case take 195 s there (PR 8, call 3), 14% of them running to the
+# 300-iteration budget
+SENS_CPU_SCENARIOS = 512
+SENS_TOL = 1e-8  # th_grad, th_hess card vs CPU, relative to max(1, scale)
+SENS_FD_SCENARIOS = 4
 
 
 def check(cond, msg):
@@ -240,20 +306,21 @@ def k1_bound(B, T, nx, nu, nc, explicit, itemsize):
              + (0 if explicit else nx * nx))
     gains = nu + nu * nx + nc + nc * nx + 2 * nx + 2 * nx * nx
     nbytes = B * itemsize * (T * (knots + gains + 2 * nx + nu + nc) + nx * nx + nx + 2)
-    return bound(nbytes, B * T * k1_flops_per_stage(nx, nu, nc, explicit))
+    return bound(nbytes, B * T * k1_flops_per_stage(nx, nu, nc, explicit),
+                 fp64=itemsize == 8)
 
 
-def k1_timing(shape, T, B):
-    """K1 at one shape, fp32: the kernel alone (profiler), the whole step
-    from the LQ problem to the returned tensors (CUDA events over
-    back-to-back calls), the kernels that step launches, the plain version
-    and the bound."""
+def k1_timing(shape, T, B, dtype=torch.float32):
+    """K1 at one shape: the kernel alone (profiler), the whole step from the
+    LQ problem to the returned tensors (CUDA events over back-to-back
+    calls), the kernels that step launches, the plain version and the
+    bound."""
     from torch.profiler import ProfilerActivity, profile
 
     from aligator_tpu_torch.gar import fused_riccati as fr
 
     nx, nu, nc, expl = shape
-    prob, mud, mue = k1_problem(B, T, nx, nu, nc, expl, torch.float32, SEED + 30)
+    prob, mud, mue = k1_problem(B, T, nx, nu, nc, expl, dtype, SEED + 30)
 
     def step():
         return fr.launch(prob, mud, mue, expl)
@@ -266,8 +333,8 @@ def k1_timing(shape, T, B):
     launched = {ev.key[:60]: ev.count for ev in prof.key_averages()
                 if ev.device_type == torch.autograd.DeviceType.CUDA}
     plain_ms = cuda_time_ms(lambda: fr.solve_plain(prob, mud, mue, expl), 3)
-    bnd, by = k1_bound(B, T, nx, nu, nc, expl, 4)
-    print(f"[kernel] fused_riccati fp32 {shape} B={B} T={T}: kernel {k_ms:.4f} ms, "
+    bnd, by = k1_bound(B, T, nx, nu, nc, expl, prob.knots.Q.element_size())
+    print(f"[kernel] fused_riccati {str(dtype)[6:]} {shape} B={B} T={T}: kernel {k_ms:.4f} ms, "
           f"whole step {whole_ms:.4f} ms ({sum(launched.values())} device "
           f"operations: {launched}), plain {plain_ms:.3f} ms; bound {bnd:.4f} ms "
           f"({by}), kernel/bound {k_ms / bnd:.2f}")
@@ -323,8 +390,14 @@ def kernel_phase():
     check(worst <= FP32_TOL, f"fp32 kernel vs plain: {worst:.3e} > {FP32_TOL}")
 
     # times at the main shape and at cartpole's over a longer horizon
+    # and at the nonlinear-rollout phase's shapes, float64: the cartpole with
+    # RK2 (E = -I) and with the implicit midpoint rule (general E)
     times = {"se2car": k1_timing(main, T, B),
-             "cartpole": k1_timing((4, 1, 1, True), 2 * NSTEPS + 1, B)}
+             "cartpole": k1_timing((4, 1, 1, True), 2 * NSTEPS + 1, B),
+             "cartpole_rk2_fp64": k1_timing((4, 1, 1, True), 101, CART_BATCH,
+                                            torch.float64),
+             "cartpole_midpoint_fp64": k1_timing((4, 1, 1, False), 101,
+                                                 CART_VARIANT_BATCH, torch.float64)}
     t = times["se2car"]
     return dict(
         name="fused_riccati", route="cuda",
@@ -397,9 +470,9 @@ def kernel_ms(fn, reps, kernel_name):
     return total_us / count / 1e3
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, fp64=False):
     bytes_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / H100_FP32_FLOP_PER_S * 1e3
+    ops_ms = flops / (H100_FP64_FLOP_PER_S if fp64 else H100_FP32_FLOP_PER_S) * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
@@ -513,6 +586,13 @@ def k2_phase():
     shapes += [("assoc leaves", M_lat, lu, 2 * lx + 1, f32),
                ("assoc gains", M_lat, lx, lx + 1, f32),
                ("assoc gains", M_lat, lu, lx + 1, f32)]
+    # gar.diff.solve's per-stage loop at the inverse-LQR shape (Schur n =
+    # nx = 4, reduced KKT n = nu = 2, each against nx + 1 = 5 columns) at 16
+    # and 4096 demonstrations; the θ backward of the sensitivities (n = 2
+    # and 1 against nx + 1 + nth = 5 columns) at 4096 scenarios, whose n = 2
+    # solve has the inverse LQR's shape at 4096
+    shapes += [("inverse LQR", M, n, 5, f64) for M in INV_DEMOS for n in (4, 2)]
+    shapes += [("θ harvest", SENS_BATCH, 1, 5, f64)]
     by_shape = {}
     for i, (what, M, n, r, dtype) in enumerate(shapes):
         A, R = spd_batch(M, n, r, dtype, SEED + 10 + i)
@@ -532,7 +612,7 @@ def k2_phase():
         # A's lower triangle, R, X
         nbytes = A.element_size() * M * (n * (n + 1) // 2 + 2 * n * r)
         flops = M * (n ** 3 / 3 + 2 * n * n * r)
-        bms, by = bound(nbytes, flops)
+        bms, by = bound(nbytes, flops, fp64=dtype == f64)
         print(f"[kernel] spd_solve {str(dtype)[6:]} {what} M={M} n={n} r={r}: vs plain "
               f"{err:.2e} (tol {tol:g}), vs fp64 plain: kernel "
               f"{rel_err(X.double(), ref64):.2e}, plain {rel_err(ref.double(), ref64):.2e}; "
@@ -1563,10 +1643,316 @@ def parallel_in_time_phases(serial_sps, card):
                                      associative=assoc)
 
 
+# ---------------------------------------------------------------- phase 8
+
+
+def cart_x0s(batch):
+    """Initial states 0 + 0.1·N(0, 1) around the hanging cartpole."""
+    return 0.1 * np.random.default_rng(SEED + 8).standard_normal((batch, 4))
+
+
+def rel_traj_err(a, b):
+    """max |Δ| over xs and us relative to max(1, max |xs|, max |us|) of b."""
+    scale = max(1.0, b.xs.abs().max().item(), b.us.abs().max().item())
+    return max((a.xs - b.xs).abs().max().item(), (a.us - b.us).abs().max().item()) / scale
+
+
+def cartpole_run(label, batch, integrator="rk2", dtype=torch.float64,
+                 cpu_n=CART_CPU_SCENARIOS, profile=False, **opts):
+    """One cartpole ProxDDP solve on the card with the plain versions
+    patched to raise (K1 once a Newton step, nothing else) and its history
+    recorded, with ``profile`` a profiled solve cut to CART_PROFILE_ITERS
+    iterations, and the first ``cpu_n`` scenarios again on the CPU for at
+    most CART_CPU_ITERS iterations, held against the card's history and
+    iterates."""
+    import aligator_tpu_torch as at
+    from aligator_tpu_torch.examples.cartpole import (SOLVE_OPTIONS,
+                                                      create_cartpole_problem)
+
+    cfg = at.solvers.ProxDDPConfig(**{**SOLVE_OPTIONS, **opts}, record_history=True,
+                                   record_history_trajs=bool(cpu_n))
+    x0s = cart_x0s(batch)
+
+    def make(dev, n=batch):
+        prob = create_cartpole_problem(dtype=dtype, device=dev, integrator=integrator)
+        return dataclasses.replace(prob, x0=torch.tensor(x0s[:n], dtype=dtype,
+                                                         device=dev))
+
+    problem = make("cuda")
+    with plain_versions_raise():
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = at.solvers.solve(problem, cfg)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = launch_counts()
+    steps = int(res.newton_steps.max())
+    want = {"fused_riccati": steps, "spd_solve": 0, "fused_stage_sweep": 0,
+            "fused_stage_forward": 0, "fd_rows": 0}
+    finite = (torch.isfinite(res.us).flatten(1).all(1)
+              & torch.isfinite(res.xs).flatten(1).all(1))
+    frac = (finite & res.conv).float().mean().item()
+    it = res.num_iters.float()
+    iters = dict(min=int(it.min()), median=float(it.median()), max=int(it.max()),
+                 mean=float(it.mean()))
+    print(f"[{label}] batch {batch} {str(dtype)[6:]}: one solve {secs:.2f} s -> "
+          f"{batch / secs:.1f} solves/s; frac_converged {frac:.6f}; iterations "
+          f"{iters}; Newton steps {steps}; launches {launches}")
+    check(launches == want, f"{label}: launches {launches} != {want}")
+    check(bool(finite.all()), f"{label}: non-finite solutions")
+    out = dict(batch=batch, solve_s=secs, solves_per_sec=batch / secs,
+               frac_converged=frac, iters=iters, newton_steps=steps,
+               max_iters=cfg.max_iters)
+    if profile:
+        out["breakdown"] = profile_solve(
+            lambda: at.solvers.solve(problem, dataclasses.replace(
+                cfg, max_iters=CART_PROFILE_ITERS, record_history=False,
+                record_history_trajs=False)),
+            f"{label} profile ({CART_PROFILE_ITERS} iterations)")
+    if cpu_n:
+        k = min(cfg.max_iters, CART_CPU_ITERS)
+        t0 = time.perf_counter()
+        rc = at.solvers.solve(make("cpu", cpu_n), dataclasses.replace(cfg, max_iters=k))
+        cpu_s = time.perf_counter() - t0
+
+        def rel(a, b):
+            """max |a - b| over the last axis' columns, each relative to
+            max(1, max |b|) of its column; equal entries (inf merits before
+            the first step) count as 0, a finite against a non-finite as
+            inf."""
+            d = torch.where(a == b, 0.0, (a - b).abs()).flatten(0, -2)
+            scale = torch.where(torch.isfinite(b), b.abs(), 0.0).flatten(0, -2)
+            return (d.amax(0) / scale.amax(0).clamp(min=1.0)).max().item()
+
+        # the CPU's iterate is the card's at the start of its iteration k,
+        # or the card's result where the card stopped by then
+        ran = res.num_iters[:cpu_n].cpu()
+        done = ran <= k
+        hk = min(k, cfg.max_iters - 1)
+        card_xs = torch.where(done[:, None, None], res.xs[:cpu_n].cpu(),
+                              res.history_xs[:cpu_n, hk].cpu())
+        card_us = torch.where(done[:, None, None], res.us[:cpu_n].cpu(),
+                              res.history_us[:cpu_n, hk].cpu())
+        err_hist = rel(res.history[:cpu_n, :k].cpu(), rc.history)
+        err_traj = max(rel(card_xs, rc.xs), rel(card_us, rc.us))
+        same = bool((rc.num_iters == torch.clamp(ran, max=k)).all()
+                    and (rc.conv == (res.conv[:cpu_n].cpu() & done)).all())
+        print(f"[{label}] cpu check ({cpu_n} scenarios, {k} iterations, {cpu_s:.1f} s): "
+              f"num_iters and conv equal {same}; history rows rel err {err_hist:.3e}, "
+              f"iterate rel err {err_traj:.3e} (tol {CART_CPU_TOL:g})")
+        check(same, f"{label}: card and CPU iteration counts differ")
+        check(max(err_hist, err_traj) <= CART_CPU_TOL,
+              f"{label}: card and CPU solves differ")
+        out.update(cpu_iters=k, cpu_hist_rel_err=err_hist, cpu_traj_rel_err=err_traj,
+                   cpu_s=cpu_s)
+    return launches, out
+
+
+def cartpole_phases():
+    counts, out = {}, {}
+    runs = {
+        "cartpole": dict(batch=CART_BATCH, profile=True),
+        "cartpole_midpoint": dict(batch=CART_VARIANT_BATCH, integrator="midpoint",
+                                  max_iters=CART_MIDPOINT_ITERS),
+        "cartpole_exact": dict(batch=CART_VARIANT_BATCH, hessian_approx="exact",
+                               max_iters=CART_EXACT_ITERS),
+        "cartpole_fp32": dict(batch=CART_BATCH, dtype=torch.float32, cpu_n=0),
+    }
+    for label, kw in runs.items():
+        counts[label], out[label] = cartpole_run(label, **kw)
+    print(f"[cartpole] fp64 frac_converged {out['cartpole']['frac_converged']:.6f}, "
+          f"fp32 {out['cartpole_fp32']['frac_converged']:.6f} (gates nothing)")
+    return counts, out
+
+
+# ---------------------------------------------------------------- phase 9
+
+
+def inverse_lqr_phase(card):
+    """Inverse LQR through gar.diff.solve: the published fit on the card and
+    on the CPU, and ms a step at 16 and 4096 demonstrations."""
+    from aligator_tpu_torch.examples import inverse_lqr as il
+
+    N = 40
+    x0s = np.random.default_rng(SEED + 9).standard_normal((max(INV_DEMOS), 4))
+
+    def setup(dev, n):
+        template = il.make_problem_template(N=N, device=dev)
+        x = torch.tensor(x0s[:n], device=dev)
+        return template, x, il.expert(template, x)
+
+    def first_grad(dev):
+        template, x, target = setup(dev, INV_DEMOS[0])
+        q = x.new_zeros(4, requires_grad=True)
+        r = x.new_zeros(2, requires_grad=True)
+        il.loss(template, x, target, q, r).backward()
+        return torch.cat([q.grad, r.grad]).cpu()
+
+    n = INV_DEMOS[0]
+    with plain_versions_raise():
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q, r, losses = il.fit(il.make_problem_template(N=N, device="cuda"),
+                              torch.tensor(x0s[:n], device="cuda"), INV_STEPS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = launch_counts()
+        g_card = first_grad("cuda")
+    # the expert's solve, the forward and adjoint solve of every step and
+    # the final loss: 2 K2 launches a stage each
+    want = {"fused_riccati": 0, "spd_solve": 2 * N * (1 + 2 * INV_STEPS + 1),
+            "fused_stage_sweep": 0, "fused_stage_forward": 0, "fd_rows": 0}
+    losses = losses.cpu()
+    print(f"[inverse-lqr] {n} demonstrations, {INV_STEPS} Adam steps on the card in "
+          f"{fit_s:.2f} s: loss {losses[0].item():.4e} -> {losses[-1].item():.4e}; "
+          f"launches {launches}")
+    check(launches == want, f"inverse LQR launches {launches} != {want}")
+    check(bool(torch.isfinite(losses).all()), "inverse LQR: non-finite loss")
+    check(losses[-1].item() < 1e-3 * losses[0].item(), "inverse LQR: the loss did not fall")
+
+    t0 = time.perf_counter()
+    qc, rc, losses_c = il.fit(il.make_problem_template(N=N, device="cpu"),
+                              torch.tensor(x0s[:n]), INV_STEPS)
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(losses[-1].item() - losses_c[-1].item()) / abs(losses_c[-1].item())
+    g_cpu = first_grad("cpu")
+    grad_err = ((g_card - g_cpu).abs().max() / g_cpu.abs().max()).item()
+    print(f"[inverse-lqr] cpu check ({cpu_s:.1f} s): final loss rel err {loss_err:.3e} "
+          f"(tol {INV_LOSS_TOL:g}), first gradient rel err {grad_err:.3e} "
+          f"(tol {INV_GRAD_TOL:g})")
+    check(loss_err <= INV_LOSS_TOL, "inverse LQR: card and CPU final losses differ")
+    check(grad_err <= INV_GRAD_TOL, "inverse LQR: card and CPU gradients differ")
+
+    ms, breakdown = {}, None
+    for demos in INV_DEMOS:
+        template, x, target = setup("cuda", demos)
+        q = x.new_zeros(4, requires_grad=True)
+        r = x.new_zeros(2, requires_grad=True)
+        opt = torch.optim.Adam([q, r], lr=0.1)
+
+        def step():
+            opt.zero_grad()
+            il.loss(template, x, target, q, r).backward()
+            opt.step()
+
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(INV_TIMED_STEPS):
+            step()
+        torch.cuda.synchronize()
+        ms[demos] = (time.perf_counter() - t0) / INV_TIMED_STEPS * 1e3
+        print(f"[inverse-lqr] {card}: {demos} demonstrations, {ms[demos]:.2f} ms an "
+              f"Adam step (forward and adjoint solve, N = {N})")
+        if demos == n:
+            breakdown = profile_solve(step, f"inverse-lqr profile (one step, {n} demonstrations)")
+    return launches, dict(fit_s=fit_s, loss0=losses[0].item(), loss_final=losses[-1].item(),
+                          loss_rel_err=loss_err, grad_rel_err=grad_err, cpu_s=cpu_s,
+                          ms_per_step={str(k): v for k, v in ms.items()},
+                          breakdown=breakdown)
+
+
+# ---------------------------------------------------------------- phase 10
+
+
+def sensitivity_phase(card):
+    """θ sensitivities of the double-integrator family at SENS_BATCH random
+    θ, without and with an active control box."""
+    import aligator_tpu_torch as at
+    from aligator_tpu_torch.examples import theta_family as tf
+
+    N = 20
+    cases = {"free": (None, tf.SOLVE_OPTIONS, 5e-5),
+             "box": (0.12, dict(tol=1e-8, mu_init=1e-2, max_iters=300), 1e-3)}
+    thetas = 0.4 * np.random.default_rng(SEED + 10).standard_normal((SENS_BATCH, 2))
+    counted, out = [], {}
+    for case, (u_bound, opts, fd_tol) in cases.items():
+        cfg = at.solvers.ProxDDPConfig(**opts)
+        pf = tf.make_double_integrator_family(N, device="cuda", u_bound=u_bound)
+        th = torch.tensor(thetas, device="cuda")
+        with plain_versions_raise():
+            reset_counts()
+            res = at.solvers.solve(pf(th), cfg)
+            torch.cuda.synchronize()
+            solve_counts = launch_counts()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = at.solvers.theta_sensitivities(pf, th, cfg, res)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            th_counts = launch_counts()
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                at.solvers.theta_sensitivities(pf, th, cfg, res)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        counted += [solve_counts, th_counts]
+        breakdown = profile_solve(lambda: at.solvers.theta_sensitivities(pf, th, cfg, res),
+                                  f"sensitivity {case} profile (one harvest)")
+        steps = int(res.newton_steps.max())
+        want_solve = {"fused_riccati": steps, "spd_solve": 0, "fused_stage_sweep": 0,
+                      "fused_stage_forward": 0, "fd_rows": 0}
+        want_th = dict(want_solve, fused_riccati=0, spd_solve=2 * N)
+        check(solve_counts == want_solve, f"{case}: solve launches {solve_counts}")
+        check(th_counts == want_th, f"{case}: θ launches {th_counts} != {want_th}")
+        frac = res.conv.float().mean().item()
+        finite = bool(torch.isfinite(res.th_grad).all() & torch.isfinite(res.th_hess).all())
+        check(finite, f"{case}: non-finite sensitivities")
+
+        t0 = time.perf_counter()
+        n = SENS_CPU_SCENARIOS
+        pc = tf.make_double_integrator_family(N, device="cpu", u_bound=u_bound)
+        rc = at.solvers.solve_with_sensitivities(pc, torch.tensor(thetas[:n]), cfg)
+        cpu_s = time.perf_counter() - t0
+        errs = {k: (getattr(res, k)[:n].cpu() - getattr(rc, k)).abs().max().item()
+                / max(1.0, getattr(rc, k).abs().max().item()) for k in ("th_grad", "th_hess")}
+        same = bool((rc.num_iters == res.num_iters[:n].cpu()).all())
+
+        # central differences of converged values on the first converged
+        # scenarios
+        idx = res.conv.nonzero()[:SENS_FD_SCENARIOS, 0]
+        eps = 1e-5
+        fd_err = 0.0
+        for j in range(2):
+            e = torch.zeros(2, dtype=torch.float64, device="cuda")
+            e[j] = eps
+            both = at.solvers.solve(pf(torch.cat([th[idx] + e, th[idx] - e])), cfg)
+            check(bool(both.conv.all()), f"{case}: a finite-difference solve did not converge")
+            k = idx.shape[0]
+            fd = (both.traj_cost[:k] - both.traj_cost[k:]) / (2 * eps)
+            fd_err = max(fd_err, ((res.th_grad[idx, j] - fd).abs()
+                                  / fd.abs().clamp(min=1.0)).max().item())
+        print(f"[sensitivity] {case} ({card}): batch {SENS_BATCH}, frac_converged "
+              f"{frac:.6f}, iterations max {int(res.num_iters.max())}; θ harvest "
+              f"{first_ms:.2f} ms first, {statistics.median(times):.2f} ms median of 3; "
+              f"launches solve {solve_counts}, θ {th_counts}; vs CPU ({n} scenarios, "
+              f"{cpu_s:.1f} s): "
+              f"num_iters equal {same}, th_grad {errs['th_grad']:.3e}, th_hess "
+              f"{errs['th_hess']:.3e} (tol {SENS_TOL:g}); th_grad vs central differences "
+              f"on {idx.shape[0]} scenarios {fd_err:.3e} (tol {fd_tol:g})")
+        check(same, f"{case}: card and CPU iteration counts differ")
+        check(max(errs.values()) <= SENS_TOL, f"{case}: card and CPU sensitivities differ")
+        check(idx.shape[0] == SENS_FD_SCENARIOS and fd_err <= fd_tol,
+              f"{case}: th_grad vs finite differences {fd_err}")
+        out[case] = dict(frac_converged=frac, harvest_ms=statistics.median(times),
+                         harvest_first_ms=first_ms, th_launches=th_counts, cpu_errs=errs,
+                         fd_rel_err=fd_err, breakdown=breakdown)
+    return counted, out
+
+
 # ---------------------------------------------------------------- main
 
 
 def main():
+    ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases to run after device and build "
+                         "(a partial run: no kernels and ok lines)")
+    only = [p for p in ap.parse_args().only.split(",") if p]
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 1
@@ -1576,6 +1962,8 @@ def main():
     phase_s = {}
 
     def timed(name, fn):
+        if only and name not in only + ["device", "build"]:
+            return None
         t0 = time.perf_counter()
         out = fn()
         phase_s[name] = time.perf_counter() - t0
@@ -1584,6 +1972,16 @@ def main():
 
     smi = timed("device", device_phase)
     timed("build", build_phase)
+    if only:
+        for name, fn in (("K1", kernel_phase), ("K2", k2_phase), ("K3", k3_phase),
+                         ("K4", k4_phase), ("K5", k5_phase), ("se2", slice_phase),
+                         ("medium", medium_phases), ("talos", talos_phases),
+                         ("cartpole", cartpole_phases),
+                         ("inverse-lqr", lambda: inverse_lqr_phase(smi)),
+                         ("sensitivity", lambda: sensitivity_phase(smi))):
+            timed(name, fn)
+        print(json.dumps({"partial_run": only, "phase_s": phase_s}))
+        return 0
     k1, k1_times = timed("K1", kernel_phase)
     k2, k2_extra = timed("K2", k2_phase)
     k3, k3_extra = timed("K3", k3_phase)
@@ -1594,14 +1992,20 @@ def main():
     talos_counts, talos = timed("talos", talos_phases)
     pit_counts, pit = timed("parallel-in-time", lambda: parallel_in_time_phases(
         medium["humanoid"]["solves_per_sec"], smi))
+    cart_counts, cart = timed("cartpole", cartpole_phases)
+    inv_counts, inv = timed("inverse-lqr", lambda: inverse_lqr_phase(smi))
+    sens_counts, sens = timed("sensitivity", lambda: sensitivity_phase(smi))
     # each kernel's launches: the sum over the paths' counted runs
-    runs = [se2_counts, *medium_counts.values(), *talos_counts.values(), *pit_counts]
+    runs = [se2_counts, *medium_counts.values(), *talos_counts.values(), *pit_counts,
+            *cart_counts.values(), inv_counts, *sens_counts]
     for k in (k1, k2, k3, k4, k5):
         k["launches"] = sum(c[k["name"]] for c in runs)
     print(json.dumps({"slice": result, "fused_riccati": k1_times,
                       "medium": medium, "medium_launches": medium_counts,
                       "talos": talos, "talos_launches": talos_counts,
-                      "parallel_in_time": pit,
+                      "parallel_in_time": pit, "cartpole": cart,
+                      "cartpole_launches": cart_counts, "inverse_lqr": inv,
+                      "sensitivity": sens,
                       "spd_solve": k2_extra, "fused_stage_sweep": k3_extra,
                       "fused_stage_forward": k4_shapes,
                       "fd_rows": k5_extra, "phase_s": phase_s,

@@ -16,10 +16,11 @@ import torch
 
 import aligator_tpu_torch as at
 from aligator_tpu_torch import convert
-from aligator_tpu_torch.examples import medium_dims
+from aligator_tpu_torch.examples import inverse_lqr, medium_dims, theta_family
+from aligator_tpu_torch.examples.cartpole import create_cartpole_problem
 from aligator_tpu_torch.examples.lqr import make_lqr_problem
 from aligator_tpu_torch.examples.se2_car import create_se2_problem
-from aligator_tpu_torch.gar import (fused_riccati, fused_stage, lqr_problem,
+from aligator_tpu_torch.gar import (diff, fused_riccati, fused_stage, lqr_problem,
                                     riccati, spd_solve)
 from aligator_tpu_torch.modelling.multibody import fd_rows, humanoid, quadruped
 from aligator_tpu_torch.modelling.multibody import model as rbd
@@ -695,3 +696,141 @@ def test_talos_walk_card_matches_cpu_and_jax_fixture(cuda_device, plain_versions
         got = getattr(gpu, k).cpu()
         assert _rel(got, getattr(cpu, k)) < 1e-8, k
         assert _rel(got, torch.tensor(fix[f"res_{k}"])) < 1e-8, k
+
+
+# ------------------------------------------- nonlinear rollout, gradients, θ
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rk2", "midpoint", "exact"])
+def test_cartpole_nonlinear_rollout_card_matches_cpu(cuda_device, plain_versions_raise,
+                                                     case):
+    """ProxDDP with rollout='nonlinear' on the cartpole (N = 20, 6 scenarios,
+    float64): RK2 (K1 with E = -I), the implicit midpoint rule (K1 with
+    general E) and 'exact' Hessians; one K1 launch a Newton step."""
+    x0s = 0.1 * np.random.default_rng(0).standard_normal((6, 4))
+    integrator = "midpoint" if case == "midpoint" else "rk2"
+    opts = dict(tol=1e-5, mu_init=0.01, max_iters=300, rollout="nonlinear")
+    opts.update({"midpoint": dict(max_iters=4),
+                 "exact": dict(hessian_approx="exact", max_iters=12)}.get(case, {}))
+    cfg = at.solvers.ProxDDPConfig(**opts)
+
+    def make(dev):
+        prob = create_cartpole_problem(nsteps=20, device=dev, integrator=integrator)
+        return dataclasses.replace(prob, x0=torch.tensor(x0s, device=dev))
+
+    gpu, counts = _card_and_cpu(make, lambda p: at.solvers.solve(p, cfg),
+                                cuda_device, plain_versions_raise)
+    assert counts == dict(k2=0, k3=0, k4=0, k1=int(gpu.newton_steps.max()), k5=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,nu,nc", [(4, 2, 1), (16, 4, 2)])
+def test_diff_solve_gradients_card_match_cpu(cuda_device, plain_versions_raise, nx, nu, nc):
+    """The autograd Function's gradients on the card equal the CPU's: the
+    forward and adjoint solves take the per-stage loop (2 K2 launches a
+    stage each) at nx = 4, K3 and K4 (one launch each a solve) at nx = 16."""
+    N, B = 7, 5
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        prob = lqr_problem.random_convex_problem(np.random.default_rng(nx), B, N, nx, nu,
+                                                 nc, device=dev)
+        leaves = [getattr(prob.knots, k) for k in diff.KNOT_FIELDS] + [prob.G0, prob.g0]
+        for t in leaves:
+            t.requires_grad_()
+        if dev != "cpu":
+            plain_versions_raise()
+            before = _launches()
+        xs, us, vs, lams = diff.solve(prob, 1e-3, 1e-2, True)
+        ((us ** 2).sum() + (xs[:, -1] ** 2).sum() + (vs ** 2).sum()
+         + (lams ** 3).sum()).backward()
+        grads[dev] = [t.grad for t in leaves]
+    torch.cuda.synchronize()
+    counts = {k: v - before[k] for k, v in _launches().items()}
+    if nx >= 12:
+        assert counts == dict(k2=0, k3=2, k4=2, k1=0, k5=0)
+    else:
+        assert counts == dict(k2=2 * 2 * N, k3=0, k4=0, k1=0, k5=0)
+    for g, c in zip(grads[cuda_device], grads["cpu"]):
+        assert _rel(g.cpu(), c) <= TOL[torch.float64]
+
+
+@pytest.mark.cuda
+def test_inverse_lqr_steps_card_match_cpu(cuda_device, plain_versions_raise):
+    """Five Adam steps of the inverse-LQR example on the card and on the
+    CPU (N = 10, 4 demonstrations); 4N K2 launches a step."""
+    x0s = np.random.default_rng(5).standard_normal((4, 4))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        template = inverse_lqr.make_problem_template(N=10, device=dev)
+        if dev != "cpu":
+            plain_versions_raise()
+            before = _launches()
+        out[dev] = inverse_lqr.fit(template, torch.tensor(x0s, device=dev), steps=5)
+    torch.cuda.synchronize()
+    counts = {k: v - before[k] for k, v in _launches().items()}
+    # the expert's solve, then per step the forward and adjoint solves, and
+    # the final loss
+    assert counts == dict(k2=2 * 10 * (1 + 2 * 5 + 1), k3=0, k4=0, k1=0, k5=0)
+    for g, c in zip(out[cuda_device], out["cpu"]):
+        assert _rel(g.cpu(), c) <= 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("u_bound", [None, 0.12])
+def test_theta_sensitivities_card_match_cpu(cuda_device, plain_versions_raise, u_bound):
+    """solve_with_sensitivities on the θ family: the solve on K1, the θ
+    backward on the per-stage loop (2 K2 launches a stage)."""
+    thetas = np.random.default_rng(13).standard_normal((8, 2)) * 0.4
+    opts = (theta_family.SOLVE_OPTIONS if u_bound is None
+            else dict(tol=1e-8, mu_init=1e-2, max_iters=300))
+    cfg = at.solvers.ProxDDPConfig(**opts)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        pf = theta_family.make_double_integrator_family(device=dev, u_bound=u_bound)
+        if dev != "cpu":
+            plain_versions_raise()
+            before = _launches()
+        out[dev] = at.solvers.solve_with_sensitivities(
+            pf, torch.tensor(thetas, device=dev), cfg)
+    torch.cuda.synchronize()
+    counts = {k: v - before[k] for k, v in _launches().items()}
+    gpu, cpu = out[cuda_device], out["cpu"]
+    assert counts == dict(k2=2 * 20, k3=0, k4=0, k1=int(gpu.newton_steps.max()), k5=0)
+    assert torch.equal(gpu.num_iters.cpu(), cpu.num_iters)
+    for k in ("xs", "us", "th_grad", "th_hess"):
+        assert _rel(getattr(gpu, k).cpu(), getattr(cpu, k)) <= TOL[torch.float64], k
+
+
+@pytest.mark.cuda
+def test_nonlinear_trial_graph_matches_eager(cuda_device):
+    """The CUDA-graph replay of a nonlinear line-search trial equals the
+    eager trial, for inputs and step lengths that change between replays."""
+    from types import SimpleNamespace
+
+    from aligator_tpu_torch.solvers import proxddp
+
+    B, N = 5, 12
+    prob = create_cartpole_problem(nsteps=N, device=cuda_device)
+    rng = np.random.default_rng(1)
+
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape), device=cuda_device)
+
+    prob = dataclasses.replace(prob, x0=0.1 * t(B, 4))
+    cfg = at.solvers.ProxDDPConfig(rollout="nonlinear")
+    graph = proxddp._TrialGraph()
+    for _ in range(3):
+        st = SimpleNamespace(xs=0.1 * t(B, N + 1, 4), us=t(B, N, 1), vs=t(B, N, 1),
+                             vs_term=t(B, 0), lams=t(B, N + 1, 4),
+                             prev_lams=t(B, N + 1, 4), prev_vs=t(B, N, 1),
+                             prev_vs_term=t(B, 0), mu=0.01 + 0.01 * t(B).abs())
+        gains = dict(kff=t(B, N + 1, 1), K=0.1 * t(B, N + 1, 1, 4), zff=t(B, N + 1, 1),
+                     Z=t(B, N + 1, 1, 4), lff=t(B, N + 1, 4), L=0.1 * t(B, N + 1, 4, 4))
+        args = (st, gains, 0.1 * t(B, 4), t(B, 4), torch.rand(B, device=cuda_device,
+                                                              dtype=torch.float64))
+        got = graph(prob, cfg, *args)
+        ref = proxddp._nonlinear_trial(prob, cfg, *args)
+        for a, b in zip((*got[0], *got[1:]), (*ref[0], *ref[1:])):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-12)
+    assert graph.graph is not None and not graph.eager

@@ -343,7 +343,20 @@ def test_make_dense_lqr_law():
 
 
 @pytest.mark.parametrize("option", [dict(record_history=True), dict(verbose=True)])
-def test_fddp_unported_options_raise(option):
+def test_fddp_unported_options_raise(option, capsys):
+    """These options raised NotImplementedError until the port carried
+    them; FDDP now records its history and prints a row per iteration."""
     prob = medium_dims.make_dense_lqr(4, 2, 3, torch.float64, "cpu")
-    with pytest.raises(NotImplementedError):
-        at.solvers.fddp.solve(prob, at.solvers.FDDPConfig(**option))
+    res = at.solvers.fddp.solve(prob, at.solvers.FDDPConfig(**option))
+    n = int(res.num_iters[0])
+    assert res.conv.all() and n >= 1
+    if option.get("record_history"):
+        assert res.history.shape == (1, 200, 6)
+        np.testing.assert_allclose(res.history[0, 0, 2].item(),
+                                   at.core.evaluate(prob, prob.x0[:, None].expand(1, 4, 4),
+                                                    torch.zeros(1, 3, 2, dtype=torch.float64)
+                                                    ).cost.item(), rtol=1e-12)
+    else:
+        rows = [ln for ln in capsys.readouterr().out.splitlines()
+                if ln.strip()[:1].isdigit()]
+        assert len(rows) == n

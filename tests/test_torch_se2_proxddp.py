@@ -180,7 +180,25 @@ def test_batched_proxddp_backtracking_bounds_matches_jax():
     dict(rollout="nonlinear"), dict(verbose=True),
     dict(hessian_approx="exact"), dict(record_history=True),
 ])
-def test_unported_options_raise(option):
+def test_unported_options_raise(option, capsys):
+    """These options raised NotImplementedError until the port carried
+    them; each now runs on the SE(2) car and reaches the optimum of the
+    default solve, and an unknown value of an option still raises."""
     prob = create_se2_problem(nsteps=3, dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError):
-        at.solvers.solve(prob, at.solvers.ProxDDPConfig(**option))
+    got = at.solvers.solve(prob, at.solvers.ProxDDPConfig(**option))
+    ref = at.solvers.solve(prob, at.solvers.ProxDDPConfig())
+    assert got.conv.all() and ref.conv.all()
+    np.testing.assert_allclose(got.xs.numpy(), ref.xs.numpy(), atol=1e-5)
+    np.testing.assert_allclose(got.us.numpy(), ref.us.numpy(), atol=1e-5)
+    if option.get("record_history"):
+        assert got.history.shape == (1, 100, 8)
+        n = int(got.num_iters[0])
+        assert (got.history[0, :n, 5] > 0).all() and (got.history[0, n:] == 0).all()
+    if option.get("verbose"):
+        rows = [ln for ln in capsys.readouterr().out.splitlines()
+                if ln.strip()[:1].isdigit()]
+        assert len(rows) == int(got.num_iters[0])
+    name, value = next(iter(option.items()))
+    if isinstance(value, str):
+        with pytest.raises(ValueError):
+            at.solvers.solve(prob, at.solvers.ProxDDPConfig(**{name: "unknown"}))
