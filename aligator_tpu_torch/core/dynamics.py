@@ -20,6 +20,15 @@ from .._linalg import mv
 from .manifolds import Manifold, batched_jacfwd
 
 
+def _lead_shape(*ts: Tensor) -> tuple:
+    """The broadcast of the tensors' shapes without their last dim (plain
+    Python: ``torch.broadcast_shapes`` costs ~0.3 ms a call on the host)."""
+    shapes = [tuple(t.shape[:-1]) for t in ts]
+    n = max(len(s) for s in shapes)
+    return tuple(0 if 0 in d else max(d)
+                 for d in zip(*((1,) * (n - len(s)) + s for s in shapes)))
+
+
 class ExplicitDynamics:
     """Explicit discrete dynamics x_{t+1} = forward(x_t, u_t)."""
 
@@ -90,32 +99,34 @@ class ImplicitDynamics(ExplicitDynamics):
                          gap: Tensor | None = None, iters: int | None = None):
         """Solve ``r(x, u, y) + gap = 0`` for ``y`` by ``iters`` Newton steps
         (default ``newton_iters``), each a batched dense solve against the
-        Jacobian ``∂r/∂y`` (:meth:`_jacobian_y`)."""
+        Jacobian ``∂r/∂y`` (:meth:`_residual_and_jacobian_y`). Nothing here
+        waits on the host (``solve_ex`` does not check its pivots), so a
+        CUDA graph can capture it."""
         iters = self.newton_iters if iters is None else iters
         y = x
         for _ in range(iters):
-            r = self.residual(space, x, u, y)
+            r, E = self._residual_and_jacobian_y(space, x, u, y)
             if gap is not None:
                 r = r + gap
-            E = self._jacobian_y(space, x, u, y)
-            y = space.integrate(y, -torch.linalg.solve(E, r))
+            y = space.integrate(y, -torch.linalg.solve_ex(E, r)[0])
         return y
 
-    def _jacobian_y(self, space, x, u, y) -> Tensor:
-        """``∂r/∂y (..., ndx, ndx)`` in tangent coordinates at ``y``, by
-        reverse-mode autograd, one backward pass a residual row (a fraction
-        of what :func:`batched_jacfwd`'s nested ``torch.func`` transforms
-        cost at these sizes); the solvers never call ``forward`` inside a
-        ``torch.func`` transform."""
+    def _residual_and_jacobian_y(self, space, x, u, y) -> tuple[Tensor, Tensor]:
+        """``r(x, u, y)`` and ``∂r/∂y (..., ndx, ndx)`` in tangent
+        coordinates at ``y``, by reverse-mode autograd in one backward
+        pass: the batch is copied ``ndx`` times, copy ``i`` gives row ``i``
+        and copy 0 the residual (a fraction of what :func:`batched_jacfwd`'s
+        nested ``torch.func`` transforms cost at these sizes); the solvers
+        never call ``forward`` inside a ``torch.func`` transform."""
+        n = space.ndx
+        lead = (n,) + _lead_shape(x, u, y)
         with torch.enable_grad():
-            lead = torch.broadcast_shapes(x.shape[:-1], u.shape[:-1], y.shape[:-1])
-            dy = y.new_zeros(lead + (space.ndx,), requires_grad=True)
-            r = self.residual(space, x.detach(), u.detach(),
-                              space.integrate(y.detach(), dy))
-            rows = [torch.autograd.grad(r[..., i].sum(), dy,
-                                        retain_graph=i + 1 < r.shape[-1])[0]
-                    for i in range(r.shape[-1])]
-        return torch.stack(rows, -2)
+            dy = y.new_zeros(lead + (n,), requires_grad=True)
+            r = self.residual(space, x.detach().expand(lead + x.shape[-1:]),
+                              u.detach().expand(lead + u.shape[-1:]),
+                              space.integrate(y.detach().expand(lead + y.shape[-1:]), dy))
+            (rows,) = torch.autograd.grad(r.diagonal(0, 0, -1).sum(), dy)
+        return r[0].detach(), rows.movedim(0, -2)
 
     def forward(self, space, x, u):
         return self.forward_with_gap(space, x, u)

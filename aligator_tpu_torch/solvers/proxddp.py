@@ -476,14 +476,20 @@ _TRIAL_STATE = ("xs", "us", "vs", "vs_term", "lams", "prev_lams", "prev_vs",
 _TRIAL_GAINS = ("kff", "K", "zff", "Z", "lff", "L")
 
 
+class TrialGraphWarning(RuntimeWarning):
+    """A nonlinear line-search trial could not be captured as a CUDA graph
+    and runs eagerly (several times slower)."""
+
+
 class _TrialGraph:
     """The nonlinear trial (rollout, evaluation, multipliers, merit) on CUDA
     tensors, captured as one CUDA graph at the first trial of a solve and
     replayed for every later trial, its inputs copied into the graph's
-    static tensors. A trial is some N·150 small PyTorch operations, each a
-    host launch, whose stages cannot be batched; the replay launches them
-    as one. A trial that cannot be captured (an operation that waits on the
-    host) runs eagerly, with a warning."""
+    static tensors. A trial is some N·150 small PyTorch operations (several
+    times more with an implicit rule's Newton steps), each a host launch,
+    whose stages cannot be batched; the replay launches them as one. A
+    trial that cannot be captured (an operation that waits on the host)
+    runs eagerly, with a :class:`TrialGraphWarning`."""
 
     def __init__(self):
         self.graph = None
@@ -501,7 +507,7 @@ class _TrialGraph:
                 self._capture(problem, cfg)
             except RuntimeError as err:
                 warnings.warn(f"the nonlinear trial runs eagerly: its capture "
-                              f"as a CUDA graph failed ({err})")
+                              f"as a CUDA graph failed ({err})", TrialGraphWarning)
                 self.eager = True
                 return _nonlinear_trial(problem, cfg, st, gains, dx0, dlam0, alpha)
         for k, v in ins.items():
@@ -995,7 +1001,7 @@ def solve(problem: TrajOptProblem, cfg: ProxDDPConfig = ProxDDPConfig(),
     )
     hist = _history_buffers(cfg, st, dtype)
     graph = None
-    if cfg.rollout == "nonlinear" and x0.is_cuda and problem.stages.dynamics.is_explicit:
+    if cfg.rollout == "nonlinear" and x0.is_cuda:
         graph = _TrialGraph()
 
     while True:

@@ -59,14 +59,19 @@ any failed check raises and the script exits non-zero:
 8. the cartpole (``examples/cartpole.py``: N = 100, |u| <= 25, float64,
    ``rollout='nonlinear'``, the published options) at batch 1024, with the
    plain versions patched to raise and K1's launches checked against the
-   Newton steps: solves/s, the converged fraction, the iterations, a
-   device-time breakdown of a solve cut to 2 iterations, and the first 16
-   scenarios again on the CPU for 4 iterations (the solve's path is
-   chaotic: rounding differences part card and CPU after ~6); then at
-   batch 64 with the implicit midpoint rule (K1 with general E; cut to 4
-   iterations) and with ``hessian_approx='exact'`` (cut to 20), each with
-   its CPU check; then the float32 run at batch 1024, whose converged
-   fraction gates nothing;
+   Newton steps: solves/s, the converged fraction (held to a floor from
+   the JAX package's CPU solve of the same initial states), the
+   iterations, a device-time breakdown of a solve cut to 2 iterations, and
+   the first 16 scenarios again on the CPU for 4 iterations (the solve's
+   path is chaotic: rounding differences part card and CPU after ~6); then
+   at batch 64 the implicit midpoint rule (K1 with general E; its horizon
+   cut to N = 20, two Newton steps a stage in the rollout, to convergence,
+   its converged fraction held to a floor likewise, and a breakdown) and
+   ``hessian_approx='exact'`` (cut to 20 iterations), each with its CPU
+   check; then the float32 run at batch 1024, cut to 150 iterations, whose
+   converged fraction within them gates nothing. Every line-search trial
+   is a CUDA-graph replay: a trial that falls back to eager execution
+   fails the script;
 9. inverse LQR (``examples/inverse_lqr.py``): 16 demonstrations and 300
    Adam steps through ``gar.diff.solve`` on the card and again on the CPU
    (the final loss and the first step's gradient compared), K2's launches
@@ -81,13 +86,8 @@ any failed check raises and the script exits non-zero:
 11. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
 
 Without a CUDA device it exits non-zero before printing any result.
-``--only PHASE[,PHASE...]`` runs the device and build phases and the named
-ones (``K1 K2 K3 K4 K5 se2 medium talos parallel-in-time cartpole
-inverse-lqr sensitivity``) and stops without the kernels and ok lines: a
-partial run, for development.
 """
 
-import argparse
 import contextlib
 import dataclasses
 import json
@@ -96,6 +96,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -166,15 +167,26 @@ ASSOC_TOL = 1e-6  # card 'associative' vs card 'serial_scan' and vs the CPU, fp6
 
 # cartpole with the nonlinear rollout (examples/cartpole.py, float64)
 CART_BATCH = 1024
+# frac_converged floor, fp64: the JAX package's CPU solve of the first 256
+# of these initial states converges 227 (0.887; 13 of the first 16)
+CART_MIN_FRAC = 0.85
 CART_VARIANT_BATCH = 64  # the implicit midpoint rule and 'exact' Hessians
-# their depth: the midpoint rule with one Newton step a stage in the rollout
-# backtracks far (its line search runs the rollout up to 20 times an
-# iteration), 'exact' less
-CART_MIDPOINT_ITERS = 4
+# the midpoint rule: N = 20 (a trial is ~500 operations a stage, so the
+# published N = 100 to convergence would take minutes), two Newton steps a
+# stage in the rollout (with one, the JAX package's solve reaches the
+# 300-iteration budget on every scenario tried, at N = 20 and 100; with two
+# it converges 63 of these 64 initial states at N = 20, 0.984); floor
+# below that
+CART_MIDPOINT_NSTEPS = 20
+CART_MIDPOINT_NEWTON = 2
+CART_MIDPOINT_MIN_FRAC = 0.9
 CART_EXACT_ITERS = 20
+# the fp32 run's depth: its converged fraction within these iterations is
+# read beside fp64's within the same (each iteration ~0.3 s, host-bound)
+CART_FP32_ITERS = 150
 # the depth of the profiled solve (fp64, batch 1024): the profiler's
 # processing of a solve's ~64,000 kernels an iteration takes ~10 s an
-# iteration (PR 8, call 3)
+# iteration on an H100 (PERF.md §6)
 CART_PROFILE_ITERS = 2
 CART_CPU_SCENARIOS = 16
 # card vs CPU, both float64, over the CPU run's first CART_CPU_ITERS
@@ -183,8 +195,8 @@ CART_CPU_SCENARIOS = 16
 # solves whose initial states differ by 1e-15 relative part by 1.6e-5 at
 # iteration 6 and by 29% in their trajectories at iteration 30
 # (tools/torch_cartpole_divergence.py), as the card's and the CPU's did
-# (PR 8, calls 1 and 2: 27% in the history at 30 iterations, 2.0 in the
-# trajectories at 300), so only the first iterations can agree
+# (on an H100: 27% in the history at 30 iterations, 2.0 in the
+# trajectories at 300; PERF.md §6), so only the first iterations can agree
 CART_CPU_ITERS = 4
 CART_CPU_TOL = 1e-6
 # inverse LQR (examples/inverse_lqr.py)
@@ -196,9 +208,9 @@ INV_GRAD_TOL = 1e-8  # first step's gradient, card vs CPU, relative
 # θ sensitivities (examples/theta_family.py)
 SENS_BATCH = 4096
 # the first scenarios solved and harvested again on the CPU: all 4096 of
-# the box case take 195 s there (PR 8, call 3), 14% of them running to the
-# 300-iteration budget
-SENS_CPU_SCENARIOS = 512
+# the box case take 195 s on the card machine's CPU, 512 take 37.6 s
+# (PERF.md §6), 14% of them running to the 300-iteration budget
+SENS_CPU_SCENARIOS = 128
 SENS_TOL = 1e-8  # th_grad, th_hess card vs CPU, relative to max(1, scale)
 SENS_FD_SCENARIOS = 4
 
@@ -396,7 +408,7 @@ def kernel_phase():
              "cartpole": k1_timing((4, 1, 1, True), 2 * NSTEPS + 1, B),
              "cartpole_rk2_fp64": k1_timing((4, 1, 1, True), 101, CART_BATCH,
                                             torch.float64),
-             "cartpole_midpoint_fp64": k1_timing((4, 1, 1, False), 101,
+             "cartpole_midpoint_fp64": k1_timing((4, 1, 1, False), CART_MIDPOINT_NSTEPS + 1,
                                                  CART_VARIANT_BATCH, torch.float64)}
     t = times["se2car"]
     return dict(
@@ -1657,13 +1669,14 @@ def rel_traj_err(a, b):
     return max((a.xs - b.xs).abs().max().item(), (a.us - b.us).abs().max().item()) / scale
 
 
-def cartpole_run(label, batch, integrator="rk2", dtype=torch.float64,
-                 cpu_n=CART_CPU_SCENARIOS, profile=False, **opts):
+def cartpole_run(label, batch, integrator="rk2", dtype=torch.float64, nsteps=100,
+                 cpu_n=CART_CPU_SCENARIOS, profile=False, min_frac=None, **opts):
     """One cartpole ProxDDP solve on the card with the plain versions
     patched to raise (K1 once a Newton step, nothing else) and its history
-    recorded, with ``profile`` a profiled solve cut to CART_PROFILE_ITERS
-    iterations, and the first ``cpu_n`` scenarios again on the CPU for at
-    most CART_CPU_ITERS iterations, held against the card's history and
+    recorded, its converged fraction held to ``min_frac`` where given, with
+    ``profile`` a profiled solve cut to CART_PROFILE_ITERS iterations, and
+    the first ``cpu_n`` scenarios again on the CPU for at most
+    CART_CPU_ITERS iterations, held against the card's history and
     iterates."""
     import aligator_tpu_torch as at
     from aligator_tpu_torch.examples.cartpole import (SOLVE_OPTIONS,
@@ -1674,7 +1687,8 @@ def cartpole_run(label, batch, integrator="rk2", dtype=torch.float64,
     x0s = cart_x0s(batch)
 
     def make(dev, n=batch):
-        prob = create_cartpole_problem(dtype=dtype, device=dev, integrator=integrator)
+        prob = create_cartpole_problem(nsteps=nsteps, dtype=dtype, device=dev,
+                                       integrator=integrator)
         return dataclasses.replace(prob, x0=torch.tensor(x0s[:n], dtype=dtype,
                                                          device=dev))
 
@@ -1696,14 +1710,16 @@ def cartpole_run(label, batch, integrator="rk2", dtype=torch.float64,
     it = res.num_iters.float()
     iters = dict(min=int(it.min()), median=float(it.median()), max=int(it.max()),
                  mean=float(it.mean()))
-    print(f"[{label}] batch {batch} {str(dtype)[6:]}: one solve {secs:.2f} s -> "
-          f"{batch / secs:.1f} solves/s; frac_converged {frac:.6f}; iterations "
-          f"{iters}; Newton steps {steps}; launches {launches}")
+    print(f"[{label}] batch {batch} N {nsteps} {str(dtype)[6:]}: one solve {secs:.2f} s "
+          f"-> {batch / secs:.1f} solves/s; frac_converged {frac:.6f} (floor {min_frac}); "
+          f"iterations {iters}; Newton steps {steps}; launches {launches}")
     check(launches == want, f"{label}: launches {launches} != {want}")
     check(bool(finite.all()), f"{label}: non-finite solutions")
-    out = dict(batch=batch, solve_s=secs, solves_per_sec=batch / secs,
+    if min_frac is not None:
+        check(frac >= min_frac, f"{label}: frac_converged {frac} < {min_frac}")
+    out = dict(batch=batch, nsteps=nsteps, solve_s=secs, solves_per_sec=batch / secs,
                frac_converged=frac, iters=iters, newton_steps=steps,
-               max_iters=cfg.max_iters)
+               max_iters=cfg.max_iters, conv=res.conv.cpu(), num_iters=res.num_iters.cpu())
     if profile:
         out["breakdown"] = profile_solve(
             lambda: at.solvers.solve(problem, dataclasses.replace(
@@ -1752,17 +1768,29 @@ def cartpole_run(label, batch, integrator="rk2", dtype=torch.float64,
 def cartpole_phases():
     counts, out = {}, {}
     runs = {
-        "cartpole": dict(batch=CART_BATCH, profile=True),
+        "cartpole": dict(batch=CART_BATCH, profile=True, min_frac=CART_MIN_FRAC),
         "cartpole_midpoint": dict(batch=CART_VARIANT_BATCH, integrator="midpoint",
-                                  max_iters=CART_MIDPOINT_ITERS),
+                                  nsteps=CART_MIDPOINT_NSTEPS, profile=True,
+                                  rollout_max_iters=CART_MIDPOINT_NEWTON,
+                                  min_frac=CART_MIDPOINT_MIN_FRAC),
         "cartpole_exact": dict(batch=CART_VARIANT_BATCH, hessian_approx="exact",
                                max_iters=CART_EXACT_ITERS),
-        "cartpole_fp32": dict(batch=CART_BATCH, dtype=torch.float32, cpu_n=0),
+        "cartpole_fp32": dict(batch=CART_BATCH, dtype=torch.float32, cpu_n=0,
+                              max_iters=CART_FP32_ITERS),
     }
     for label, kw in runs.items():
         counts[label], out[label] = cartpole_run(label, **kw)
-    print(f"[cartpole] fp64 frac_converged {out['cartpole']['frac_converged']:.6f}, "
-          f"fp32 {out['cartpole_fp32']['frac_converged']:.6f} (gates nothing)")
+    # fp64's converged fraction within fp32's budget, from its own run
+    k = CART_FP32_ITERS
+    f64 = out["cartpole"]
+    within = (f64["conv"] & (f64["num_iters"] <= k)).float().mean().item()
+    print(f"[cartpole] converged within {k} iterations: fp64 {within:.6f}, fp32 "
+          f"{out['cartpole_fp32']['frac_converged']:.6f} (gates nothing); fp64 within "
+          f"300 {f64['frac_converged']:.6f}; midpoint (N = {CART_MIDPOINT_NSTEPS}) "
+          f"{out['cartpole_midpoint']['frac_converged']:.6f}")
+    f64["frac_converged_within_fp32_budget"] = within
+    for run in out.values():
+        del run["conv"], run["num_iters"]
     return counts, out
 
 
@@ -1948,22 +1976,19 @@ def sensitivity_phase(card):
 
 
 def main():
-    ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
-    ap.add_argument("--only", default="",
-                    help="comma-separated phases to run after device and build "
-                         "(a partial run: no kernels and ok lines)")
-    only = [p for p in ap.parse_args().only.split(",") if p]
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 1
-    import aligator_tpu_torch  # noqa: F401  (fails outside the repository)
+    # fails outside the repository
+    from aligator_tpu_torch.solvers.proxddp import TrialGraphWarning
+
+    # a nonlinear trial that falls back to eager execution fails the run
+    warnings.simplefilter("error", TrialGraphWarning)
 
     t_start = time.perf_counter()
     phase_s = {}
 
     def timed(name, fn):
-        if only and name not in only + ["device", "build"]:
-            return None
         t0 = time.perf_counter()
         out = fn()
         phase_s[name] = time.perf_counter() - t0
@@ -1972,16 +1997,6 @@ def main():
 
     smi = timed("device", device_phase)
     timed("build", build_phase)
-    if only:
-        for name, fn in (("K1", kernel_phase), ("K2", k2_phase), ("K3", k3_phase),
-                         ("K4", k4_phase), ("K5", k5_phase), ("se2", slice_phase),
-                         ("medium", medium_phases), ("talos", talos_phases),
-                         ("cartpole", cartpole_phases),
-                         ("inverse-lqr", lambda: inverse_lqr_phase(smi)),
-                         ("sensitivity", lambda: sensitivity_phase(smi))):
-            timed(name, fn)
-        print(json.dumps({"partial_run": only, "phase_s": phase_s}))
-        return 0
     k1, k1_times = timed("K1", kernel_phase)
     k2, k2_extra = timed("K2", k2_phase)
     k3, k3_extra = timed("K3", k3_phase)

@@ -9,6 +9,7 @@ Each skips without a CUDA device (the kernels have no CPU mode).
 """
 
 import dataclasses
+import warnings
 
 import numpy as np
 import pytest
@@ -702,16 +703,21 @@ def test_talos_walk_card_matches_cpu_and_jax_fixture(cuda_device, plain_versions
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["rk2", "midpoint", "exact"])
+@pytest.mark.parametrize("case", ["rk2", "midpoint", "midpoint_conv", "exact"])
 def test_cartpole_nonlinear_rollout_card_matches_cpu(cuda_device, plain_versions_raise,
                                                      case):
     """ProxDDP with rollout='nonlinear' on the cartpole (N = 20, 6 scenarios,
-    float64): RK2 (K1 with E = -I), the implicit midpoint rule (K1 with
-    general E) and 'exact' Hessians; one K1 launch a Newton step."""
+    float64): RK2 (K1 with E = -I) to convergence, the implicit midpoint
+    rule (K1 with general E) for 4 iterations and, with two Newton steps a
+    stage in the rollout, to convergence, and 'exact' Hessians; one K1
+    launch a Newton step; every trial on the card a CUDA-graph replay."""
+    from aligator_tpu_torch.solvers.proxddp import TrialGraphWarning
+
     x0s = 0.1 * np.random.default_rng(0).standard_normal((6, 4))
-    integrator = "midpoint" if case == "midpoint" else "rk2"
+    integrator = "midpoint" if case.startswith("midpoint") else "rk2"
     opts = dict(tol=1e-5, mu_init=0.01, max_iters=300, rollout="nonlinear")
     opts.update({"midpoint": dict(max_iters=4),
+                 "midpoint_conv": dict(rollout_max_iters=2),
                  "exact": dict(hessian_approx="exact", max_iters=12)}.get(case, {}))
     cfg = at.solvers.ProxDDPConfig(**opts)
 
@@ -719,9 +725,13 @@ def test_cartpole_nonlinear_rollout_card_matches_cpu(cuda_device, plain_versions
         prob = create_cartpole_problem(nsteps=20, device=dev, integrator=integrator)
         return dataclasses.replace(prob, x0=torch.tensor(x0s, device=dev))
 
-    gpu, counts = _card_and_cpu(make, lambda p: at.solvers.solve(p, cfg),
-                                cuda_device, plain_versions_raise)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", TrialGraphWarning)
+        gpu, counts = _card_and_cpu(make, lambda p: at.solvers.solve(p, cfg),
+                                    cuda_device, plain_versions_raise)
     assert counts == dict(k2=0, k3=0, k4=0, k1=int(gpu.newton_steps.max()), k5=0)
+    if case in ("rk2", "midpoint_conv"):
+        assert bool(gpu.conv.all())
 
 
 @pytest.mark.cuda
@@ -803,22 +813,25 @@ def test_theta_sensitivities_card_match_cpu(cuda_device, plain_versions_raise, u
 
 
 @pytest.mark.cuda
-def test_nonlinear_trial_graph_matches_eager(cuda_device):
+@pytest.mark.parametrize("integrator", ["rk2", "midpoint"])
+def test_nonlinear_trial_graph_matches_eager(cuda_device, integrator):
     """The CUDA-graph replay of a nonlinear line-search trial equals the
-    eager trial, for inputs and step lengths that change between replays."""
+    eager trial, for inputs and step lengths that change between replays,
+    with explicit dynamics and with the implicit midpoint rule (two Newton
+    steps a stage: autograd Jacobians and dense solves in the capture)."""
     from types import SimpleNamespace
 
     from aligator_tpu_torch.solvers import proxddp
 
     B, N = 5, 12
-    prob = create_cartpole_problem(nsteps=N, device=cuda_device)
+    prob = create_cartpole_problem(nsteps=N, device=cuda_device, integrator=integrator)
     rng = np.random.default_rng(1)
 
     def t(*shape):
         return torch.tensor(rng.standard_normal(shape), device=cuda_device)
 
     prob = dataclasses.replace(prob, x0=0.1 * t(B, 4))
-    cfg = at.solvers.ProxDDPConfig(rollout="nonlinear")
+    cfg = at.solvers.ProxDDPConfig(rollout="nonlinear", rollout_max_iters=2)
     graph = proxddp._TrialGraph()
     for _ in range(3):
         st = SimpleNamespace(xs=0.1 * t(B, N + 1, 4), us=t(B, N, 1), vs=t(B, N, 1),

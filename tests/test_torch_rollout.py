@@ -375,7 +375,8 @@ def _solve_cartpole(case, **extra):
     x0s = tool.cart_x0s()
     tprob = convert.cartpole_problem_from_numpy(
         _cartpole_params(jax_cartpole(nsteps=tool.CART_N), x0s), nsteps=tool.CART_N,
-        device="cpu", u_bound=25.0, integrator="midpoint" if case == "midpoint" else "rk2")
+        device="cpu", u_bound=25.0,
+        integrator="midpoint" if case.startswith("midpoint") else "rk2")
     assert tprob.stages.dynamics.is_explicit == jprob.stages.dynamics.is_explicit
     cfg = at.solvers.ProxDDPConfig(**{**tool.CART_OPTIONS, **tool.CART_CASES[case],
                                       **extra})
@@ -391,16 +392,18 @@ def _same_solve(got, ref, tol=1e-8, fields=("xs", "us", "vs", "lams")):
         _close(getattr(got, k), ref[k], tol, k)
 
 
-@pytest.mark.parametrize("case", ["rk2", "midpoint", "exact"])
+@pytest.mark.parametrize("case", ["rk2", "midpoint", "midpoint_conv", "exact"])
 def test_nonlinear_rollout_matches_jax(case):
     """ProxDDP with rollout='nonlinear' on the cartpole (N = 20, 4 scenarios):
     RK2 to convergence with its history, the implicit midpoint rule (general
-    E; forward_with_gap in the rollout) and 'exact' Hessians, to 1e-8."""
+    E; forward_with_gap in the rollout) for 3 iterations and, with two
+    Newton steps a stage, to convergence, and 'exact' Hessians, to 1e-8."""
     ref = _fixture(f"cartpole_{case}_")
     got = _solve_cartpole(case)
     _same_solve(got, ref)
-    if case == "rk2":
+    if case in ("rk2", "midpoint_conv"):
         assert got.conv.all()
+    if case == "rk2":
         n = got.history.shape[1]
         assert got.history.shape == (4, n, 8) and got.history_xs.shape == (4, n, 21, 4)
         assert got.history_lams.shape == (4, n, 21, 4) and got.history_vs.shape == (4, n, 20, 1)

@@ -9,8 +9,11 @@ small batch:
   N = 20 from 4 initial states 0.1·N(0, 1) (numpy, seed 0) with
   ``rollout='nonlinear'``: ``rk2`` (the published options, to convergence,
   with ``record_history`` and ``record_history_trajs``), ``midpoint`` (the
-  dynamics replaced by ``IntegratorMidpoint``, general E; 3 iterations)
-  and ``exact`` (``hessian_approx='exact'``; 10 iterations);
+  dynamics replaced by ``IntegratorMidpoint``, general E; 3 iterations),
+  ``midpoint_conv`` (the same with two Newton steps a stage in the
+  rollout, ``rollout_max_iters=2``, to convergence: with one, no scenario
+  converges within the 300 iterations) and ``exact``
+  (``hessian_approx='exact'``; 10 iterations);
 * ``partial``: ``examples/partial_initial_condition.py`` (N = 100, x0[1]
   pinned) from 2 desired initial states;
 * ``fddp``: FDDP on ``examples/linear_euler.py`` (N = 20) from 2 initial
@@ -71,6 +74,7 @@ CART_OPTIONS = dict(tol=1e-5, mu_init=0.01, max_iters=300, rollout="nonlinear")
 CART_CASES = {
     "rk2": dict(record_history=True, record_history_trajs=True),
     "midpoint": dict(max_iters=3),
+    "midpoint_conv": dict(rollout_max_iters=2),
     "exact": dict(hessian_approx="exact", max_iters=10),
 }
 PARTIAL_N = 100
@@ -108,7 +112,7 @@ def _arrays(res, names):
 
 def cartpole_problem(case):
     prob = create_cartpole_problem(nsteps=CART_N)
-    if case == "midpoint":
+    if case.startswith("midpoint"):
         d = prob.stages.dynamics
         prob = replace(prob, stages=replace(
             prob.stages, dynamics=IntegratorMidpoint(ode=d.ode, timestep=d.timestep)))
