@@ -5,7 +5,8 @@ solver-facing tensor carries a leading batch axis (one scenario per entry).
 Each Pallas TPU kernel of the JAX package has a hand-written CUDA kernel
 here (``csrc/``: K1 fused Riccati, K2 SPD solve, K3/K4 medium-dim sweeps,
 K5 contact-dynamics derivative rows), with a plain PyTorch version beside
-it for CPU tensors. Entry points that create tensors take
+it for CPU tensors; ``csrc/free_fd.cu`` is the free forward dynamics of the
+nonlinear rollout, which the JAX package leaves to XLA. Entry points that create tensors take
 ``device=`` (default ``"cuda"``) and raise when CUDA is requested but absent.
 """
 

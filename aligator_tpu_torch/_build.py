@@ -9,11 +9,12 @@ library's file name carries a hash of the source, the headers, the flags
 and the defines, so an edited source is rebuilt, an unchanged one is
 reused and two shapes never share a library. Variants are built in
 parallel, one ``nvcc`` process each, at their first launch; nothing is
-built at import time.
+built at import time. ``LAUNCHES`` counts every kernel's launches by name.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -35,6 +36,10 @@ _loaded: dict[tuple, ctypes.CDLL] = {}
 # per-variant build record, by label(): seconds taken (0.0 when reused)
 # and nvcc's log
 BUILD_LOG: dict[str, tuple[float, str]] = {}
+# launches by kernel name (the ``kernel`` of :func:`run`), counted where a
+# launcher runs; a CUDA graph's replay adds what its capture recorded
+# (``solvers.proxddp._TrialGraph``)
+LAUNCHES: collections.Counter = collections.Counter()
 
 
 def variant(v) -> tuple[str, tuple[str, ...]]:
@@ -117,12 +122,16 @@ def build(variants) -> None:
 
 def load(name: str, defines=()) -> ctypes.CDLL:
     """Return the loaded library of the variant ``(name, defines)`` of
-    ``csrc/<name>.cu``, building it first."""
+    ``csrc/<name>.cu``, building it first if it has none (a library that
+    exists loads without the build lock, which a build of other variants in
+    another thread may hold)."""
     v = variant((name, defines))
     lib = _loaded.get(v)
     if lib is None:
-        build([v])
-        lib = _loaded[v] = ctypes.CDLL(str(_library_path(v)))
+        path = _library_path(v)
+        if not path.exists():
+            build([v])
+        lib = _loaded[v] = ctypes.CDLL(str(path))
     return lib
 
 
@@ -136,15 +145,16 @@ def c_function(name: str, symbol: str, n_int: int, n_ptr: int, defines=()):
     return fn
 
 
-def run(fn, device, *args, what: str) -> None:
-    """Call a C launcher with ``args`` and the current stream of ``device``;
-    raise if it refuses the dimensions (it returns -1) or returns a CUDA
-    error."""
+def run(fn, device, *args, kernel: str) -> None:
+    """Call a C launcher with ``args`` and the current stream of ``device``,
+    counting one launch of ``kernel`` in ``LAUNCHES``; raise if it refuses
+    the dimensions (it returns -1) or returns a CUDA error."""
     import torch
 
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err == -1:
-        raise ValueError(f"{what} kernel does not take these dimensions")
+        raise ValueError(f"{kernel} kernel does not take these dimensions")
     if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+    LAUNCHES[kernel] += 1

@@ -18,6 +18,22 @@ def chol_solve(M: Tensor, rhs: Tensor) -> Tensor:
     return torch.cholesky_solve(rhs, L)
 
 
+def cholesky(M: Tensor) -> Tensor:
+    """Lower Cholesky factor of a batch of SPD ``M``; NaN for a system whose
+    factorization fails, as :func:`chol_solve` gives."""
+    L, info = torch.linalg.cholesky_ex(M)
+    return torch.where((info != 0)[..., None, None], torch.nan, L)
+
+
+def cholesky_solve_tri(L: Tensor, rhs: Tensor) -> Tensor:
+    """``M X = rhs`` from the Cholesky factor ``L`` of ``M`` by two batched
+    triangular solves. Unlike ``torch.cholesky_solve``, whose batched CUDA
+    path (MAGMA) allocates device memory, this can be captured in a CUDA
+    graph (the nonlinear rollout's forward dynamics)."""
+    y = torch.linalg.solve_triangular(L, rhs, upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)
+
+
 def lu_solve(M: Tensor, rhs: Tensor) -> Tensor:
     """Solve ``M X = rhs`` for a batch of small nonsymmetric ``M`` (the
     associative scan's combine matrices ``I + C J``): batched LU with

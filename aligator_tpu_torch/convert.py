@@ -13,13 +13,18 @@ import torch
 
 from ._device import resolve
 from .examples.cartpole import cartpole_problem
+from .examples.dual_ffsr_reach import ffsr_reach_problem
+from .examples.flexible_double_pendulum import flexible_pendulum_problem
 from .examples.inverse_lqr import lqr_template
 from .examples.linear_euler import linear_euler_problem
 from .examples.medium_dims import linear_problem
 from .examples.partial_initial_condition import partial_initial_condition_problem
+from .examples.pendulum import swing_up_problem
 from .examples.se2_car import se2_problem
 from .examples.talos_walk import talos_walk_problem
 from .examples.theta_family import double_integrator_family
+from .examples.ur5_reach import ur5_reach_problem
+from .examples.ur10_midpoint import ur10_midpoint_problem
 from .gar.lqr_problem import LQRKnots, LQRProblem
 from .modelling.multibody import model as rbd
 
@@ -89,7 +94,11 @@ def robot_model_from_numpy(params, dtype=None, device="cuda") -> rbd.RobotModel:
     """A :class:`~.modelling.multibody.model.RobotModel` from its leaves
     ``jplac_p jplac_q axes mass com inertia gravity fplac_p fplac_q`` and its
     topology ``joint_types parents frame_parents frame_names`` (sequences);
-    ``dtype`` defaults to the arrays' own."""
+    ``dtype`` defaults to the arrays' own. A model with an ``armature``
+    raises: the port's models have none yet."""
+    if params.get("armature") is not None:
+        raise NotImplementedError("a joint armature (MJCF/URDF models) is not ported "
+                                  "yet: it comes with the MJCF parser")
     dev = resolve(device)
     leaves = {k: torch.tensor(np.asarray(params[k]), dtype=dtype, device=dev)
               for k in rbd.LEAVES}
@@ -182,3 +191,64 @@ def theta_family_from_numpy(params, nsteps: int = 20, device="cuda",
     t = _loader(params, device)
     return double_integrator_family(t("A"), t("B"), t("Q"), t("R"), t("w_term"),
                                     t("x0"), nsteps, u_bound=u_bound)
+
+
+def swing_up_problem_from_numpy(params, nsteps: int, u_bound=None, device="cuda"):
+    """The swing-up of the pendulum, the double pendulum or the acrobot
+    (:func:`~.examples.pendulum.swing_up_problem`) from the robot model's
+    leaves (:func:`robot_model_from_numpy`), ``actuation (nv, nu)``, ``x0``,
+    ``x_target``, the weights ``w_x``, ``w_u``, ``w_term`` and the scalar
+    ``timestep``."""
+    t = _loader(params, device)
+    return swing_up_problem(robot_model_from_numpy(params, device=device), t("actuation"),
+                            t("x0"), t("x_target"), t("w_x"), t("w_u"), t("w_term"),
+                            t("timestep"), nsteps, u_bound=u_bound)
+
+
+def ur5_reach_problem_from_numpy(params, nsteps: int = 40, tau_bound=80.0, device="cuda"):
+    """The UR5 reach (:func:`~.examples.ur5_reach.ur5_reach_problem`) from the
+    robot model's leaves, ``x0``, ``p_target``, the weights ``w_frame``,
+    ``w_u``, ``w_v``, ``w_term`` and the scalar ``timestep``."""
+    t = _loader(params, device)
+    return ur5_reach_problem(robot_model_from_numpy(params, device=device), t("x0"),
+                             t("p_target"), t("w_frame"), t("w_u"), t("w_v"), t("w_term"),
+                             t("timestep"), nsteps, tau_bound=tau_bound)
+
+
+def ffsr_reach_problem_from_numpy(params, nsteps: int = 60, device="cuda"):
+    """The dual-arm FFSR reach
+    (:func:`~.examples.dual_ffsr_reach.ffsr_reach_problem`) from the robot
+    model's leaves, ``x0``, the tool target poses ``R_targets (2, 3, 3)``
+    and ``p_targets (2, 3)`` (arm 1, arm 2), ``u_max (14,)`` and the scalar
+    ``timestep``."""
+    from .examples.dual_ffsr_reach import TOOLS
+
+    t = _loader(params, device)
+    targets = {n: (t("R_targets")[k], t("p_targets")[k]) for k, n in enumerate(TOOLS)}
+    return ffsr_reach_problem(robot_model_from_numpy(params, device=device), t("x0"),
+                              targets, t("u_max"), t("timestep"), nsteps)
+
+
+def flexible_pendulum_problem_from_numpy(params, nsteps: int = 120, u_bound=12.0,
+                                         device="cuda"):
+    """The flexible double pendulum
+    (:func:`~.examples.flexible_double_pendulum.flexible_pendulum_problem`)
+    from the robot model's leaves, ``actuation``, ``stiffness``,
+    ``damping``, ``q_rest``, ``x0``, ``x_target``, the weights ``w_x``,
+    ``w_u``, ``w_term`` and the scalar ``timestep``."""
+    t = _loader(params, device)
+    return flexible_pendulum_problem(
+        robot_model_from_numpy(params, device=device), t("actuation"), t("stiffness"),
+        t("damping"), t("q_rest"), t("x0"), t("x_target"), t("w_x"), t("w_u"),
+        t("w_term"), t("timestep"), nsteps, u_bound=u_bound)
+
+
+def ur10_midpoint_problem_from_numpy(params, nsteps: int = 50, device="cuda"):
+    """The UR10 midpoint reach
+    (:func:`~.examples.ur10_midpoint.ur10_midpoint_problem`) from the robot
+    model's leaves, ``x0``, ``x_ref``, ``u0``, ``p_target``, the weights
+    ``w_x``, ``w_u``, ``w_term``, ``effort`` and the scalar ``timestep``."""
+    t = _loader(params, device)
+    return ur10_midpoint_problem(
+        robot_model_from_numpy(params, device=device), t("x0"), t("x_ref"), t("u0"),
+        t("p_target"), t("w_x"), t("w_u"), t("w_term"), t("effort"), t("timestep"), nsteps)

@@ -277,14 +277,18 @@ def _bcast(t, shape) -> Tensor:
     return torch.as_tensor(t).expand(shape)
 
 
-def evaluate(problem: TrajOptProblem, xs: Tensor, us: Tensor) -> ProblemData:
-    """Costs, dynamics residuals and constraint values along (xs, us)."""
+def evaluate(problem: TrajOptProblem, xs: Tensor, us: Tensor,
+             dynamics: bool = True) -> ProblemData:
+    """Costs, dynamics residuals and constraint values along (xs, us); with
+    ``dynamics=False`` the dynamics residuals are left zero (a nonlinear
+    rollout knows them already)."""
     space, stage, N = problem.space, problem.stages, problem.nsteps
     x, y = xs[:, :N], xs[:, 1:]
 
     def values(st, x, u, y):
-        return (st.cost.value(space, x, u), st.dynamics.residual(space, x, u, y),
-                st.constraint_values(x, u))
+        res = (st.dynamics.residual(space, x, u, y) if dynamics
+               else y.new_zeros(y.shape[:-1] + (space.ndx,)))
+        return st.cost.value(space, x, u), res, st.constraint_values(x, u)
 
     costs, dyn_res, cstr_vals = _per_stage(stage, values, x, us, y)
     xN = xs[:, N]

@@ -1,0 +1,112 @@
+"""Dual-arm free-floating space robot (FFSR) reach.
+
+Port of the nominal-model branch of ``examples/dual_ffsr_reach.py``
+(``use_mjcf=False``, ``with_collision=False``): a free-flyer satellite bus
+with two 7-DOF Panda-kinematics arms (:func:`make_dual_arm_ffsr`) in zero
+gravity reaches displaced world-frame poses with both tool frames under
+torque bounds, the base unactuated (14 arm torques), semi-implicit Euler
+with dt = 0.05, N = 60. The published configuration solves it with
+``ProxDDPConfig(tol=1e-4, mu_init=1e-2, max_iters=120, rollout="nonlinear",
+ls_strategy="armijo")``. Its LQ subproblems (ndx = 40, general E) take the
+per-stage loop on K2 and the forward substitution K4. The MJCF model and
+the collision constraints are not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import Tensor
+
+from .. import core
+from .._device import resolve
+from ..modelling import IntegratorSemiImplEuler
+from ..modelling.dynamics.multibody_free import MultibodyFreeFwdDynamics
+from ..modelling.multibody import model as rbd
+from ..modelling.multibody.residuals import FramePlacementResidual, FrameVelocityResidual
+from ..modelling.multibody.robots import FFSR_Q_ARM1, FFSR_Q_ARM2, make_dual_arm_ffsr
+
+SOLVE_OPTIONS = dict(tol=1e-4, mu_init=1e-2, max_iters=120, rollout="nonlinear",
+                     ls_strategy="armijo")
+TOOLS = ("arm1_tool", "arm2_tool")
+U_MAX = (87.0, 87.0, 87.0, 87.0, 12.0, 12.0, 12.0) * 2  # Panda-scale efforts
+# the target posture: these arm joints displaced from the nominal one
+TARGET_DQ = {8: 0.35, 10: -0.3, 12: 0.25, 15: -0.3, 17: 0.3, 19: -0.2}
+
+
+def nominal_configuration(model: rbd.RobotModel) -> Tensor:
+    """The base at the neutral pose and both arms at the application's
+    nominal posture."""
+    q = model.neutral().clone()
+    q[7:14] = torch.as_tensor(FFSR_Q_ARM1, dtype=q.dtype, device=q.device)
+    q[14:21] = torch.as_tensor(FFSR_Q_ARM2, dtype=q.dtype, device=q.device)
+    return q
+
+
+def reach_targets(model: rbd.RobotModel) -> dict:
+    """Reachable tool poses ``{tool: (R, p)}``: the forward kinematics of
+    the nominal posture displaced by ``TARGET_DQ``, the base at neutral."""
+    q = nominal_configuration(model)
+    for i, d in TARGET_DQ.items():
+        q[i] += d
+    return {name: rbd.frame_placement(model, q, model.frame_id(name)) for name in TOOLS}
+
+
+def ffsr_reach_problem(model: rbd.RobotModel, x0: Tensor, targets: dict, u_max: Tensor,
+                       timestep: Tensor, nsteps: int, w_pose=5.0, w_u=1e-3,
+                       w_term_pose=200.0, w_term_vel=20.0) -> core.TrajOptProblem:
+    """The reach from its leaves: initial states ``x0 (B, 41)``, tool poses
+    ``targets {tool: (R (3, 3), p (3,))}``, torque bounds ``u_max (14,)``;
+    stage cost dt·(Σ ½ w_pose‖log₆(M_ref⁻¹ M_tool)‖² + ½ w_u‖u‖²), terminal
+    cost Σ ½ w_term_pose‖log₆‖² + ½ w_term_vel‖v_tool‖² (LOCAL velocities)."""
+    nv = model.nv
+    nu = nv - 6
+    dt, dev = x0.dtype, x0.device
+    space = model.phase_space()
+    actuation = torch.eye(nv, nu, dtype=dt, device=dev).roll(6, 0)
+    dyn = IntegratorSemiImplEuler(
+        ode=MultibodyFreeFwdDynamics(model=model, actuation=actuation), timestep=timestep)
+    pose = {n: FramePlacementResidual(model=model, R_ref=R, p_ref=p, frame_id=model.frame_id(n))
+            for n, (R, p) in targets.items()}
+    vel = {n: FrameVelocityResidual(model=model, v_ref=x0.new_zeros(6),
+                                    frame_id=model.frame_id(n)) for n in targets}
+    w6 = torch.eye(6, dtype=dt, device=dev)
+    rcost = core.CostStack.create(
+        *(core.QuadraticResidualCost(residual=pose[n], weights=w_pose * w6 * timestep)
+          for n in TOOLS),
+        core.QuadraticControlCost(w_u * torch.eye(nu, dtype=dt, device=dev) * timestep))
+    term_cost = core.CostStack.create(
+        *(core.QuadraticResidualCost(residual=pose[n], weights=w_term_pose * w6)
+          for n in TOOLS),
+        *(core.QuadraticResidualCost(residual=vel[n], weights=w_term_vel * w6)
+          for n in TOOLS))
+    constraints = ((core.ControlErrorResidual(target=u_max.new_zeros(nu)),
+                    core.BoxConstraint(lower=-u_max, upper=u_max)),)
+    stage = core.make_stage(rcost, dyn, space, nu, constraints)
+    return core.make_problem(x0, stage, nsteps, term_cost)
+
+
+def create_ffsr_problem(nsteps: int = 60, timestep: float = 0.05, dtype=torch.float64,
+                        device="cuda") -> core.TrajOptProblem:
+    """The published reach, one scenario at the nominal posture at rest;
+    replace ``x0`` by a ``(B, 41)`` batch to solve B scenarios."""
+    dev = resolve(device)
+    model = make_dual_arm_ffsr(dtype=dtype, device=dev)
+    x0 = torch.cat([nominal_configuration(model), model.neutral().new_zeros(model.nv)])
+    return ffsr_reach_problem(
+        model, x0[None], reach_targets(model),
+        torch.tensor(U_MAX, dtype=dtype, device=dev),
+        torch.tensor(timestep, dtype=dtype, device=dev), nsteps)
+
+
+if __name__ == "__main__":
+    import argparse
+
+    from .. import solvers
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+    problem = create_ffsr_problem(device=args.device)
+    res = solvers.solve(problem, solvers.ProxDDPConfig(**SOLVE_OPTIONS))
+    print("conv:", bool(res.conv), "iters:", int(res.num_iters))
+    print("base drift:", float((res.xs[0, -1, :3] - res.xs[0, 0, :3]).norm()))

@@ -15,7 +15,7 @@ problems and returns the solution and the per-stage gains:
   initial and forward solve of :mod:`.riccati`, which computes the same
   function.
 
-``LAUNCHES`` counts kernel launches made by :func:`solve`.
+Launches count in ``_build.LAUNCHES["fused_riccati"]``.
 """
 
 from __future__ import annotations
@@ -29,7 +29,6 @@ from .. import _build
 from . import riccati
 from .lqr_problem import LQRProblem, batch_param
 
-LAUNCHES = 0
 MAX_NX = MAX_NU = 8
 # (nx, nu, nc, explicit E) that sample the domain: the examples' shapes
 # (lqr.py with u_bound, linear_euler.py, cartpole with RK2 and with the
@@ -149,7 +148,6 @@ def launch(problem: LQRProblem, mudyn, mueq, assume_explicit: bool = True):
     """One kernel launch on CUDA tensors, returning what :func:`solve`
     returns. Raises ``ValueError`` for a problem outside the kernel's
     domain, a type other than float32/float64 or tensors off the card."""
-    global LAUNCHES
     ins, strides, outs = kernel_io(problem, mudyn, mueq, assume_explicit)
     kn = problem.knots
     dev = kn.Q.device
@@ -162,7 +160,6 @@ def launch(problem: LQRProblem, mudyn, mueq, assume_explicit: bool = True):
                                        *(t.data_ptr() for t in outs.values()))
         _build.run(fn, dev, kn.nx, kn.nu, kn.nc, int(bool(assume_explicit)),
                    kn.batch, kn.horizon + 1, ptrs, (ctypes.c_longlong * 7)(*strides),
-                   what="fused_riccati")
-        LAUNCHES += 1
+                   kernel="fused_riccati")
     sol = tuple(outs.pop(k) for k in SOLUTION_FIELDS)
     return (*sol, outs)

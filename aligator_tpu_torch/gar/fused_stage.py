@@ -16,8 +16,8 @@ K3 keeps the TPU kernel's own arithmetic, which differs from the loop of
 value Hessian is symmetrized after each stage.
 
 CPU tensors take the ``*_plain`` versions; CUDA tensors take the kernels of
-``csrc/fused_stage.cu`` (float32 or float64) or raise. ``STAGE_LAUNCHES``
-and ``FORWARD_LAUNCHES`` count kernel launches.
+``csrc/fused_stage.cu`` (float32 or float64) or raise. Launches count in
+``_build.LAUNCHES["fused_stage_sweep"]`` and ``["fused_stage_forward"]``.
 """
 
 from __future__ import annotations
@@ -31,8 +31,6 @@ from .. import _build
 from .._linalg import chol_solve, mv
 from .lqr_problem import LQRKnots
 
-STAGE_LAUNCHES = 0
-FORWARD_LAUNCHES = 0
 # the dimension bounds of pallas_stage.fused_stage_eligible /
 # fwd_lanes_eligible, kept so that each shape runs the same kernel as in the
 # JAX package
@@ -227,7 +225,6 @@ def _launch_sweep(fields: dict, n_stages: int, P, p, mudyn, mueq,
                   out: dict) -> None:
     """One K3 launch over stages ``n_stages-1 .. 0`` of the knot ``fields``
     (``(B, T, ...)``), writing into the factor tensors ``out``."""
-    global STAGE_LAUNCHES
     Q = fields["Q"]
     dt, dev = Q.dtype, Q.device
     Bsz, T, nx = Q.shape[:3]
@@ -244,8 +241,7 @@ def _launch_sweep(fields: dict, n_stages: int, P, p, mudyn, mueq,
     outs = [out[k] for k in FACTOR_FIELDS]
     fn = _build.c_function(_SOURCE, _SWEEP[dt], 6, 2)
     _build.run(fn, dev, Bsz, T, n_stages, nx, nu, nc, _pointers(ins + outs),
-               what="fused_stage sweep")
-    STAGE_LAUNCHES += 1
+               kernel="fused_stage_sweep")
 
 
 # ---------------------------------------------------------------- K4
@@ -287,7 +283,6 @@ def forward(gains: dict, x0: Tensor, lam0: Tensor):
         return forward_plain(gains, x0, lam0)
     if dev.type != "cuda":
         raise ValueError(f"fused_stage.forward: unsupported device {dev}")
-    global FORWARD_LAUNCHES
     dt = x0.dtype
     Bsz, T, nu, nx = gains["K"].shape
     nc = gains["Z"].shape[2]
@@ -303,6 +298,5 @@ def forward(gains: dict, x0: Tensor, lam0: Tensor):
     if Bsz and T:
         fn = _build.c_function(_SOURCE, _FORWARD[dt], 5, 2)
         _build.run(fn, dev, Bsz, T, nx, nu, nc, _pointers(ins + outs),
-                   what="fused_stage forward")
-        FORWARD_LAUNCHES += 1
+                   kernel="fused_stage_forward")
     return tuple(outs)

@@ -16,7 +16,7 @@ the per-stage Riccati loop (:mod:`.riccati`), the Quu solve of FDDP and the
 contact-KKT solves of the multibody derivatives (mass matrix and Delassus
 matrix against 3 nv right-hand sides, in one launch each so that each
 matrix is factored once).
-``LAUNCHES`` counts kernel launches made by :func:`spd_solve`.
+Launches count in ``_build.LAUNCHES["spd_solve"]``.
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ from torch import Tensor
 from .. import _build
 from .._linalg import chol_solve
 
-LAUNCHES = 0
 # keep in sync with kMaxN, kMaxR in csrc/spd_solve.cu: systems up to n = 64;
 # a block takes up to 128 right-hand sides, a wider R is split over blocks
 MAX_N, MAX_R = 64, 128
@@ -54,7 +53,6 @@ def spd_solve(A: Tensor, R: Tensor) -> Tensor:
 
 def launch(A: Tensor, R: Tensor) -> Tensor:
     """Launch the kernel on ``A (..., n, n)``, ``R (..., n, r)``."""
-    global LAUNCHES
     n, r = R.shape[-2], R.shape[-1]
     lead = R.shape[:-2]
     if A.shape != lead + (n, n):
@@ -75,6 +73,5 @@ def launch(A: Tensor, R: Tensor) -> Tensor:
     R = R.contiguous()
     fn = _build.c_function(_SOURCE, _C_FUNCS[A.dtype], 3, 4)
     _build.run(fn, A.device, M, n, r, A.data_ptr(), R.data_ptr(),
-               X.data_ptr(), what="spd_solve")
-    LAUNCHES += 1
+               X.data_ptr(), kernel="spd_solve")
     return X

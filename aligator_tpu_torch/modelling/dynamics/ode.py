@@ -69,7 +69,9 @@ class IntegratorSemiImplEuler(ExplicitDynamics):
     """Semi-implicit (symplectic) Euler on a tangent bundle (q, v):
     v⁺ = v + h·a(x, u); q⁺ = q ⊕ h·v⁺; the ODE's xdot is (v, a).
 
-    When the ODE has ``acc_derivatives`` (the multibody contact dynamics),
+    ``forward`` takes the ODE's ``acceleration`` where it has one (the free
+    multibody dynamics: a kernel on the card, values only). When the ODE
+    has ``acc_derivatives`` (the multibody dynamics),
     :meth:`jacobians` assembles (A, B, E) directly from the acceleration
     derivatives and the configuration space's chart Jacobians, as
     ``aligator_tpu/modelling/dynamics/ode.py:73-142`` does. E is not −I
@@ -82,7 +84,8 @@ class IntegratorSemiImplEuler(ExplicitDynamics):
         if not isinstance(space, TangentBundle):
             raise TypeError("semi-implicit Euler needs a TangentBundle state space")
         base = space.base
-        acc = self.ode.xdot(space, x, u)[..., base.ndx:]
+        accel = getattr(self.ode, "acceleration", None)
+        acc = accel(space, x, u) if accel else self.ode.xdot(space, x, u)[..., base.ndx:]
         v_next = x[..., base.nx:] + self.timestep * acc
         q_next = base.integrate(x[..., :base.nx], self.timestep * v_next)
         return torch.cat([q_next, v_next], -1)

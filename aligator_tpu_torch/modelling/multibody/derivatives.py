@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from ..._linalg import cholesky, cholesky_solve_tri
 from ...gar import spd_solve
 from ..spaces.se3 import _hat, cross
 from . import model as rbd
@@ -60,14 +61,16 @@ def parent_velocity(model, X: Tensor) -> Tensor:
     return X[..., tab["dof_parent"], :] * tab["has_parent"]
 
 
-def rnea_tensors(model, q: Tensor, v: Tensor, a: Tensor, kin=None) -> dict:
+def rnea_tensors(model, q: Tensor, v: Tensor, a: Tensor, fext=None, kin=None) -> dict:
     """The shared derivative tensor pass of the JAX ``rnea_tensors``, over
     leading dims: primal S (..., nv, 6), Vb/Accb (..., nb, 6), I6 (..., nb,
     6, 6), f (..., nb, 6), F (..., nv, 6), the q-direction derivative
     tensors dV/dAcc and v-direction dVv/dAccv (..., nv, nb, 6) indexed
     ``[j, b]``, ∂τ/∂q and ∂τ/∂v (..., nv, nv) with rows the τ component,
     and the masks A, D and the pair table SxS (..., nv, nv, 6). Forms
-    ``dI6`` (..., nv, nb, 6, 6) explicitly."""
+    ``dI6`` (..., nv, nb, 6, 6) explicitly. ``fext``: external spatial
+    forces (..., nb, 6) in each joint's LOCAL frame (body-fixed under a
+    perturbation), as :func:`.model.rnea`."""
     dt = q.dtype
     if kin is None:
         kin = rbd.kinematics(model, q, v)
@@ -123,6 +126,10 @@ def rnea_tensors(model, q: Tensor, v: Tensor, a: Tensor, kin=None) -> dict:
           + motion_cross_force(dV, hb)
           + motion_cross_force(Vb[..., None, :, :],
                                torch.einsum("...jbsu,...bu->...jbs", dI6, Vb) + i6(dV)))
+    if fext is not None:
+        fxw = rbd.ext_forces_world(kin, fext)
+        f = f - fxw
+        df = df - maskjb * motion_cross_force(Sj, fxw[..., None, :, :])
     dfv = (i6(dAccv) + motion_cross_force(dVv, hb)
            + motion_cross_force(Vb[..., None, :, :], i6(dVv)))
 
@@ -133,6 +140,88 @@ def rnea_tensors(model, q: Tensor, v: Tensor, a: Tensor, kin=None) -> dict:
     return {"kin": kin, "S": S, "Vb": Vb, "Accb": Accb, "I6": I6, "f": f, "F": F,
             "dV": dV, "dAcc": dAcc, "dVv": dVv, "dAccv": dAccv,
             "dtau_dq": dtau_dq, "dtau_dv": dtau_dv, "A": A, "D": D, "SxS": SxS}
+
+
+def rnea_derivatives(model, q: Tensor, v: Tensor, a: Tensor, fext=None, kin=None):
+    """Analytic ∂τ/∂q (local tangent coordinates) and ∂τ/∂v of
+    ``rnea(model, q, v, a, fext)``, each (..., nv, nv), rows the τ
+    component; ∂τ/∂a is the mass matrix."""
+    t = rnea_tensors(model, q, v, a, fext=fext, kin=kin)
+    return t["dtau_dq"], t["dtau_dv"]
+
+
+def aba_deriv_pack(model, q: Tensor, v: Tensor, tau: Tensor, fext=None) -> dict:
+    """Forward dynamics and its analytic derivatives from one kinematics
+    pass and one Cholesky factor of M: ``a``, ``da_dq``, ``da_dv`` (...,
+    nv, nv), ``solve_M`` (X ↦ M⁻¹X for X (..., nv, k)) and ``kin``. The
+    inverse-dynamics identity ∂a/∂θ = −M⁻¹ ∂RNEA/∂θ at a = a* gives every
+    direction from the RNEA derivative pass."""
+    kin = rbd.kinematics(model, q, v)
+    b = rbd.rnea(model, q, v, torch.zeros_like(v), fext, kin=kin)
+    L = cholesky(rbd.mass_matrix(model, q, kin=kin))
+
+    def solve_M(X: Tensor) -> Tensor:
+        lead = torch.broadcast_shapes(L.shape[:-2], X.shape[:-2])
+        return cholesky_solve_tri(L.expand(lead + L.shape[-2:]),
+                                  X.expand(lead + X.shape[-2:]))
+
+    a = solve_M((tau - b)[..., None])[..., 0]
+    dtau_dq, dtau_dv = rnea_derivatives(model, q, v, a, fext=fext, kin=kin)
+    nv = model.nv
+    da = -solve_M(torch.cat([dtau_dq, dtau_dv], -1))
+    return {"a": a, "da_dq": da[..., :nv], "da_dv": da[..., nv:],
+            "solve_M": solve_M, "kin": kin}
+
+
+def aba_derivatives(model, q: Tensor, v: Tensor, tau: Tensor, fext=None):
+    """Analytic derivatives of ``a = aba(model, q, v, tau, fext)``: returns
+    ``(a, da_dq, da_dv, solve_M)``, ∂a/∂τ = M⁻¹ applied by ``solve_M``
+    (:func:`aba_deriv_pack`)."""
+    pack = aba_deriv_pack(model, q, v, tau, fext)
+    return pack["a"], pack["da_dq"], pack["da_dv"], pack["solve_M"]
+
+
+def ext_generalized(model, kin: dict, ext: Tensor) -> Tensor:
+    """Generalized torque (..., nv) of external spatial forces given in the
+    joints' LOCAL frames (the linear map fext ↦ τ of RNEA at fixed
+    kinematics)."""
+    fxw = rbd.ext_forces_world(kin, ext)
+    return (kin["Phi"] * torch.einsum("bk,...bs->...ks", kin["A"], fxw)).sum(-1)
+
+
+def velocity_tensors(model, q: Tensor, v: Tensor, kin=None) -> dict:
+    """The kinematics plus the body-velocity derivative tensor dV (..., nv,
+    nb, 6) only: what the kinematic residuals' Jacobians need."""
+    if kin is None:
+        kin = rbd.kinematics(model, q, v)
+    S, Vb = kin["Phi"], kin["V"]
+    dV = kin["A"].T[:, :, None] * motion_cross(
+        S[..., :, None, :], Vb[..., None, :, :] - parent_velocity(model, Vb)[..., :, None, :])
+    return {"kin": kin, "S": S, "A": kin["A"], "Vb": Vb, "dV": dV}
+
+
+def frame_velocity_jacobians(model, q: Tensor, v: Tensor, frame_id: int):
+    """Analytic (Jq, Jv), each (..., 6, nv): tangent-space Jacobians of the
+    LOCAL-frame spatial velocity of ``frame_id``."""
+    t = velocity_tensors(model, q, v)
+    kin, S, dV = t["kin"], t["S"], t["dV"]
+    body = model.frame_parents[frame_id]
+    R, p = rbd.frame_placement(model, q, frame_id, kin=kin)
+    V = t["Vb"][..., body, :]
+    omega, VL = V[..., 3:], V[..., :3]
+    ab = t["A"][body][:, None]  # (nv, 1)
+    J6 = rbd.frame_jacobian_lwa(model, q, frame_id, kin=kin)
+    Jv = torch.cat([R.mT @ J6[..., :3, :], R.mT @ J6[..., 3:, :]], -2)
+    pc = p[..., None, :]
+    dom, dVL = dV[..., body, 3:], dV[..., body, :3]
+    dp = ab * (S[..., :3] + cross(S[..., 3:], pc))
+    wmask = ab * S[..., 3:]  # each dof screw's angular velocity at the frame
+    v_at_f = (VL + cross(omega, p))[..., None, :]
+    # d(Rᵀx)[j] = −Rᵀ(w_j × x) + Rᵀ dx[j]; rows j are world vectors
+    dlin = -cross(wmask, v_at_f) + dVL + cross(dom, pc) + cross(omega[..., None, :], dp)
+    dang = -cross(wmask, omega[..., None, :]) + dom
+    Jq = torch.cat([(dlin @ R).mT, (dang @ R).mT], -2)
+    return Jq, Jv
 
 
 def point_derivative_rows(tensors: dict, body: int, p_c: Tensor, dim: int,

@@ -16,7 +16,7 @@ inertia-transport tensor dI₆ explicitly); CUDA tensors take the kernel of
 (body, dim and offset of each contact, kd, kp) is a runtime table of the
 kernel, so one build serves every robot; the kernel walks only the nonzeros
 of the topology masks, from the index lists of :func:`support_lists`, built
-once per model. ``LAUNCHES`` counts launches.
+once per model. Launches count in ``_build.LAUNCHES["fd_rows"]``.
 """
 
 from __future__ import annotations
@@ -34,7 +34,6 @@ from . import model as rbd
 from .contact import contact_offsets
 from .derivatives import fd_rows_inputs, point_derivative_rows, rnea_tensors
 
-LAUNCHES = 0
 MAX_CONTACTS = 8  # keep in sync with kMaxContacts in csrc/fd_rows.cu
 _SOURCE = "fd_rows"
 _C_FUNCS = {torch.float32: "fd_rows_f32", torch.float64: "fd_rows_f64"}
@@ -150,7 +149,6 @@ def launch(model, inputs: dict, contact_bodies, contact_dims, kd: float, kp: flo
     """Launch the kernel on the inputs of :func:`.derivatives.fd_rows_inputs`
     plus ``v``, ``lam`` and ``act`` (each with the same leading dims);
     ``kp`` multiplies the position rows (0 without position references)."""
-    global LAUNCHES
     S = inputs["S"]
     lead, (nv, six) = S.shape[:-2], S.shape[-2:]
     nb = inputs["Vb"].shape[-2]
@@ -188,6 +186,5 @@ def launch(model, inputs: dict, contact_bodies, contact_dims, kd: float, kp: flo
         # outputs, the stream
         fn = _build.c_function(_SOURCE, _C_FUNCS[dtype], 3, 2 + len(flat) + 1 + 4 + 1)
         _build.run(fn, dev, K, nv, nb, ctypes.addressof(table), ctypes.addressof(gains),
-                   *(x.data_ptr() for x in flat + [lists] + out), what="fd_rows")
-        LAUNCHES += 1
+                   *(x.data_ptr() for x in flat + [lists] + out), kernel="fd_rows")
     return tuple(o.reshape(lead + o.shape[1:]) for o in out)

@@ -89,7 +89,7 @@ def half_sitting(model: RobotModel, hip_pitch=-0.411, knee=0.859,
     """Talos-like half-sitting configuration with both soles flat at z = 0
     (the base height from this model's own forward kinematics), in the
     model's dtype and device."""
-    q = model.neutral(model.mass.dtype, model.mass.device).clone()
+    q = model.neutral().clone()
     for leg in range(2):
         base = 7 + 6 * leg  # 7 base coords, then 6 per leg
         q[base + 2] = hip_pitch

@@ -32,6 +32,7 @@ import torch
 from torch import Tensor
 
 from ..._device import resolve
+from ..._linalg import cholesky, cholesky_solve_tri
 from ...core.manifolds import CartesianProduct, Manifold, TangentBundle, VectorSpace
 from ..spaces.se3 import SE3, cross, exp3_quat, quat_to_matrix
 
@@ -76,6 +77,16 @@ class RobotModel:
     def nv(self) -> int:
         return sum(_JOINT_NV[t] for t in self.joint_types)
 
+    @property
+    def q_slices(self) -> list:
+        """``(start, stop)`` of each joint's configuration coordinates."""
+        return _slices(self.joint_types, _JOINT_NQ)
+
+    @property
+    def v_slices(self) -> list:
+        """``(start, stop)`` of each joint's velocity coordinates."""
+        return _slices(self.joint_types, _JOINT_NV)
+
     def frame_id(self, name: str) -> int:
         return self.frame_names.index(name)
 
@@ -93,7 +104,37 @@ class RobotModel:
         return TangentBundle(self.configuration_space())
 
     def neutral(self, dtype=None, device=None) -> Tensor:
-        return self.configuration_space().neutral(dtype, device)
+        """The neutral configuration, in the model's own dtype and on its
+        device unless others are asked for."""
+        return self.configuration_space().neutral(
+            self.mass.dtype if dtype is None else dtype,
+            self.mass.device if device is None else device)
+
+
+def _slices(joint_types, width) -> list:
+    out, i = [], 0
+    for t in joint_types:
+        out.append((i, i + width[t]))
+        i += width[t]
+    return out
+
+
+def with_frame(model: RobotModel, name: str, parent: int, placement_p=None,
+               placement_q=None) -> RobotModel:
+    """A copy of ``model`` with one more operational frame on joint
+    ``parent`` (identity placement unless given)."""
+    like = model.fplac_p
+    p = like.new_zeros(3) if placement_p is None else torch.as_tensor(
+        placement_p, dtype=like.dtype, device=like.device)
+    qq = like.new_tensor([0.0, 0.0, 0.0, 1.0]) if placement_q is None else \
+        torch.as_tensor(placement_q, dtype=like.dtype, device=like.device)
+    return dataclasses.replace(
+        model,
+        fplac_p=torch.cat([model.fplac_p, p[None]], 0),
+        fplac_q=torch.cat([model.fplac_q, qq[None]], 0),
+        frame_parents=model.frame_parents + (int(parent),),
+        frame_names=model.frame_names + (str(name),),
+    )
 
 
 def make_model(joints, frames=(), gravity=(0.0, 0.0, -9.81), dtype=torch.float64,
@@ -223,6 +264,11 @@ def _device_tables(joint_types: tuple, parents: tuple, dtype, device) -> dict:
     for k in ("codes", "q_idx", "dof_joint", "dof_col"):
         out[k] = torch.as_tensor(top[k], device=device)
     out["dof_codes"] = out["codes"][out["dof_joint"]]
+    # the free-dynamics kernel's joint table: type, parent, first q and v index
+    v_first = np.searchsorted(top["dof_joint"], np.arange(len(joint_types)))
+    out["itab"] = torch.as_tensor(np.concatenate(
+        [top["codes"], top["parents"], top["q_idx"][:, 0], v_first]).astype(np.int32),
+        device=device)
     pb = top["dof_parent"]
     out["dof_parent"] = torch.as_tensor(pb.clip(min=0), device=device)
     out["has_parent"] = torch.as_tensor((pb >= 0)[:, None], dtype=dtype, device=device)
@@ -237,27 +283,50 @@ def tables(model: RobotModel, like: Tensor) -> dict:
     return _device_tables(model.joint_types, model.parents, like.dtype, like.device)
 
 
+def _placement_rotations(model: RobotModel, like: Tensor) -> Tensor:
+    """The joints' placement rotations (nj, 3, 3) in ``like``'s dtype and
+    device, made once a model: constant, they would otherwise cost ~45 small
+    operations in every kinematics pass of a rollout. Not kept when made
+    while a CUDA graph is being captured (such a tensor holds its values
+    only after a replay) or when the placements take gradients."""
+    key = (like.dtype, like.device)
+    cache = model.__dict__.setdefault("_placement_rotations", {})
+    R0 = cache.get(key)
+    if R0 is None:
+        R0 = quat_to_matrix(model.jplac_q.to(like.dtype))
+        capturing = like.is_cuda and torch.cuda.is_current_stream_capturing()
+        if not (capturing or model.jplac_q.requires_grad):
+            cache[key] = R0
+    return R0
+
+
 def _local_transforms(model: RobotModel, q: Tensor):
     """(R, p) of every joint in its parent frame: ``(..., nj, 3, 3)``,
-    ``(..., nj, 3)``; all three joint types evaluated, selected by code."""
+    ``(..., nj, 3)``; each joint type the model has evaluated for every
+    joint, selected by code."""
     tab = tables(model, q)
-    mask = tab["q_mask"]
-    q_pad = q[..., tab["q_idx"]] * mask + tab["q_default"] * (1.0 - mask)
+    types = set(model.joint_types)
     codes = tab["codes"]
-    R0 = quat_to_matrix(model.jplac_q.to(q.dtype))
-    p0 = model.jplac_p.to(q.dtype)
     a = model.axes.to(q.dtype)
-    R_rev = quat_to_matrix(exp3_quat(a * q_pad[..., 0:1]))
-    p_prism = a * q_pad[..., 0:1]
-    R_ff = quat_to_matrix(q_pad[..., 3:7])
-    p_ff = q_pad[..., :3]
-    eye = torch.eye(3, dtype=q.dtype, device=q.device)
-    is_rev = (codes == 0)[:, None, None]
-    is_ff = (codes == 2)[:, None, None]
-    R_j = torch.where(is_rev, R_rev, torch.where(is_ff, R_ff, eye))
-    p_j = torch.where((codes == 1)[:, None], p_prism,
-                      torch.where((codes == 2)[:, None], p_ff, torch.zeros_like(p_ff)))
-    return R0 @ R_j, p0 + (R0 @ p_j[..., None])[..., 0]
+    if FREEFLYER in types:
+        mask = tab["q_mask"]
+        q_pad = q[..., tab["q_idx"]] * mask + tab["q_default"] * (1.0 - mask)
+        th = q_pad[..., 0:1]
+    else:  # one coordinate a joint
+        th = q[..., tab["q_idx"][:, 0]][..., None]
+    lead = th.shape[:-1]
+    R_j = torch.eye(3, dtype=q.dtype, device=q.device)
+    p_j = th.new_zeros(lead + (3,))
+    if FREEFLYER in types:
+        R_j = torch.where((codes == 2)[:, None, None], quat_to_matrix(q_pad[..., 3:7]), R_j)
+        p_j = torch.where((codes == 2)[:, None], q_pad[..., :3], p_j)
+    if PRISMATIC in types:
+        p_j = torch.where((codes == 1)[:, None], a * th, p_j)
+    if REVOLUTE in types:
+        R_j = torch.where((codes == 0)[:, None, None], quat_to_matrix(exp3_quat(a * th)), R_j)
+    R0 = _placement_rotations(model, q)
+    p0 = model.jplac_p.to(q.dtype)
+    return R0 @ R_j.expand(lead + (3, 3)), p0 + (R0 @ p_j[..., None])[..., 0]
 
 
 def fk_world(model: RobotModel, q: Tensor):
@@ -334,10 +403,20 @@ def body_accelerations(model: RobotModel, kin: dict, a: Tensor) -> Tensor:
             + torch.einsum("bk,...ks->...bs", A, beta) + gravity_offset(model, a))
 
 
+def ext_forces_world(kin: dict, ext: Tensor) -> Tensor:
+    """External spatial forces ``(..., nj, 6)`` given in each joint's local
+    frame, expressed at the world origin."""
+    R, p = kin["R"], kin["p"]
+    fl = (R @ ext[..., :3, None])[..., 0]
+    return torch.cat([fl, (R @ ext[..., 3:, None])[..., 0] + cross(p, fl)], -1)
+
+
 def rnea(model: RobotModel, q: Tensor, v: Tensor, a: Tensor,
-         kin: Optional[dict] = None) -> Tensor:
-    """Inverse dynamics τ = RNEA(q, v, a); pass ``kin`` (from
-    ``kinematics(model, q, v)``) to share the kinematics pass."""
+         ext_forces: Optional[Tensor] = None, kin: Optional[dict] = None) -> Tensor:
+    """Inverse dynamics τ = RNEA(q, v, a). ``ext_forces``: external spatial
+    forces ``(..., nj, 6)`` in each joint's local frame (pinocchio's
+    ``fext``). Pass ``kin`` (from ``kinematics(model, q, v)``) to share the
+    kinematics pass."""
     if kin is None:
         kin = kinematics(model, q, v)
     Acc = body_accelerations(model, kin, a)
@@ -345,7 +424,28 @@ def rnea(model: RobotModel, q: Tensor, v: Tensor, a: Tensor,
     V = kin["V"]
     h = inertia_apply(m, c_w, I_w, V)
     f = inertia_apply(m, c_w, I_w, Acc) + motion_cross_force(V, h)
+    if ext_forces is not None:
+        f = f - ext_forces_world(kin, ext_forces)
     return (kin["Phi"] * torch.einsum("bk,...bs->...ks", kin["A"], f)).sum(-1)
+
+
+def nonlinear_effects(model: RobotModel, q: Tensor, v: Tensor) -> Tensor:
+    """Coriolis, centrifugal and gravity torques b(q, v) = RNEA(q, v, 0)."""
+    return rnea(model, q, v, torch.zeros_like(v))
+
+
+def aba(model: RobotModel, q: Tensor, v: Tensor, tau: Tensor,
+        ext_forces: Optional[Tensor] = None) -> Tensor:
+    """Forward dynamics q̈ = M(q)⁻¹(τ − b(q, v)), M and b from one
+    kinematics pass, M⁻¹ by a batched Cholesky (the JAX package solves it
+    in XLA too, outside its kernels) and two triangular solves, which a
+    CUDA graph can capture. Differentiable by plain autograd,
+    forward and reverse; the solvers read the analytic
+    :func:`.derivatives.aba_derivatives` where they can."""
+    kin = kinematics(model, q, v)
+    b = rnea(model, q, v, torch.zeros_like(v), ext_forces, kin=kin)
+    L = cholesky(mass_matrix(model, q, kin=kin))
+    return cholesky_solve_tri(L, (tau - b)[..., None])[..., 0]
 
 
 def mass_matrix(model: RobotModel, q: Tensor, kin: Optional[dict] = None) -> Tensor:
@@ -385,3 +485,26 @@ def frame_jacobian_lwa(model: RobotModel, q: Tensor, frame_id: int,
     lin = (Phi[..., :3] + cross(Phi[..., 3:], pw[..., None, :])) * mask
     ang = Phi[..., 3:] * mask
     return torch.cat([lin.mT, ang.mT], -2)
+
+
+def frame_velocity(model: RobotModel, q: Tensor, v: Tensor, frame_id: int,
+                   kin: Optional[dict] = None) -> Tensor:
+    """Spatial velocity (..., 6) of a frame in its LOCAL frame (linear,
+    angular)."""
+    if kin is None:
+        kin = kinematics(model, q, v)
+    Rw, pw = frame_placement(model, q, frame_id, kin=kin)
+    V = kin["V"][..., model.frame_parents[frame_id], :]
+    w = V[..., 3:]
+    v_at_f = V[..., :3] + cross(w, pw)
+    return torch.cat([(Rw.mT @ v_at_f[..., None])[..., 0],
+                      (Rw.mT @ w[..., None])[..., 0]], -1)
+
+
+def center_of_mass(model: RobotModel, q: Tensor, kin: Optional[dict] = None) -> Tensor:
+    """World-frame centre of mass (..., 3) of the whole robot."""
+    if kin is None:
+        kin = kinematics(model, q)
+    c_w = kin["p"] + (kin["R"] @ model.com.to(q.dtype)[..., None])[..., 0]
+    m = model.mass.to(q.dtype)
+    return torch.einsum("b,...bs->...s", m, c_w) / m.sum()

@@ -46,7 +46,7 @@ def make_quadruped(base_mass=1.4, leg_mass=0.15, shank_mass=0.06, hip_x=0.19,
 
 def standing_configuration(model: RobotModel, height=0.25, knee_bend=0.8) -> Tensor:
     """A crouched stance: base at ``height``, legs bent symmetrically."""
-    q = model.neutral(model.mass.dtype, model.mass.device).clone()
+    q = model.neutral().clone()
     q[2] = height
     for leg in range(4):
         q[7 + 2 * leg] = knee_bend / 2

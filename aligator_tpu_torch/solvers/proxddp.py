@@ -48,6 +48,7 @@ scenarios that took this iteration.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import warnings
 from dataclasses import dataclass
@@ -57,6 +58,7 @@ from typing import Callable, Optional
 import torch
 from torch import Tensor
 
+from .. import _build
 from .._linalg import infnorm, mtv, mv
 from .._linalg import select as _where
 from ..core import problem as problem_mod
@@ -75,6 +77,8 @@ LINEAR_SOLVERS = ("serial", "serial_scan", "parallel", "associative")
 # below the μ floor). The counts accumulate on the solve's device, without
 # a host sync; read them with int()
 ROUTE_STEPS = dict.fromkeys(LINEAR_SOLVERS + ("associative_fallback",), 0)
+# nonlinear line-search trials made (each a rollout), for launch accounting
+NONLINEAR_TRIALS = 0
 
 
 def _count_steps(route: str, mask: Tensor) -> None:
@@ -465,8 +469,8 @@ def _trial_values(problem, cfg, st, data: ProblemData, trial):
 def _nonlinear_trial(problem, cfg, st, gains: dict, dx0, dlam0, alpha):
     trial, slacks = _nonlinear_rollout(problem, cfg, st, gains, dx0, dlam0, alpha)
     # by construction the rollout's dynamics gap is -slack
-    data = dataclasses.replace(problem_mod.evaluate(problem, trial[0], trial[1]),
-                               dyn_res=-slacks)
+    data = dataclasses.replace(problem_mod.evaluate(problem, trial[0], trial[1],
+                                                    dynamics=False), dyn_res=-slacks)
     return _trial_values(problem, cfg, st, data, trial)
 
 
@@ -489,11 +493,14 @@ class _TrialGraph:
     times more with an implicit rule's Newton steps), each a host launch,
     whose stages cannot be batched; the replay launches them as one. A
     trial that cannot be captured (an operation that waits on the host)
-    runs eagerly, with a :class:`TrialGraphWarning`."""
+    runs eagerly, with a :class:`TrialGraphWarning`. The kernel launches
+    that the capture records (``_build.LAUNCHES``) are taken back, since
+    recording is not launching, and added again at every replay."""
 
     def __init__(self):
         self.graph = None
         self.eager = False
+        self.replay_launches = collections.Counter()
 
     def __call__(self, problem, cfg, st, gains: dict, dx0, dlam0, alpha):
         if self.eager:
@@ -513,6 +520,7 @@ class _TrialGraph:
         for k, v in ins.items():
             self.static[k].copy_(v)
         self.graph.replay()
+        _build.LAUNCHES.update(self.replay_launches)
         trial, *values = self.out
         return tuple(t.clone() for t in trial), *(v.clone() for v in values)
 
@@ -532,8 +540,11 @@ class _TrialGraph:
             self._run(problem, cfg)
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        before = _build.LAUNCHES.copy()
         with torch.cuda.graph(graph):
             self.out = self._run(problem, cfg)
+        self.replay_launches = _build.LAUNCHES - before
+        _build.LAUNCHES.subtract(self.replay_launches)
         self.graph = graph
 
 
@@ -542,7 +553,9 @@ def _forward_pass(problem, cfg, st: _State, gains: dict, steps, alpha: Tensor,
     """Trial point of a step of length ``alpha (B,)`` (a linear step, or the
     nonlinear rollout along ``gains``, through ``graph`` where given), its
     cost, merit and primal infeasibility."""
+    global NONLINEAR_TRIALS
     if cfg.rollout == "nonlinear":
+        NONLINEAR_TRIALS += 1
         args = (st, gains, steps[0][:, 0], steps[4][:, 0], alpha)
         if graph is not None:
             return graph(problem, cfg, *args)

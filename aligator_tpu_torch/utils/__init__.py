@@ -1,1 +1,1 @@
-"""utils — the solver trace logger."""
+"""utils — the solver trace logger and rollouts."""

@@ -7,7 +7,11 @@ any failed check raises and the script exits non-zero:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the CUDA kernels of ``aligator_tpu_torch/csrc`` with nvcc, one
    process per library (K1 one per shape of ``fused_riccati.DOMAIN_SAMPLES``),
-   in parallel, with ptxas's registers and spills for each;
+   in parallel, with ptxas's registers and spills for each; the two K1
+   shapes that take nvcc one to two minutes build in a background thread
+   while the phases run, and are checked after the Talos walk; a worker
+   process (CPU only) meanwhile solves the free-dynamics paths' CPU
+   references (phase 11);
 3. kernels: each kernel (K1 fused Riccati, K2 SPD solve, K3 fused backward
    sweep, K4 forward substitution, K5 contact-dynamics derivative rows) held
    against its plain PyTorch version on the card, at the main paths' shapes
@@ -22,7 +26,11 @@ any failed check raises and the script exits non-zero:
    associative leaves and gain recovery), K5 at both walk batches; K3 and
    K4 also print their shared memory, registers and resident blocks per SM
    at the main shapes, and K3 its time at batches of 132 to 1024 (1 to 7.8
-   scenarios for each of the 132 SMs);
+   scenarios for each of the 132 SMs); K2 and K4 also at the free-dynamics
+   reaches' shapes (fp64) and K1 at the acrobot's; the free-dynamics kernel
+   (``csrc/free_fd.cu``, the forward dynamics of ``model.aba``) on every
+   robot builder against its plain version and timed at the three paths'
+   shapes;
 4. the SE(2)-car path: batched ProxDDP (N=50, batch 32768, fp32, the
    ``bench.py`` configuration) on the card, with the plain versions patched
    to raise and the kernels' launch counts read around it, the converged
@@ -41,8 +49,10 @@ any failed check raises and the script exits non-zero:
    CPU in fp64 and checked, and 2 scenarios solved on the card in fp32 step
    by step against the JAX package's fp32 solve of them (a committed
    reference: which Newton steps are rejected, infeasibilities per step);
-7. the parallel-in-time LQ solvers, with the plain versions patched to raise
-   and launch counts checked against the route: (a) the latency of one LQ
+7. K1 at the two shapes built in the background, against its plain
+   version (fp64); the parallel-in-time LQ solvers, with the plain
+   versions patched to raise and launch counts checked against the route:
+   (a) the latency of one LQ
    solve (N = 2048, nx = 4, nu = 2, nc = 0, fp32, mu = 1e-3; the
    ``bench.py:297-310`` protocol) by the serial solve (K1), the associative
    scan (one refinement step) and 8 parallel legs, at B = 1 and 1024, by the
@@ -68,13 +78,13 @@ any failed check raises and the script exits non-zero:
    cut to N = 20, two Newton steps a stage in the rollout, to convergence,
    its converged fraction held to a floor likewise, and a breakdown) and
    ``hessian_approx='exact'`` (cut to 20 iterations), each with its CPU
-   check; then the float32 run at batch 1024, cut to 150 iterations, whose
+   check; then the float32 run at batch 1024, cut to 40 iterations, whose
    converged fraction within them gates nothing. Every line-search trial
    is a CUDA-graph replay: a trial that falls back to eager execution
    fails the script;
-9. inverse LQR (``examples/inverse_lqr.py``): 16 demonstrations and 300
-   Adam steps through ``gar.diff.solve`` on the card and again on the CPU
-   (the final loss and the first step's gradient compared), K2's launches
+9. inverse LQR (``examples/inverse_lqr.py``): 16 demonstrations and 100
+   Adam steps (the published fit takes 300) through ``gar.diff.solve`` on
+   the card and again on the CPU (the final loss and the first step's gradient compared), K2's launches
    checked against the forward and adjoint solves' per-stage loops, ms a
    step at 16 and 4096 demonstrations and a breakdown of one step;
 10. the θ sensitivities of the double-integrator family
@@ -83,7 +93,24 @@ any failed check raises and the script exits non-zero:
    against the CPU's on the first 512, 4 scenarios against central finite
    differences of converged values, K2's launches in the θ backward, ms a
    harvest and a breakdown of one;
-11. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
+11. the free multibody dynamics (``examples/ur5_reach.py``, N = 40, batch
+   1024; ``examples/dual_ffsr_reach.py``, the dual-arm free-floating space
+   robot, N = 60, batch 256; ``examples/acrobot.py``, N = 120, batch 1024;
+   float64, the published options, ``rollout='nonlinear'``), with the
+   plain versions patched to raise and the launch counts checked against
+   the route (K2 twice a stage and K4 once a Newton step on the reaches,
+   K1 once a Newton step on the acrobot, the free-dynamics kernel once a
+   stage of every rollout on all three): solves/s, the converged
+   fraction and the iterations, the first 16 scenarios' converged count
+   held to the JAX package's less one (``tests/data/torch_free_ref.npz``),
+   those 16 again on the CPU for 4 iterations, held at each iteration to
+   1e-9 or to 100 times the distance between two CPU solves an ulp apart
+   in their initial states, whichever is larger (these solves magnify any
+   rounding), the same 16 on the card with ``model.aba`` in place of the
+   free-dynamics kernel held likewise (the witness that the kernel's
+   rounding is no larger than any other), and a device-time breakdown of
+   an FFSR solve cut to 1 iteration;
+12. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -92,11 +119,15 @@ import contextlib
 import dataclasses
 import json
 import math
+import multiprocessing
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import traceback
 import warnings
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -108,6 +139,10 @@ H100_FP64_FLOP_PER_S = 34e12  # fp64 outside the tensor cores (data sheet)
 BATCH = 32768
 NSTEPS = 50
 SEED = 0
+# K1 domain samples whose nvcc runs take minutes (done 77 and 138 s after
+# the build's start, every other library within 17 s, on an H100 machine in
+# PR 9): built in the background, checked after the Talos walk
+K1_SLOW_SHAPES = ((8, 8, 16, False), (8, 8, 32, True))
 # max|kernel - plain| / max(1, max|plain|), float32: the plain version's own
 # float32 error against float64 reaches 1e-4 on the multipliers at
 # mu_dyn = 1e-4 (cancellation in lam0 = (g0 + G0 x0)/mu_dyn), so two float32
@@ -140,6 +175,7 @@ K5_FP32_TOL = 1e-3
 TALOS_T_DS, TALOS_T_SS = 4, 10  # N = 32
 TALOS_BATCHES = (16, 256)
 TALOS_CPU_SCENARIOS = 2
+TALOS_TIMED = 3  # timed batches at each walk batch (5 before PR 9's free-dynamics phase)
 # card vs CPU, both float64, max |Δ| over xs and us relative to their scale.
 # In float32 the reduced KKT of a Newton step can come out indefinite (its
 # condition number is above 1/eps of float32), so which step is rejected
@@ -182,8 +218,9 @@ CART_MIDPOINT_NEWTON = 2
 CART_MIDPOINT_MIN_FRAC = 0.9
 CART_EXACT_ITERS = 20
 # the fp32 run's depth: its converged fraction within these iterations is
-# read beside fp64's within the same (each iteration ~0.3 s, host-bound)
-CART_FP32_ITERS = 150
+# read beside fp64's within the same (each iteration ~0.3 s, host-bound);
+# cut from 150 to 40 to make room for the free-dynamics phase
+CART_FP32_ITERS = 40
 # the depth of the profiled solve (fp64, batch 1024): the profiler's
 # processing of a solve's ~64,000 kernels an iteration takes ~10 s an
 # iteration on an H100 (PERF.md §6)
@@ -199,9 +236,41 @@ CART_CPU_SCENARIOS = 16
 # trajectories at 300; PERF.md §6), so only the first iterations can agree
 CART_CPU_ITERS = 4
 CART_CPU_TOL = 1e-6
+# free multibody dynamics (examples/ur5_reach.py, examples/dual_ffsr_reach.py,
+# examples/acrobot.py), float64, the published options
+FREE_BATCHES = {"ur5": 1024, "ffsr": 256, "acrobot": 1024}
+# the JAX package's solve of the first 16 scenarios of each batch at the
+# published size (tools/torch_free_fixture.py): each path's converged count
+# on them is held to JAX's less one
+FREE_REF = "tests/data/torch_free_ref.npz"
+FREE_NSTEPS = {"ur5": 40, "ffsr": 60, "acrobot": 120}
+FREE_CPU_SCENARIOS = 16
+# card vs CPU, relative, by iteration: these solves magnify any difference
+# of rounding from their first Newton step. Two CPU solves of the first 16
+# scenarios whose initial states differ by one ulp (x0 and x0·(1 + 1e-15))
+# part by 5.4e-10, 1.6e-8, 5.4e-7 (UR5) and 4.5e-8, 5.1e-7, 2.5e-7 (FFSR)
+# in their history rows after 1, 2, 3 iterations, as far as the card and
+# the CPU do (UR5 3.7e-10, 1.2e-8, 3.0e-7; FFSR 3.0e-7, 1.3e-6, 6.9e-7 on an
+# H100), and the CPU with its forward dynamics summed in another order
+# parts from itself alike (tools/torch_free_divergence.py; PERF.md §6). So
+# each iteration's rows and the iterate after CART_CPU_ITERS iterations are
+# held to FREE_CPU_TOL or to FREE_SPREAD_FACTOR times the largest distance
+# between the CPU solve from x0 and those from x0·(1 ± FREE_SPREAD_EPS),
+# measured in the same run, whichever is larger; a fault parts them by
+# orders of magnitude more
+FREE_CPU_TOL = 1e-9
+FREE_SPREAD_EPS = 1e-15
+FREE_SPREAD_FACTOR = 100
+# the depth of the FFSR's profiled solve (~157,000 device kernels an
+# iteration, PERF.md §5)
+FREE_PROFILE_ITERS = 1
+# the free-dynamics kernel against its plain version, fp32: the FFSR's mass
+# matrix has condition numbers ~1e4 to 1e5, so two fp32 evaluations in
+# different orders differ by ~cond·eps
+FREE_FD_FP32_TOL = 1e-2
 # inverse LQR (examples/inverse_lqr.py)
 INV_DEMOS = (16, 4096)
-INV_STEPS = 300
+INV_STEPS = 100  # cut from 300 (the published fit) for the free-dynamics phase
 INV_TIMED_STEPS = 10
 INV_LOSS_TOL = 1e-6  # final loss, card vs CPU, relative
 INV_GRAD_TOL = 1e-8  # first step's gradient, card vs CPU, relative
@@ -236,7 +305,47 @@ def device_phase():
 # ---------------------------------------------------------------- phase 2
 
 
+def _print_build_log(variants):
+    from aligator_tpu_torch import _build
+
+    for v in variants:
+        secs, log = _build.BUILD_LOG[_build.label(v)]
+        print(f"[build] {_build.label(v)}: built {secs:.1f} s after the start")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {_build.label(v)}: {line.strip()}")
+
+
+class BackgroundBuild:
+    """``_build.build(variants)`` in a thread; ``join()`` waits for it and
+    raises what it raised."""
+
+    def __init__(self, variants):
+        self.variants, self.error = variants, None
+        self.thread = threading.Thread(target=self._run, name="nvcc-background")
+        self.t0 = time.perf_counter()
+        self.thread.start()
+
+    def _run(self):
+        from aligator_tpu_torch import _build
+
+        try:
+            _build.build(self.variants)
+        except BaseException as err:  # re-raised by join()
+            self.error = err
+        self.secs = time.perf_counter() - self.t0
+
+    def join(self):
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        print(f"[build] background: {len(self.variants)} libraries in {self.secs:.1f} s")
+        _print_build_log(self.variants)
+
+
 def build_phase():
+    """Build every library, then start the K1 shapes of K1_SLOW_SHAPES in
+    the background (returns their :class:`BackgroundBuild`)."""
     from aligator_tpu_torch import _build
 
     from aligator_tpu_torch.gar import fused_riccati as fr
@@ -244,20 +353,19 @@ def build_phase():
     # K1 is built a shape at a time: its domain samples and the latency
     # phase's shape, with the others
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu") if p.stem != fr._SOURCE)
-    shapes = list(fr.DOMAIN_SAMPLES) + [(*LAT_DIMS, True)]
-    variants = names + [fr.variant(*s) for s in dict.fromkeys(shapes)]
+    shapes = [s for s in dict.fromkeys(list(fr.DOMAIN_SAMPLES) + [(*LAT_DIMS, True)])
+              if s not in K1_SLOW_SHAPES]
+    variants = names + [fr.variant(*s) for s in shapes]
     t0 = time.perf_counter()
     _build.build(variants)
     dt = time.perf_counter() - t0
+    # after the others: a build holds the build lock until its last library
+    late = BackgroundBuild([fr.variant(*s) for s in K1_SLOW_SHAPES])
     print(f"[build] {len(variants)} libraries ({names} and K1 at "
-          f"{len(variants) - len(names)} shapes) in {dt:.1f} s")
-    for v in variants:
-        secs, log = _build.BUILD_LOG[_build.label(v)]
-        print(f"[build] {_build.label(v)}: built {secs:.1f} s after the start")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {_build.label(v)}: {line.strip()}")
-    return dt
+          f"{len(variants) - len(names)} shapes) in {dt:.1f} s; K1 at {K1_SLOW_SHAPES} "
+          f"building in the background")
+    _print_build_log(variants)
+    return late
 
 
 # ---------------------------------------------------------------- phase 3
@@ -355,18 +463,22 @@ def k1_timing(shape, T, B, dtype=torch.float32):
                 bound_ms=bnd, bound_by=by, launched=launched)
 
 
-def kernel_phase():
+def k1_domain_check(shapes):
+    """K1 against its plain version at ``shapes`` (domain samples), fp64, a
+    batch no block size divides; the data of every sample drawn from one
+    stream in the order of ``DOMAIN_SAMPLES``, whichever are checked."""
     from aligator_tpu_torch.gar import fused_riccati as fr
     from aligator_tpu_torch.gar.lqr_problem import random_convex_problem
 
     rng = np.random.default_rng(SEED)
-    # every domain sample, fp64, a batch no block size divides
     for (nx, nu, nc, expl) in fr.DOMAIN_SAMPLES:
         B, T = 1000, 11
         prob = random_convex_problem(rng, B, T - 1, nx, nu, nc, not expl,
                                      torch.float64, "cuda")
         mud = torch.tensor(10 ** rng.uniform(-3, -1, B), device="cuda")
         mue = torch.tensor(10 ** rng.uniform(-3, -1, B), device="cuda")
+        if (nx, nu, nc, expl) not in shapes:
+            continue
         got = fr.solve(prob, mud, mue, expl)
         ref = fr.solve_plain(prob, mud, mue, expl)
         torch.cuda.synchronize()
@@ -377,6 +489,17 @@ def kernel_phase():
               f"{max(_compare(got, ref, abs_err).values()):.3e} (tol {FP64_TOL:g})")
         check(worst <= FP64_TOL, f"fp64 kernel vs plain {errs}")
 
+
+def k1_slow_phase(late):
+    """The K1 shapes built in the background, once built."""
+    late.join()
+    k1_domain_check(K1_SLOW_SHAPES)
+
+
+def kernel_phase():
+    from aligator_tpu_torch.gar import fused_riccati as fr
+
+    k1_domain_check([s for s in fr.DOMAIN_SAMPLES if s not in K1_SLOW_SHAPES])
     # the main path's shape: SE(2) car LQ subproblem, fp32, general E
     main = (3, 2, 0, False)
     T, B = NSTEPS + 1, BATCH
@@ -409,7 +532,9 @@ def kernel_phase():
              "cartpole_rk2_fp64": k1_timing((4, 1, 1, True), 101, CART_BATCH,
                                             torch.float64),
              "cartpole_midpoint_fp64": k1_timing((4, 1, 1, False), CART_MIDPOINT_NSTEPS + 1,
-                                                 CART_VARIANT_BATCH, torch.float64)}
+                                                 CART_VARIANT_BATCH, torch.float64),
+             "acrobot_fp64": k1_timing((4, 1, 1, False), FREE_NSTEPS["acrobot"] + 1,
+                                       FREE_BATCHES["acrobot"], torch.float64)}
     t = times["se2car"]
     return dict(
         name="fused_riccati", route="cuda",
@@ -605,6 +730,11 @@ def k2_phase():
     # solve has the inverse LQR's shape at 4096
     shapes += [("inverse LQR", M, n, 5, f64) for M in INV_DEMOS for n in (4, 2)]
     shapes += [("θ harvest", SENS_BATCH, 1, 5, f64)]
+    # the free-dynamics reaches' per-stage loops (Schur n = ndx and reduced
+    # KKT n = nu, each against ndx + 1 columns): the UR5 at 1024, the FFSR
+    # at 256
+    shapes += [("UR5 loop", FREE_BATCHES["ur5"], n, 13, f64) for n in (12, 6)]
+    shapes += [("FFSR loop", FREE_BATCHES["ffsr"], n, 41, f64) for n in (40, 14)]
     by_shape = {}
     for i, (what, M, n, r, dtype) in enumerate(shapes):
         A, R = spd_batch(M, n, r, dtype, SEED + 10 + i)
@@ -771,24 +901,31 @@ def k4_phase():
         check(err <= FP64_TOL, f"fused_stage forward fp64 {err}")
 
     out = {}
-    T = MEDIUM_NSTEPS + 1
-    for i, (B, nx, nu, nc) in enumerate(((HUMANOID_BATCH, 36, 12, 12),
-                                         (LQR_BATCH, 56, 22, 0))):
-        gains, x0, lam0 = random_gains(B, T, nx, nu, nc, torch.float32, SEED + 10 + i)
+    # the medium-dim paths' shapes in fp32 and the free-dynamics reaches' in
+    # fp64 (UR5 at 1024, T = 41; FFSR at 256, T = 61)
+    T_med = MEDIUM_NSTEPS + 1
+    f32, f64 = torch.float32, torch.float64
+    for i, (B, T, nx, nu, nc, dt) in enumerate((
+            (HUMANOID_BATCH, T_med, 36, 12, 12, f32), (LQR_BATCH, T_med, 56, 22, 0, f32),
+            (FREE_BATCHES["ur5"], FREE_NSTEPS["ur5"] + 1, 12, 6, 6, f64),
+            (FREE_BATCHES["ffsr"], FREE_NSTEPS["ffsr"] + 1, 40, 14, 14, f64))):
+        gains, x0, lam0 = random_gains(B, T, nx, nu, nc, dt, SEED + 10 + i)
         got = fs.forward(gains, x0, lam0)
         ref = fs.forward_plain(gains, x0, lam0)
         g64 = {k: v.double() for k, v in gains.items()}
         ref64 = fs.forward_plain(g64, x0.double(), lam0.double())
         torch.cuda.synchronize()
         err = max(rel_err(a, b) for a, b in zip(got, ref))
-        print(f"[kernel] fused_stage forward fp32 B={B} T={T} (nx,nu,nc)={(nx, nu, nc)}: "
-              f"vs plain {err:.2e} (tol {K4_FP32_TOL:g}); vs fp64 plain: kernel "
+        tol = K4_FP32_TOL if dt == f32 else FP64_TOL
+        name = str(dt)[6:]
+        print(f"[kernel] fused_stage forward {name} B={B} T={T} (nx,nu,nc)={(nx, nu, nc)}: "
+              f"vs plain {err:.2e} (tol {tol:g}); vs fp64 plain: kernel "
               f"{max(rel_err(a.double(), b) for a, b in zip(got, ref64)):.2e}, plain "
               f"{max(rel_err(a.double(), b) for a, b in zip(ref, ref64)):.2e}")
         check(all(torch.isfinite(t).all().item() for t in got), "non-finite forward")
-        check(err <= K4_FP32_TOL, f"fused_stage forward fp32 {err}")
-        info = fs.kernel_info("forward", torch.float32, B, T, nx, nu, nc)
-        print(f"[kernel] fused_stage forward fp32 B={B} (nx,nu,nc)={(nx, nu, nc)}: "
+        check(err <= tol, f"fused_stage forward {name} {err}")
+        info = fs.kernel_info("forward", dt, B, T, nx, nu, nc)
+        print(f"[kernel] fused_stage forward {name} B={B} (nx,nu,nc)={(nx, nu, nc)}: "
               f"{info['smem_bytes']} B of shared memory and {info['threads']} threads a "
               f"block, {info['registers']} registers a thread, {info['blocks_per_sm']} "
               f"resident blocks per SM")
@@ -803,11 +940,11 @@ def k4_phase():
         xcol = x0[..., None]
         stage_lib_ms = avg_time_ms(lambda: torch.baddbmm(bias, W, xcol), 200)
         rows_t, rows_dyn = nu + nc, 2 * nx
-        nbytes = 4 * B * (T * rows_t * (nx + 1) + (T - 1) * rows_dyn * (nx + 1)
-                          + 2 * nx + T * (2 * nx + nu + nc))
+        nbytes = x0.element_size() * B * (T * rows_t * (nx + 1) + (T - 1) * rows_dyn * (nx + 1)
+                                          + 2 * nx + T * (2 * nx + nu + nc))
         flops = 2 * B * nx * (T * rows_t + (T - 1) * rows_dyn)
-        bms, by = bound(nbytes, flops)
-        print(f"[kernel] fused_stage forward fp32 B={B} T={T}: kernel {ms:.4f} ms, "
+        bms, by = bound(nbytes, flops, fp64=dt == f64)
+        print(f"[kernel] fused_stage forward {name} B={B} T={T}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.3f} ms, baddbmm {stage_lib_ms:.4f} ms per stage "
               f"({T * stage_lib_ms:.4f} ms for T stages); bound {bms:.4f} ms ({by}: "
               f"{nbytes / 1e9:.4f} GB; kernel {ms / bms:.1f}x)")
@@ -824,6 +961,103 @@ def k4_phase():
     ), {f"B={B} nx={nx}": {k: v[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                              "occupancy")}
         for (B, nx), v in out.items()}
+
+
+def free_fd_flops(model):
+    """Flops of the free-dynamics kernel for one state, counted from its
+    loops (a multiply-add is 2): per joint the local and world transforms,
+    the world inertia, momenta and forces and the 6x6 spatial inertia and
+    its subtree sum; per dof its axis, velocity and bias terms and I_c S;
+    per related dof pair one 6-term product; the Cholesky factor and its two
+    substitutions."""
+    nj, nv = model.njoints, model.nv
+    pairs = 0
+    vfirst, nvj = [], []
+    i_v = 0
+    for t in model.joint_types:
+        vfirst.append(i_v)
+        nvj.append(6 if t == "freeflyer" else 1)
+        i_v += nvj[-1]
+    for i in range(nj):
+        j = i
+        while j >= 0:
+            pairs += nvj[i] * nvj[j]
+            j = model.parents[j]
+    return (nj * (60 + 45 + 30 + 15 + 90 + 60 + 60 + 40 + 108 + 42)
+            + nv * (30 + 12 + 36 + 72 + 12) + 12 * pairs
+            + nv ** 3 // 3 + 2 * nv * nv)
+
+
+def free_fd_states(model, B, seed, dtype):
+    """B random states of a model on the card: the neutral configuration
+    moved by 0.5·N(0, 1) along the tangent, v and tau N(0, 1)."""
+    g = _gen(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda", dtype=torch.float64)
+
+    q = model.configuration_space().integrate(model.neutral(torch.float64, "cuda")[None],
+                                              0.5 * randn(B, model.nv))
+    return q.to(dtype), randn(B, model.nv).to(dtype), randn(B, model.nv).to(dtype)
+
+
+def free_fd_phase():
+    """The free-dynamics kernel against its plain version (model.aba) on
+    every robot builder in fp64 (B = 1000, no block size divides it) and on
+    the FFSR in fp32, then timed at the free-dynamics paths' shapes (one
+    stage of the rollout: the acrobot and the UR5 at 1024, the FFSR at
+    256)."""
+    from aligator_tpu_torch.modelling.multibody import free_fd, robots
+
+    names = ("make_pendulum", "make_double_pendulum", "make_ur5", "make_ur10", "make_panda",
+             "make_dual_arm_ffsr", "make_free_sphere", "make_ur10_with_payload")
+    worst_abs = 0.0
+    for i, name in enumerate(names):
+        m = getattr(robots, name)(device="cuda")
+        q, v, tau = free_fd_states(m, 1000, SEED + 40 + i, torch.float64)
+        got, ref = free_fd.free_fd(m, q, v, tau), free_fd.free_fd_plain(m, q, v, tau)
+        err = rel_err(got, ref)
+        worst_abs = max(worst_abs, abs_err(got, ref))
+        print(f"[kernel] free_fd fp64 {name[5:]} (nj={m.njoints}, nv={m.nv}) B=1000: "
+              f"max rel err {err:.3e} (tol {FP64_TOL:g})")
+        check(err <= FP64_TOL, f"free_fd fp64 {name}: {err}")
+    m32 = robots.make_dual_arm_ffsr(dtype=torch.float32, device="cuda")
+    q, v, tau = free_fd_states(m32, 1000, SEED + 50, torch.float32)
+    got, ref = free_fd.free_fd(m32, q, v, tau), free_fd.free_fd_plain(m32, q, v, tau)
+    ref64 = free_fd.free_fd_plain(m32.to(torch.float64), q.double(), v.double(), tau.double())
+    err = rel_err(got, ref)
+    print(f"[kernel] free_fd fp32 dual_arm_ffsr B=1000: vs plain {err:.2e} (tol "
+          f"{FREE_FD_FP32_TOL:g}); vs fp64 plain: kernel {rel_err(got.double(), ref64):.2e}, "
+          f"plain {rel_err(ref.double(), ref64):.2e}")
+    check(err <= FREE_FD_FP32_TOL, f"free_fd fp32: {err}")
+
+    by_shape = {}
+    for case, name in (("acrobot", "make_double_pendulum"), ("ur5", "make_ur5"),
+                       ("ffsr", "make_dual_arm_ffsr")):
+        B = FREE_BATCHES[case]
+        m = getattr(robots, name)(**({"l1": 0.5, "l2": 0.5} if case == "acrobot" else {}),
+                                  device="cuda")
+        q, v, tau = free_fd_states(m, B, SEED + 60, torch.float64)
+        got, ref = free_fd.free_fd(m, q, v, tau), free_fd.free_fd_plain(m, q, v, tau)
+        worst_abs = max(worst_abs, abs_err(got, ref))
+        ms = kernel_ms(lambda: free_fd.launch(m, q, v, tau), 50, "free_fd_kernel")
+        plain_ms = avg_time_ms(lambda: free_fd.free_fd_plain(m, q, v, tau), 20)
+        nbytes = 8 * B * (m.nq + 3 * m.nv)
+        flops = B * free_fd_flops(m)
+        bms, by = bound(nbytes, flops, fp64=True)
+        print(f"[kernel] free_fd fp64 {case} B={B} (nj={m.njoints}, nv={m.nv}): vs plain "
+              f"{rel_err(got, ref):.2e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+              f"{bms:.5f} ms ({by}: {nbytes / 1e3:.1f} KB, {flops / 1e6:.2f} MFLOP; kernel "
+              f"{ms / bms:.0f}x)")
+        by_shape[case] = dict(B=B, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                              nbytes=nbytes, flops=flops)
+    main = by_shape["ffsr"]
+    return dict(
+        name="free_fd", route="cuda", source="aligator_tpu_torch/csrc/free_fd.cu",
+        replaces="aligator_tpu/modelling/multibody/model.py:575",
+        max_abs_err=worst_abs, ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=None,
+    ), by_shape
 
 
 def k5_flops(model, bodies, dims, active):
@@ -1030,7 +1264,7 @@ def slice_phase():
     # K1 once per Newton iteration, so at least once
     check(1 <= steps <= cfg.max_iters, f"Newton iterations {steps}")
     want = {"fused_riccati": steps, "spd_solve": 0, "fused_stage_sweep": 0,
-            "fused_stage_forward": 0, "fd_rows": 0}
+            "fused_stage_forward": 0, "fd_rows": 0, "free_fd": 0}
     check(launches == want, f"SE(2) launches {launches} != {want}")
 
     finite = torch.isfinite(res.us).flatten(1).all(1) & torch.isfinite(res.xs).flatten(1).all(1)
@@ -1118,6 +1352,7 @@ PLAIN_VERSIONS = (
     ("gar.fused_stage", "stage_plain"), ("gar.fused_stage", "forward_plain"),
     ("gar.riccati", "backward_plain"), ("gar.riccati", "forward_plain"),
     ("gar.fused_riccati", "solve_plain"), ("modelling.multibody.fd_rows", "fd_rows_plain"),
+    ("modelling.multibody.free_fd", "free_fd_plain"),
 )
 
 
@@ -1143,23 +1378,20 @@ def plain_versions_raise():
             setattr(mod, fn_name, fn)
 
 
-def launch_counts():
-    from aligator_tpu_torch.gar import fused_riccati, fused_stage, spd_solve
-    from aligator_tpu_torch.modelling.multibody import fd_rows
+KERNEL_NAMES = ("fused_riccati", "spd_solve", "fused_stage_sweep", "fused_stage_forward",
+                "fd_rows", "free_fd")
 
-    return {"fused_riccati": fused_riccati.LAUNCHES,
-            "spd_solve": spd_solve.LAUNCHES,
-            "fused_stage_sweep": fused_stage.STAGE_LAUNCHES,
-            "fused_stage_forward": fused_stage.FORWARD_LAUNCHES,
-            "fd_rows": fd_rows.LAUNCHES}
+
+def launch_counts():
+    from aligator_tpu_torch import _build
+
+    return {k: _build.LAUNCHES[k] for k in KERNEL_NAMES}
 
 
 def reset_counts():
-    from aligator_tpu_torch.gar import fused_riccati, fused_stage, spd_solve
-    from aligator_tpu_torch.modelling.multibody import fd_rows
+    from aligator_tpu_torch import _build
 
-    fused_riccati.LAUNCHES = spd_solve.LAUNCHES = fd_rows.LAUNCHES = 0
-    fused_stage.STAGE_LAUNCHES = fused_stage.FORWARD_LAUNCHES = 0
+    _build.LAUNCHES.clear()
 
 
 def medium_path(label, make, x0s, solve, expected, min_frac=None,
@@ -1261,7 +1493,7 @@ def medium_phases():
     def humanoid_counts(res):
         steps = int(res.newton_steps.max().item())
         return {"fused_riccati": 0, "spd_solve": 0, "fused_stage_sweep": steps,
-                "fused_stage_forward": steps, "fd_rows": 0}
+                "fused_stage_forward": steps, "fd_rows": 0, "free_fd": 0}
 
     counts["humanoid"], out["humanoid"] = medium_path(
         "humanoid", make_humanoid, hx0s, lambda p: at.solvers.solve(p, hcfg),
@@ -1280,7 +1512,7 @@ def medium_phases():
     def prox_counts(res):
         steps = int(res.newton_steps.max().item())
         return {"fused_riccati": 0, "spd_solve": 2 * N * steps,
-                "fused_stage_sweep": 0, "fused_stage_forward": steps, "fd_rows": 0}
+                "fused_stage_sweep": 0, "fused_stage_forward": steps, "fd_rows": 0, "free_fd": 0}
 
     counts["lqr56_proxddp"], out["lqr56_proxddp"] = medium_path(
         "lqr56_proxddp", make_lqr, lx0s, lambda p: at.solvers.solve(p, pcfg),
@@ -1291,7 +1523,7 @@ def medium_phases():
     def fddp_counts(res):
         iters = int(res.num_iters.max().item())
         return {"fused_riccati": 0, "spd_solve": N * (iters + 1),
-                "fused_stage_sweep": 0, "fused_stage_forward": 0, "fd_rows": 0}
+                "fused_stage_sweep": 0, "fused_stage_forward": 0, "fd_rows": 0, "free_fd": 0}
 
     counts["lqr56_fddp"], out["lqr56_fddp"] = medium_path(
         "lqr56_fddp", make_lqr, lx0s, lambda p: at.solvers.fddp.solve(p, fcfg),
@@ -1336,7 +1568,7 @@ def talos_phases():
         steps = int(res.newton_steps.max().item())
         want = {"fused_riccati": 0, "spd_solve": 2 * (loops + 1) + 2 * N * steps,
                 "fused_stage_sweep": 0, "fused_stage_forward": steps,
-                "fd_rows": loops + 1}
+                "fd_rows": loops + 1, "free_fd": 0}
         got = launch_counts()
         if steps:
             print(f"[talos] outer iterations {loops}, Newton steps {steps}; per "
@@ -1351,7 +1583,7 @@ def talos_phases():
         x0s = talos_x0s(nominal.x0[0].numpy(), model.nq, batch)
         cnt[batch], out[batch] = medium_path(
             f"talos{batch}", make, x0s, lambda p: at.solvers.solve(p, cfg), counts,
-            cpu_scenarios=0)
+            cpu_scenarios=0, timed=TALOS_TIMED)
         check(cnt[batch]["fd_rows"] >= 1, "K5 was not launched on the Talos path")
     out["cpu_check"] = talos_cpu_check(make, x0s[:TALOS_CPU_SCENARIOS], cfg)
     out["fp32_check"] = talos_fp32_check(make, cfg)
@@ -1440,13 +1672,16 @@ def reset_route_steps():
         proxddp.ROUTE_STEPS[k] = 0
 
 
-def chained_latency_ms(solve, prob, k_lo=1, k_hi=3, reps=3):
+def chained_latency_ms(solve, prob, k_lo=1, k_hi=3, reps=3, slow_s=0.1):
     """Per-solve latency by the chained method of
     ``bench_latency.chained_latency``: k solves back to back, each problem's
     q perturbed by the previous solve's mean control (a data dependency, so
     the solves cannot overlap), host clock to a synchronize; the latency is
     the slope (t(k_hi) - t(k_lo)) / (k_hi - k_lo) of the best of ``reps``
-    runs, which cancels the fixed overhead of a run."""
+    runs, which cancels the fixed overhead of a run. A solve slower than
+    ``slow_s`` in the warm-up (the parallel legs, 1.3 s; the associative
+    scan at B = 1024, 0.56 s) is timed from one run of each length: the
+    spread of so long a run is small beside it."""
     q0 = prob.knots.q
 
     def run(k, i):
@@ -1460,7 +1695,10 @@ def chained_latency_ms(solve, prob, k_lo=1, k_hi=3, reps=3):
         float(q.sum())
         return time.perf_counter() - t0
 
-    run(k_lo, 0), run(k_hi, 0)  # warm-up
+    if run(k_lo, 0) / k_lo > slow_s:  # warm-up
+        reps = 1
+    else:
+        run(k_hi, 0)
     t_lo = min(run(k_lo, i) for i in range(1, reps + 1))
     t_hi = min(run(k_hi, i) for i in range(1, reps + 1))
     return 1e3 * (t_hi - t_lo) / (k_hi - k_lo)
@@ -1555,7 +1793,7 @@ def parallel_humanoid_phase(serial_sps, card):
         steps = int(res.newton_steps.max().item())
         return {"fused_riccati": 0, "spd_solve": steps * sum(2 * (L - 1) for L in lens),
                 "fused_stage_sweep": 0, "fused_stage_forward": steps * len(lens),
-                "fd_rows": 0}
+                "fd_rows": 0, "free_fd": 0}
 
     launches, res = medium_path(
         "humanoid_parallel", make, hx0s, lambda p: at.solvers.solve(p, cfg), counts,
@@ -1669,100 +1907,197 @@ def rel_traj_err(a, b):
     return max((a.xs - b.xs).abs().max().item(), (a.us - b.us).abs().max().item()) / scale
 
 
-def cartpole_run(label, batch, integrator="rk2", dtype=torch.float64, nsteps=100,
-                 cpu_n=CART_CPU_SCENARIOS, profile=False, min_frac=None, **opts):
-    """One cartpole ProxDDP solve on the card with the plain versions
-    patched to raise (K1 once a Newton step, nothing else) and its history
-    recorded, its converged fraction held to ``min_frac`` where given, with
-    ``profile`` a profiled solve cut to CART_PROFILE_ITERS iterations, and
-    the first ``cpu_n`` scenarios again on the CPU for at most
-    CART_CPU_ITERS iterations, held against the card's history and
-    iterates."""
+def col_rel(a, b):
+    """max |a - b| over the last axis' columns, each relative to max(1, max
+    |b|) of its column; equal entries (inf merits before the first step)
+    count as 0, a finite against a non-finite as inf."""
+    d = torch.where(a == b, 0.0, (a - b).abs()).flatten(0, -2)
+    scale = torch.where(torch.isfinite(b), b.abs(), 0.0).flatten(0, -2)
+    return (d.amax(0) / scale.amax(0).clamp(min=1.0)).max().item()
+
+
+def solve_gaps(res, ref, n, k):
+    """How far the first ``n`` scenarios of ``res`` (any depth, its history
+    recorded) are from ``ref``, a solve of them cut to ``k`` iterations:
+    the history rows of each of the first ``k`` iterations, the iterate
+    after ``k`` iterations (``res``'s result where it stopped by then), and
+    whether the iteration counts and convergence flags agree."""
+    ran = res.num_iters[:n].cpu()
+    done = ran <= k
+    hk = min(k, res.history.shape[1] - 1)
+    xs = torch.where(done[:, None, None], res.xs[:n].cpu(), res.history_xs[:n, hk].cpu())
+    us = torch.where(done[:, None, None], res.us[:n].cpu(), res.history_us[:n, hk].cpu())
+    by_iter = [col_rel(res.history[:n, i:i + 1].cpu(), ref.history[:, i:i + 1])
+               for i in range(k)]
+    same = bool((ref.num_iters == torch.clamp(ran, max=k)).all()
+                and (ref.conv == (res.conv[:n].cpu() & done)).all())
+    return by_iter, max(col_rel(xs, ref.xs), col_rel(us, ref.us)), same
+
+
+def spread_limits(runs, k):
+    """The free paths' limits (FREE_CPU_TOL or FREE_SPREAD_FACTOR times the
+    spread) from the CPU solve from x0, ``runs[0]``, and those from the
+    perturbed initial states, ``runs[1:]``: one for each iteration's history
+    rows, one for the iterate."""
+    gaps = [solve_gaps(r, runs[0], len(r.xs), k)[:2] for r in runs[1:]]
+    by_iter = [max(g[0][i] for g in gaps) for i in range(k)]
+    traj = max(g[1] for g in gaps)
+    lim = [max(FREE_CPU_TOL, FREE_SPREAD_FACTOR * e) for e in by_iter + [traj]]
+    return dict(spread_by_iter=by_iter, spread_traj=traj, tol_by_iter=lim[:-1],
+                tol_traj=lim[-1])
+
+
+@contextlib.contextmanager
+def free_fd_by_plain():
+    """The free-dynamics kernel's launcher replaced by ``model.aba`` in
+    PyTorch: the card's rollout without the kernel (the witness run)."""
+    from aligator_tpu_torch.modelling.multibody import free_fd
+
+    launch = free_fd.launch
+    free_fd.launch = free_fd.free_fd_plain
+    try:
+        yield
+    finally:
+        free_fd.launch = launch
+
+
+def nonlinear_run(label, make, cfg, batch, want, cpu_n, profile=False, min_frac=None,
+                  cpu_refs=None, profile_iters=CART_PROFILE_ITERS):
+    """One ProxDDP solve with the nonlinear rollout on the card, the plain
+    versions patched to raise, its history recorded; its launch counts held
+    to ``want(newton_steps)``, its converged fraction to ``min_frac`` where
+    given; with ``profile`` a profiled solve cut to ``profile_iters``
+    iterations; the first ``cpu_n`` scenarios against the CPU over at most
+    CART_CPU_ITERS iterations. Without ``cpu_refs`` they are solved again on
+    the CPU here and held to CART_CPU_TOL. With ``cpu_refs`` (the free
+    paths: the CPU solves from x0 and from the perturbed initial states,
+    :func:`free_cpu_refs`) each iteration is held to its
+    :func:`spread_limits`, and so is a witness solve of the same scenarios on
+    the card with ``model.aba`` in place of the free-dynamics kernel.
+    ``make(device, n)`` builds the problem of the first ``n`` scenarios."""
     import aligator_tpu_torch as at
-    from aligator_tpu_torch.examples.cartpole import (SOLVE_OPTIONS,
-                                                      create_cartpole_problem)
 
-    cfg = at.solvers.ProxDDPConfig(**{**SOLVE_OPTIONS, **opts}, record_history=True,
-                                   record_history_trajs=bool(cpu_n))
-    x0s = cart_x0s(batch)
+    cfg = dataclasses.replace(cfg, record_history=True, record_history_trajs=bool(cpu_n))
+    from aligator_tpu_torch.solvers import proxddp
 
-    def make(dev, n=batch):
-        prob = create_cartpole_problem(nsteps=nsteps, dtype=dtype, device=dev,
-                                       integrator=integrator)
-        return dataclasses.replace(prob, x0=torch.tensor(x0s[:n], dtype=dtype,
-                                                         device=dev))
-
-    problem = make("cuda")
+    problem = make("cuda", batch)
     with plain_versions_raise():
         reset_counts()
+        proxddp.NONLINEAR_TRIALS = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = at.solvers.solve(problem, cfg)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = launch_counts()
-    steps = int(res.newton_steps.max())
-    want = {"fused_riccati": steps, "spd_solve": 0, "fused_stage_sweep": 0,
-            "fused_stage_forward": 0, "fd_rows": 0}
+    steps, trials = int(res.newton_steps.max()), proxddp.NONLINEAR_TRIALS
+    want = want(steps, trials, problem.nsteps, int(res.num_iters.max()))
     finite = (torch.isfinite(res.us).flatten(1).all(1)
               & torch.isfinite(res.xs).flatten(1).all(1))
     frac = (finite & res.conv).float().mean().item()
     it = res.num_iters.float()
     iters = dict(min=int(it.min()), median=float(it.median()), max=int(it.max()),
                  mean=float(it.mean()))
-    print(f"[{label}] batch {batch} N {nsteps} {str(dtype)[6:]}: one solve {secs:.2f} s "
-          f"-> {batch / secs:.1f} solves/s; frac_converged {frac:.6f} (floor {min_frac}); "
-          f"iterations {iters}; Newton steps {steps}; launches {launches}")
+    edges = np.linspace(0, cfg.max_iters, 11).round().astype(int)
+    hist = np.histogram(res.num_iters.cpu().numpy(), bins=edges)[0]
+    print(f"[{label}] batch {batch} N {problem.nsteps} {str(res.xs.dtype)[6:]}: one solve "
+          f"{secs:.2f} s -> {batch / secs:.1f} solves/s; frac_converged {frac:.6f} "
+          f"(floor {min_frac}); iterations {iters}, histogram "
+          f"{dict(zip((f'{a}-{b}' for a, b in zip(edges, edges[1:])), hist.tolist()))}; "
+          f"Newton steps {steps}, line-search trials {trials}; launches {launches}")
     check(launches == want, f"{label}: launches {launches} != {want}")
     check(bool(finite.all()), f"{label}: non-finite solutions")
     if min_frac is not None:
         check(frac >= min_frac, f"{label}: frac_converged {frac} < {min_frac}")
-    out = dict(batch=batch, nsteps=nsteps, solve_s=secs, solves_per_sec=batch / secs,
-               frac_converged=frac, iters=iters, newton_steps=steps,
-               max_iters=cfg.max_iters, conv=res.conv.cpu(), num_iters=res.num_iters.cpu())
+    out = dict(batch=batch, nsteps=problem.nsteps, solve_s=secs,
+               solves_per_sec=batch / secs, frac_converged=frac, iters=iters,
+               iter_histogram=dict(edges=edges.tolist(), counts=hist.tolist()),
+               newton_steps=steps, trials=trials, max_iters=cfg.max_iters,
+               conv=res.conv.cpu(),
+               num_iters=res.num_iters.cpu())
     if profile:
         out["breakdown"] = profile_solve(
             lambda: at.solvers.solve(problem, dataclasses.replace(
-                cfg, max_iters=CART_PROFILE_ITERS, record_history=False,
+                cfg, max_iters=profile_iters, record_history=False,
                 record_history_trajs=False)),
-            f"{label} profile ({CART_PROFILE_ITERS} iterations)")
-    if cpu_n:
-        k = min(cfg.max_iters, CART_CPU_ITERS)
+            f"{label} profile ({profile_iters} iterations)")
+    if not cpu_n:
+        return launches, out
+    k = min(cfg.max_iters, CART_CPU_ITERS)
+    fmt = lambda es: [f"{e:.1e}" for e in es]  # noqa: E731
+    if cpu_refs is None:
         t0 = time.perf_counter()
         rc = at.solvers.solve(make("cpu", cpu_n), dataclasses.replace(cfg, max_iters=k))
         cpu_s = time.perf_counter() - t0
-
-        def rel(a, b):
-            """max |a - b| over the last axis' columns, each relative to
-            max(1, max |b|) of its column; equal entries (inf merits before
-            the first step) count as 0, a finite against a non-finite as
-            inf."""
-            d = torch.where(a == b, 0.0, (a - b).abs()).flatten(0, -2)
-            scale = torch.where(torch.isfinite(b), b.abs(), 0.0).flatten(0, -2)
-            return (d.amax(0) / scale.amax(0).clamp(min=1.0)).max().item()
-
-        # the CPU's iterate is the card's at the start of its iteration k,
-        # or the card's result where the card stopped by then
-        ran = res.num_iters[:cpu_n].cpu()
-        done = ran <= k
-        hk = min(k, cfg.max_iters - 1)
-        card_xs = torch.where(done[:, None, None], res.xs[:cpu_n].cpu(),
-                              res.history_xs[:cpu_n, hk].cpu())
-        card_us = torch.where(done[:, None, None], res.us[:cpu_n].cpu(),
-                              res.history_us[:cpu_n, hk].cpu())
-        err_hist = rel(res.history[:cpu_n, :k].cpu(), rc.history)
-        err_traj = max(rel(card_xs, rc.xs), rel(card_us, rc.us))
-        same = bool((rc.num_iters == torch.clamp(ran, max=k)).all()
-                    and (rc.conv == (res.conv[:cpu_n].cpu() & done)).all())
+        by_iter, err_traj, same = solve_gaps(res, rc, cpu_n, k)
         print(f"[{label}] cpu check ({cpu_n} scenarios, {k} iterations, {cpu_s:.1f} s): "
-              f"num_iters and conv equal {same}; history rows rel err {err_hist:.3e}, "
-              f"iterate rel err {err_traj:.3e} (tol {CART_CPU_TOL:g})")
+              f"num_iters and conv equal {same}; history rows rel err by iteration "
+              f"{fmt(by_iter)}, iterate rel err {err_traj:.3e} (tol {CART_CPU_TOL:g})")
         check(same, f"{label}: card and CPU iteration counts differ")
-        check(max(err_hist, err_traj) <= CART_CPU_TOL,
-              f"{label}: card and CPU solves differ")
-        out.update(cpu_iters=k, cpu_hist_rel_err=err_hist, cpu_traj_rel_err=err_traj,
+        check(max(by_iter + [err_traj]) <= CART_CPU_TOL, f"{label}: card and CPU solves differ")
+        out.update(cpu_iters=k, cpu_hist_by_iter=by_iter, cpu_traj_rel_err=err_traj,
                    cpu_s=cpu_s)
+        return launches, out
+
+    rc = cpu_refs[0]
+    lim = spread_limits(cpu_refs, k)
+    print(f"[{label}] cpu spread ({cpu_n} scenarios, {k} iterations, x0 against x0·(1 ± "
+          f"{FREE_SPREAD_EPS:g}) on the CPU, {rc.secs:.1f} s a solve): history rows by "
+          f"iteration {fmt(lim['spread_by_iter'])}, iterate {lim['spread_traj']:.1e}; "
+          f"limits {fmt(lim['tol_by_iter'])}, {lim['tol_traj']:.1e}")
+    with free_fd_by_plain():
+        witness = at.solvers.solve(make("cuda", cpu_n), dataclasses.replace(cfg, max_iters=k))
+    gaps = {}
+    runs = {"card": ("the free-dynamics kernel", res),
+            "witness": ("model.aba in PyTorch on the card", witness)}
+    for name, (what, r) in runs.items():
+        by_iter, err_traj, same = solve_gaps(r, rc, cpu_n, k)
+        gaps[name] = dict(by_iter=by_iter, traj=err_traj, same=same)
+        print(f"[{label}] cpu check, {name} ({what}): "
+              f"num_iters and conv equal {same}; history rows rel err by iteration "
+              f"{fmt(by_iter)}, iterate rel err {err_traj:.3e}")
+        check(same, f"{label} ({name}): card and CPU iteration counts differ")
+        check(all(e <= t for e, t in zip(by_iter, lim["tol_by_iter"]))
+              and err_traj <= lim["tol_traj"], f"{label} ({name}): card and CPU solves differ")
+    out.update(cpu_iters=k, cpu_s=rc.secs, cpu_spread=lim, cpu_gaps=gaps)
     return launches, out
+
+
+def free_fd_launches(trials, nsteps, iters):
+    """The free-dynamics kernel's launches in a solve: once a stage of every
+    nonlinear rollout (each trial and the warm-up before the trial graph's
+    capture) and once for all stages of every derivative evaluation (each
+    iteration and the final refresh: the dynamics residual)."""
+    return nsteps * (trials + 1) + iters + 1
+
+
+def k1_only(steps, trials, nsteps, iters, free_fd=False):
+    """The launch counts of a path on K1 once a Newton step and, with
+    ``free_fd``, the free-dynamics kernel (:func:`free_fd_launches`)."""
+    return {"fused_riccati": steps, "spd_solve": 0, "fused_stage_sweep": 0,
+            "fused_stage_forward": 0, "fd_rows": 0,
+            "free_fd": free_fd_launches(trials, nsteps, iters) if free_fd else 0}
+
+
+def cartpole_run(label, batch, integrator="rk2", dtype=torch.float64, nsteps=100,
+                 cpu_n=CART_CPU_SCENARIOS, profile=False, min_frac=None, **opts):
+    """:func:`nonlinear_run` on the cartpole (K1 once a Newton step,
+    nothing else)."""
+    import aligator_tpu_torch as at
+    from aligator_tpu_torch.examples.cartpole import (SOLVE_OPTIONS,
+                                                      create_cartpole_problem)
+
+    x0s = cart_x0s(batch)
+
+    def make(dev, n):
+        prob = create_cartpole_problem(nsteps=nsteps, dtype=dtype, device=dev,
+                                       integrator=integrator)
+        return dataclasses.replace(prob, x0=torch.tensor(x0s[:n], dtype=dtype,
+                                                         device=dev))
+
+    cfg = at.solvers.ProxDDPConfig(**{**SOLVE_OPTIONS, **opts})
+    return nonlinear_run(label, make, cfg, batch, k1_only, cpu_n, profile=profile,
+                         min_frac=min_frac)
 
 
 def cartpole_phases():
@@ -1831,7 +2166,7 @@ def inverse_lqr_phase(card):
     # the expert's solve, the forward and adjoint solve of every step and
     # the final loss: 2 K2 launches a stage each
     want = {"fused_riccati": 0, "spd_solve": 2 * N * (1 + 2 * INV_STEPS + 1),
-            "fused_stage_sweep": 0, "fused_stage_forward": 0, "fd_rows": 0}
+            "fused_stage_sweep": 0, "fused_stage_forward": 0, "fd_rows": 0, "free_fd": 0}
     losses = losses.cpu()
     print(f"[inverse-lqr] {n} demonstrations, {INV_STEPS} Adam steps on the card in "
           f"{fit_s:.2f} s: loss {losses[0].item():.4e} -> {losses[-1].item():.4e}; "
@@ -1923,7 +2258,7 @@ def sensitivity_phase(card):
                                   f"sensitivity {case} profile (one harvest)")
         steps = int(res.newton_steps.max())
         want_solve = {"fused_riccati": steps, "spd_solve": 0, "fused_stage_sweep": 0,
-                      "fused_stage_forward": 0, "fd_rows": 0}
+                      "fused_stage_forward": 0, "fd_rows": 0, "free_fd": 0}
         want_th = dict(want_solve, fused_riccati=0, spd_solve=2 * N)
         check(solve_counts == want_solve, f"{case}: solve launches {solve_counts}")
         check(th_counts == want_th, f"{case}: θ launches {th_counts} != {want_th}")
@@ -1975,6 +2310,152 @@ def sensitivity_phase(card):
 # ---------------------------------------------------------------- main
 
 
+# ---------------------------------------------------------------- phase 11
+
+
+def free_x0s(case, batch):
+    """Initial states of a free-dynamics path (``tools/torch_free_fixture.py``'s
+    ``x0s``): the UR5 at its neutral configuration + 0.1·N(0, 1) on q, the
+    FFSR at the nominal arm posture + 0.05·N(0, 1) on the 14 arm joints, the
+    acrobot at 0 + 0.1·N(0, 1); velocities of the arms zero."""
+    from aligator_tpu_torch.modelling.multibody.robots import FFSR_Q_ARM1, FFSR_Q_ARM2
+
+    rng = np.random.default_rng(SEED + {"ur5": 9, "ffsr": 10, "acrobot": 11}[case])
+    if case == "ur5":
+        x = np.zeros((batch, 12))
+        x[:, :6] = 0.1 * rng.standard_normal((batch, 6))
+    elif case == "ffsr":
+        x = np.zeros((batch, 41))
+        x[:, 6] = 1.0  # base quaternion w
+        x[:, 7:21] = np.concatenate([FFSR_Q_ARM1, FFSR_Q_ARM2]) + 0.05 * rng.standard_normal(
+            (batch, 14))
+    else:
+        x = 0.1 * rng.standard_normal((batch, 4))
+    return x
+
+
+def free_paths():
+    """``{case: (create, published options, want)}`` of the free-dynamics
+    paths: the UR5 and FFSR reaches on the per-stage loop (K2 twice a stage
+    and K4 once a Newton step), the acrobot on K1 once a Newton step."""
+    from aligator_tpu_torch.examples import acrobot, dual_ffsr_reach, ur5_reach
+
+    def lq_loop(steps, trials, n, iters):
+        return {"fused_riccati": 0, "spd_solve": 2 * n * steps, "fused_stage_sweep": 0,
+                "fused_stage_forward": steps, "fd_rows": 0,
+                "free_fd": free_fd_launches(trials, n, iters)}
+
+    return {
+        "ur5": (ur5_reach.create_ur5_problem, ur5_reach.SOLVE_OPTIONS, lq_loop),
+        "ffsr": (dual_ffsr_reach.create_ffsr_problem, dual_ffsr_reach.SOLVE_OPTIONS, lq_loop),
+        "acrobot": (acrobot.create_acrobot_problem, acrobot.SOLVE_OPTIONS,
+                    lambda *a: k1_only(*a, free_fd=True)),
+    }
+
+
+def free_problem(case, create, dev, n, scale=1.0):
+    """The path's problem on ``dev`` with its first ``n`` initial states,
+    multiplied by ``scale``."""
+    x0s = free_x0s(case, FREE_BATCHES[case])[:n] * scale
+    prob = create(nsteps=FREE_NSTEPS[case], device=dev)
+    return dataclasses.replace(prob, x0=torch.tensor(x0s, device=dev))
+
+
+CPU_REF_FIELDS = ("history", "history_xs", "history_us", "xs", "us", "num_iters", "conv")
+
+
+def free_cpu_refs(conn):
+    """Worker process, CPU only: each free path's first FREE_CPU_SCENARIOS
+    scenarios solved for CART_CPU_ITERS iterations with the published
+    options from x0 and from x0·(1 ± FREE_SPREAD_EPS); sends ``("ok",
+    {case: [fields of each solve as numpy arrays]})`` or ``("error",
+    traceback)``."""
+    import aligator_tpu_torch as at
+
+    try:
+        torch.set_num_threads(2)
+        out = {}
+        for case, (create, opts, _) in free_paths().items():
+            cfg = at.solvers.ProxDDPConfig(**{**opts, "max_iters": CART_CPU_ITERS},
+                                           record_history=True, record_history_trajs=True)
+            out[case] = []
+            for scale in (1.0, 1.0 + FREE_SPREAD_EPS, 1.0 - FREE_SPREAD_EPS):
+                prob = free_problem(case, create, "cpu", FREE_CPU_SCENARIOS, scale)
+                t0 = time.perf_counter()
+                r = at.solvers.solve(prob, cfg)
+                out[case].append(dict({k: getattr(r, k).numpy() for k in CPU_REF_FIELDS},
+                                      secs=time.perf_counter() - t0))
+        conn.send(("ok", out))
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+class FreeCpuRefs:
+    """:func:`free_cpu_refs` in a spawned process, started at once; ``get()``
+    waits for its result, ``stop()`` ends it."""
+
+    def __init__(self):
+        ctx = multiprocessing.get_context("spawn")
+        self.conn, child = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=free_cpu_refs, args=(child,))
+        self.proc.start()
+        child.close()
+        self.result = None
+
+    def get(self):
+        if self.result is None:
+            t0 = time.perf_counter()
+            status, payload = self.conn.recv()
+            print(f"[free] CPU references received after waiting {time.perf_counter() - t0:.1f} s")
+            check(status == "ok", f"the free paths' CPU references failed:\n{payload}")
+            self.result = {case: [SimpleNamespace(**{
+                k: (torch.from_numpy(v) if k != "secs" else v) for k, v in run.items()})
+                for run in runs] for case, runs in payload.items()}
+        return self.result
+
+    def stop(self):
+        if self.proc.is_alive():
+            self.proc.terminate()
+        self.proc.join()
+
+
+def free_phase(cpu_refs):
+    """The UR5 reach, the dual-arm FFSR reach and the acrobot
+    (:func:`free_paths`), each at the published size and options, float64:
+    solves/s, frac_converged, the iterations, launch counts, the first 16
+    scenarios' converged count held to the JAX package's less one, and
+    those 16 against the CPU (``cpu_refs``, a :class:`FreeCpuRefs`) for
+    CART_CPU_ITERS iterations; one profiled FFSR solve."""
+    import aligator_tpu_torch as at
+
+    ref = np.load(FREE_REF)
+    counts, out = {}, {}
+    for case, (create, opts, want) in free_paths().items():
+        batch, n_ref = FREE_BATCHES[case], FREE_CPU_SCENARIOS
+        check(np.array_equal(free_x0s(case, batch)[:n_ref], ref[f"{case}_full_x0s"]),
+              f"{case}: the initial states are not the JAX reference's")
+
+        def make(dev, n, create=create, case=case):
+            return free_problem(case, create, dev, n)
+
+        counts[case], out[case] = nonlinear_run(
+            case, make, at.solvers.ProxDDPConfig(**opts), batch, want, n_ref,
+            profile=case == "ffsr", cpu_refs=cpu_refs.get()[case],
+            profile_iters=FREE_PROFILE_ITERS)
+        jax_n = int(ref[f"{case}_full_conv"].sum())
+        card_n = int(out[case]["conv"][:n_ref].sum())
+        print(f"[{case}] converged on the first {n_ref}: card {card_n}, JAX {jax_n} "
+              f"(floor {jax_n - 1}); JAX's iterations "
+              f"{ref[f'{case}_full_num_iters'].tolist()}, the card's "
+              f"{out[case]['num_iters'][:n_ref].tolist()}")
+        check(card_n >= jax_n - 1, f"{case}: {card_n} of {n_ref} converged, JAX {jax_n}")
+        out[case].update(first_converged=card_n, jax_first_converged=jax_n)
+        del out[case]["conv"], out[case]["num_iters"]
+    return counts, out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -1996,38 +2477,47 @@ def main():
         return out
 
     smi = timed("device", device_phase)
-    timed("build", build_phase)
-    k1, k1_times = timed("K1", kernel_phase)
-    k2, k2_extra = timed("K2", k2_phase)
-    k3, k3_extra = timed("K3", k3_phase)
-    k4, k4_shapes = timed("K4", k4_phase)
-    k5, k5_extra = timed("K5", k5_phase)
-    se2_counts, result = timed("se2", slice_phase)
-    medium_counts, medium = timed("medium", medium_phases)
-    talos_counts, talos = timed("talos", talos_phases)
-    pit_counts, pit = timed("parallel-in-time", lambda: parallel_in_time_phases(
-        medium["humanoid"]["solves_per_sec"], smi))
-    cart_counts, cart = timed("cartpole", cartpole_phases)
-    inv_counts, inv = timed("inverse-lqr", lambda: inverse_lqr_phase(smi))
-    sens_counts, sens = timed("sensitivity", lambda: sensitivity_phase(smi))
+    late = timed("build", build_phase)
+    cpu_refs = FreeCpuRefs()
+    try:
+        k1, k1_times = timed("K1", kernel_phase)
+        k2, k2_extra = timed("K2", k2_phase)
+        k3, k3_extra = timed("K3", k3_phase)
+        k4, k4_shapes = timed("K4", k4_phase)
+        k5, k5_extra = timed("K5", k5_phase)
+        k6, k6_extra = timed("free_fd", free_fd_phase)
+        se2_counts, result = timed("se2", slice_phase)
+        medium_counts, medium = timed("medium", medium_phases)
+        talos_counts, talos = timed("talos", talos_phases)
+        timed("K1 slow shapes", lambda: k1_slow_phase(late))
+        pit_counts, pit = timed("parallel-in-time", lambda: parallel_in_time_phases(
+            medium["humanoid"]["solves_per_sec"], smi))
+        cart_counts, cart = timed("cartpole", cartpole_phases)
+        inv_counts, inv = timed("inverse-lqr", lambda: inverse_lqr_phase(smi))
+        sens_counts, sens = timed("sensitivity", lambda: sensitivity_phase(smi))
+        free_counts, free = timed("free-dynamics", lambda: free_phase(cpu_refs))
+    finally:
+        cpu_refs.stop()
+        late.thread.join()
     # each kernel's launches: the sum over the paths' counted runs
     runs = [se2_counts, *medium_counts.values(), *talos_counts.values(), *pit_counts,
-            *cart_counts.values(), inv_counts, *sens_counts]
-    for k in (k1, k2, k3, k4, k5):
+            *cart_counts.values(), inv_counts, *sens_counts, *free_counts.values()]
+    for k in (k1, k2, k3, k4, k5, k6):
         k["launches"] = sum(c[k["name"]] for c in runs)
     print(json.dumps({"slice": result, "fused_riccati": k1_times,
                       "medium": medium, "medium_launches": medium_counts,
                       "talos": talos, "talos_launches": talos_counts,
                       "parallel_in_time": pit, "cartpole": cart,
                       "cartpole_launches": cart_counts, "inverse_lqr": inv,
-                      "sensitivity": sens,
+                      "sensitivity": sens, "free_dynamics": free,
+                      "free_dynamics_launches": free_counts,
                       "spd_solve": k2_extra, "fused_stage_sweep": k3_extra,
                       "fused_stage_forward": k4_shapes,
-                      "fd_rows": k5_extra, "phase_s": phase_s,
+                      "fd_rows": k5_extra, "free_fd": k6_extra, "phase_s": phase_s,
                       "script_s": time.perf_counter() - t_start,
                       "card": smi}))
     print(smi)
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

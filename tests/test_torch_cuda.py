@@ -16,14 +16,14 @@ import pytest
 import torch
 
 import aligator_tpu_torch as at
-from aligator_tpu_torch import convert
+from aligator_tpu_torch import _build, convert
 from aligator_tpu_torch.examples import inverse_lqr, medium_dims, theta_family
 from aligator_tpu_torch.examples.cartpole import create_cartpole_problem
 from aligator_tpu_torch.examples.lqr import make_lqr_problem
 from aligator_tpu_torch.examples.se2_car import create_se2_problem
 from aligator_tpu_torch.gar import (diff, fused_riccati, fused_stage, lqr_problem,
                                     riccati, spd_solve)
-from aligator_tpu_torch.modelling.multibody import fd_rows, humanoid, quadruped
+from aligator_tpu_torch.modelling.multibody import fd_rows, free_fd, humanoid, quadruped
 from aligator_tpu_torch.modelling.multibody import model as rbd
 
 
@@ -61,10 +61,10 @@ def test_fused_riccati_matches_plain(cuda_device, k1_built, shape, B):
         device=cuda_device,
     )
     md, me = _mus(B, 11, cuda_device)
-    before = fused_riccati.LAUNCHES
+    before = _build.LAUNCHES["fused_riccati"]
     got = fused_riccati.solve(prob, md, me, explicit)
     torch.cuda.synchronize()
-    assert fused_riccati.LAUNCHES == before + 1
+    assert _build.LAUNCHES["fused_riccati"] == before + 1
     ref = fused_riccati.solve_plain(prob, md, me, explicit)
     for a, b in zip(got[:4], ref[:4]):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-9)
@@ -79,10 +79,10 @@ def test_fused_riccati_launches_a_shape_outside_the_old_five(cuda_device):
     prob = lqr_problem.random_convex_problem(
         np.random.default_rng(0), 4, 3, 5, 2, 0, device=cuda_device
     )
-    before = fused_riccati.LAUNCHES
+    before = _build.LAUNCHES["fused_riccati"]
     got = riccati.solve_and_gains(prob, 1e-3, 1e-3, True)
     torch.cuda.synchronize()
-    assert fused_riccati.LAUNCHES == before + 1
+    assert _build.LAUNCHES["fused_riccati"] == before + 1
     ref = fused_riccati.solve_plain(prob, 1e-3, 1e-3, True)
     for a, b in zip(got[:4], ref[:4]):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-9)
@@ -125,10 +125,10 @@ def test_fused_riccati_step_copies_no_input_on_the_se2_path(cuda_device, monkeyp
     x0s[:, 0] += torch.linspace(-0.2, 0.2, 64, device=cuda_device)
     cfg = at.solvers.ProxDDPConfig(tol=1e-3, mu_init=1e-3, max_iters=2,
                                    max_al_iters=2, ls_strategy="filter")
-    before = fused_riccati.LAUNCHES
+    before = _build.LAUNCHES["fused_riccati"]
     res = at.solvers.solve(dataclasses.replace(prob, x0=x0s), cfg)
     torch.cuda.synchronize()
-    assert fused_riccati.LAUNCHES - before == int(res.newton_steps.max()) >= 1
+    assert _build.LAUNCHES["fused_riccati"] - before == int(res.newton_steps.max()) >= 1
     assert torch.isfinite(res.xs).all()
 
 
@@ -149,9 +149,9 @@ def test_se2_proxddp_card_matches_cpu(cuda_device, u_bound):
         prob = create_se2_problem(nsteps=20, dtype=torch.float64, device=dev,
                                   u_bound=u_bound)
         prob = dataclasses.replace(prob, x0=torch.tensor(x0s, device=dev))
-        before = fused_riccati.LAUNCHES
+        before = _build.LAUNCHES["fused_riccati"]
         out[dev] = at.solvers.solve(prob, cfg)
-        launches = fused_riccati.LAUNCHES - before
+        launches = _build.LAUNCHES["fused_riccati"] - before
         assert launches == (0 if dev == "cpu" else int(out[dev].newton_steps.max()))
     cpu, gpu = out["cpu"], out[cuda_device]
     for name in ("num_iters", "al_iter", "conv"):
@@ -200,10 +200,10 @@ def test_spd_solve_matches_plain(cuda_device, dtype, n, r):
     A, R = _spd_batch(np.random.default_rng(n), M, n, r, dtype, cuda_device)
     d = min(3, n - 1)
     A[7, d, d] = -1.0  # not positive definite: NaN in that system only
-    before = spd_solve.LAUNCHES
+    before = _build.LAUNCHES["spd_solve"]
     X = spd_solve.spd_solve(A, R)
     torch.cuda.synchronize()
-    assert spd_solve.LAUNCHES == before + 1
+    assert _build.LAUNCHES["spd_solve"] == before + 1
     ref = spd_solve.spd_solve_plain(A, R)
     ok = torch.arange(M, device=cuda_device) != 7
     assert torch.isnan(X[7]).all() and torch.isnan(ref[7]).all()
@@ -324,10 +324,10 @@ def _check_sweep(cuda_device, dtype, dims):
                                      nc, dtype, cuda_device)
     if B > 3:
         P[3] = -1e4 * torch.eye(nx, dtype=dtype, device=cuda_device)  # Schur fails
-    before = fused_stage.STAGE_LAUNCHES
+    before = _build.LAUNCHES["fused_stage_sweep"]
     got = fused_stage.sweep(kn, P, p, md, me)
     torch.cuda.synchronize()
-    assert fused_stage.STAGE_LAUNCHES == before + 1
+    assert _build.LAUNCHES["fused_stage_sweep"] == before + 1
     ref = fused_stage.sweep_plain(kn, P, p, md, me)
     ok = torch.arange(B, device=cuda_device) != 3
     for k in fused_stage.FACTOR_FIELDS:
@@ -394,10 +394,10 @@ def test_fused_forward_matches_plain(cuda_device, dtype, nx, nu, nc):
     gains = {k: t(rng.standard_normal((B, T) + s) / np.sqrt(nx))
              for k, s in shapes.items()}
     x0, lam0 = t(rng.standard_normal((B, nx))), t(rng.standard_normal((B, nx)))
-    before = fused_stage.FORWARD_LAUNCHES
+    before = _build.LAUNCHES["fused_stage_forward"]
     got = fused_stage.forward(gains, x0, lam0)
     torch.cuda.synchronize()
-    assert fused_stage.FORWARD_LAUNCHES == before + 1
+    assert _build.LAUNCHES["fused_stage_forward"] == before + 1
     ref = fused_stage.forward_plain(gains, x0, lam0)
     for g, r in zip(got, ref):
         assert g.shape == r.shape
@@ -439,10 +439,10 @@ def _fd_rows_inputs(robot, K, dtype, device, seed):
 @pytest.mark.parametrize("kp", [0.0, 3.0])
 def test_fd_rows_matches_plain(cuda_device, dtype, robot, kp):
     model, ins, frames, dims, kd = _fd_rows_inputs(robot, 37, dtype, cuda_device, 5)
-    before = fd_rows.LAUNCHES
+    before = _build.LAUNCHES["fd_rows"]
     got = fd_rows.fd_rows(model, *ins, frames, dims, kd=kd, kp=kp, has_prefs=kp != 0)
     torch.cuda.synchronize()
-    assert fd_rows.LAUNCHES == before + 1
+    assert _build.LAUNCHES["fd_rows"] == before + 1
     ref = fd_rows.fd_rows_plain(model, *ins, frames, dims, kd=kd, kp=kp,
                                 has_prefs=kp != 0)
     for g, r in zip(got, ref):
@@ -508,13 +508,14 @@ PLAIN_VERSIONS = (
     (fused_stage, "stage_plain"), (fused_stage, "forward_plain"),
     (riccati, "backward_plain"), (riccati, "forward_plain"),
     (fused_riccati, "solve_plain"), (fd_rows, "fd_rows_plain"),
+    (free_fd, "free_fd_plain"),
 )
 
 
 def _launches():
-    return dict(k2=spd_solve.LAUNCHES, k3=fused_stage.STAGE_LAUNCHES,
-                k4=fused_stage.FORWARD_LAUNCHES, k1=fused_riccati.LAUNCHES,
-                k5=fd_rows.LAUNCHES)
+    return dict(k2=_build.LAUNCHES["spd_solve"], k3=_build.LAUNCHES["fused_stage_sweep"],
+                k4=_build.LAUNCHES["fused_stage_forward"], k1=_build.LAUNCHES["fused_riccati"],
+                k5=_build.LAUNCHES["fd_rows"])
 
 
 def _card_and_cpu(make, solve, cuda_device, plain_versions_raise):
@@ -847,3 +848,134 @@ def test_nonlinear_trial_graph_matches_eager(cuda_device, integrator):
         for a, b in zip((*got[0], *got[1:]), (*ref[0], *ref[1:])):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-12)
     assert graph.graph is not None and not graph.eager
+
+
+def _free_model(name, dev):
+    from aligator_tpu_torch.modelling.multibody import robots
+    return getattr(robots, name)(device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["make_ur5", "make_dual_arm_ffsr"])
+def test_aba_and_derivatives_card_match_cpu(cuda_device, name):
+    """aba (with external forces) and aba_derivatives on the card equal the
+    CPU's to 1e-10 relative to each output's scale (torch Cholesky and
+    triangular solves on both, no kernel)."""
+    from aligator_tpu_torch.modelling.multibody import derivatives
+
+    rng = np.random.default_rng(31)
+    m = _free_model(name, "cpu")
+    dq, v, tau = (rng.standard_normal((64, m.nv)) for _ in range(3))
+    fx = rng.standard_normal((64, m.njoints, 6))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        m = _free_model(name, dev)
+        dq_t, v_t, tau_t, fx_t = (torch.tensor(a, device=dev) for a in (dq, v, tau, fx))
+        q = m.configuration_space().integrate(m.neutral()[None], 0.5 * dq_t)
+        a, da_dq, da_dv, solve_M = derivatives.aba_derivatives(m, q, v_t, tau_t, fx_t)
+        out[dev] = (rbd.aba(m, q, v_t, tau_t), rbd.aba(m, q, v_t, tau_t, fx_t), a, da_dq,
+                    da_dv, solve_M(torch.eye(m.nv, dtype=torch.float64, device=dev)))
+    for g, c in zip(out[cuda_device], out["cpu"]):
+        scale = max(1.0, c.abs().max().item())
+        torch.testing.assert_close(g.cpu(), c, rtol=0, atol=1e-10 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ur5", "ffsr"])
+def test_free_reach_card_matches_cpu(cuda_device, plain_versions_raise, case):
+    """The UR5 reach (N = 10) and the dual-arm FFSR reach (N = 8) with the
+    published options, 4 scenarios, 4 iterations, on the card against the
+    CPU, each output to 1e-9 relative or to 100 times the largest distance
+    between the CPU solve and those from initial states one ulp away,
+    x0·(1 ± 1e-15), whichever is larger (these solves magnify any
+    difference of rounding; chip_smoke.py holds its free paths alike): K2
+    twice a stage and K4 once a Newton step (the per-stage loop), the
+    free-dynamics kernel once a stage of each rollout, every nonlinear trial
+    a CUDA-graph replay."""
+    from aligator_tpu_torch.examples import dual_ffsr_reach, ur5_reach
+    from aligator_tpu_torch.solvers.proxddp import TrialGraphWarning
+
+    ex, N = {"ur5": (ur5_reach, 10), "ffsr": (dual_ffsr_reach, 8)}[case]
+    create = ex.create_ur5_problem if case == "ur5" else ex.create_ffsr_problem
+    rng = np.random.default_rng(32)
+    x0 = create(nsteps=N, device="cpu").x0.expand(4, -1).clone()
+    arms = slice(0, 6) if case == "ur5" else slice(7, 21)
+    x0[:, arms] += torch.tensor((0.1 if case == "ur5" else 0.05)
+                                * rng.standard_normal((4, arms.stop - arms.start)))
+    cfg = at.solvers.ProxDDPConfig(**{**ex.SOLVE_OPTIONS, "max_iters": 4})
+
+    def make(dev):
+        return dataclasses.replace(create(nsteps=N, device=dev), x0=x0.to(dev))
+
+    from aligator_tpu_torch.solvers import proxddp
+
+    cpu = at.solvers.solve(make("cpu"), cfg)
+    spread = [at.solvers.solve(dataclasses.replace(make("cpu"), x0=x0 * s), cfg)
+              for s in (1.0 + 1e-15, 1.0 - 1e-15)]
+    plain_versions_raise()
+    before = _launches()
+    fd_before, trials_before = _build.LAUNCHES["free_fd"], proxddp.NONLINEAR_TRIALS
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", TrialGraphWarning)
+        gpu = at.solvers.solve(make(cuda_device), cfg)
+    torch.cuda.synchronize()
+    counts = {k: v - before[k] for k, v in _launches().items()}
+    for name in ("num_iters", "conv"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+    # relative to each output's scale (joint speeds reach ~10^3 on the way)
+    for name in ("xs", "us", "lams", "prim_infeas", "dual_infeas"):
+        ref = getattr(cpu, name)
+        scale = max(1.0, ref.abs().max().item())
+        apart = max((getattr(r, name) - ref).abs().max().item() for r in spread) / scale
+        gap = (getattr(gpu, name).cpu() - ref).abs().max().item() / scale
+        assert gap <= max(1e-9, 100 * apart), (name, gap, apart)
+    steps = int(gpu.newton_steps.max())
+    assert steps > 0
+    assert counts == dict(k2=2 * N * steps, k3=0, k4=steps, k1=0, k5=0)
+    # the free-dynamics kernel once a stage of every rollout (each trial and
+    # the warm-up before the trial graph's capture) and once a derivative
+    # evaluation (each iteration and the final refresh)
+    trials = proxddp.NONLINEAR_TRIALS - trials_before
+    iters = int(gpu.num_iters.max())
+    assert _build.LAUNCHES["free_fd"] - fd_before == N * (trials + 1) + iters + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 300])  # 300: the last block is ragged
+@pytest.mark.parametrize("name", ["make_pendulum", "make_double_pendulum", "make_ur5",
+                                  "make_panda", "make_dual_arm_ffsr", "make_free_sphere",
+                                  "make_ur10_with_payload"])
+def test_free_fd_matches_plain(cuda_device, name, B):
+    """The free-dynamics kernel against model.aba on the card, fp64, to 1e-12
+    relative to the output's scale; leading dims kept; its derivatives
+    (reverse mode, and forward mode under vmap) against model.aba's
+    autograd to 1e-9; the raw launcher refuses a tensor that takes a
+    gradient."""
+    rng = np.random.default_rng(33)
+    m = _free_model(name, cuda_device)
+    dq, v, tau = (torch.tensor(rng.standard_normal((B, m.nv)), device=cuda_device)
+                  for _ in range(3))
+    q = m.configuration_space().integrate(m.neutral()[None], 0.5 * dq)
+    before = _build.LAUNCHES["free_fd"]
+    got = free_fd.free_fd(m, q.reshape(1, B, -1), v.reshape(1, B, -1), tau)
+    assert _build.LAUNCHES["free_fd"] == before + 1 and got.shape == (1, B, m.nv)
+    ref = rbd.aba(m, q, v, tau)
+    torch.testing.assert_close(got[0], ref, rtol=0,
+                               atol=1e-12 * max(1.0, ref.abs().max().item()))
+    # derivatives in tangent coordinates: the analytic ones of the wrapper
+    # against autograd through model.aba
+    cs = m.configuration_space()
+    w = torch.tensor(rng.standard_normal((B, m.nv)), device=cuda_device)
+    grads = []
+    for fn in (free_fd.free_fd, rbd.aba):
+        dx, vv, tt = (t.clone().requires_grad_() for t in (torch.zeros_like(v), v, tau))
+        grads.append(torch.autograd.grad((fn(m, cs.integrate(q, dx), vv, tt) * w).sum(),
+                                         (dx, vv, tt)))
+    jacs = [torch.func.vmap(torch.func.jacfwd(
+        lambda d, qq, vv, tt, fn=fn: fn(m, cs.integrate(qq, d), vv, tt)))(
+        torch.zeros_like(v), q, v, tau) for fn in (free_fd.free_fd, rbd.aba)]
+    for got, ref in zip((*grads[0], jacs[0]), (*grads[1], jacs[1])):
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-9 * max(1.0, ref.abs().max().item()))
+    with pytest.raises(ValueError, match="values only"):
+        free_fd.launch(m, q.requires_grad_(), v, tau)

@@ -25,7 +25,7 @@ from aligator_tpu.modelling.multibody import pallas_tensors
 from aligator_tpu.modelling.multibody import quadruped as jquad
 from aligator_tpu.modelling.spaces import se3 as jse3
 
-from aligator_tpu_torch import convert
+from aligator_tpu_torch import _build, convert
 from aligator_tpu_torch.core.functions import stage_param
 from aligator_tpu_torch.core.manifolds import CartesianProduct, TangentBundle, VectorSpace
 from aligator_tpu_torch.gar import spd_solve
@@ -228,10 +228,10 @@ def test_fd_rows_cpu_wrapper_is_the_plain_version():
     qs, vs, a = (torch.tensor(x) for x in _states(tm, q0, 3, 4))
     lam = torch.randn(3, sum(dims), dtype=torch.float64)
     act = torch.tensor([[1.0, 0.0, 1.0, 1.0]] * 3, dtype=torch.float64)
-    before = fd_rows.LAUNCHES
+    before = _build.LAUNCHES["fd_rows"]
     got = fd_rows.fd_rows(tm, qs, vs, a, lam, act, frames, dims, kd=kd)
     ref = fd_rows.fd_rows_plain(tm, qs, vs, a, lam, act, frames, dims, kd=kd)
-    assert fd_rows.LAUNCHES == before
+    assert _build.LAUNCHES["fd_rows"] == before
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
     assert (got[2][:, 3:6] == 0).all()  # the inactive contact's rows
