@@ -21,9 +21,11 @@ from .examples.medium_dims import linear_problem
 from .examples.partial_initial_condition import partial_initial_condition_problem
 from .examples.pendulum import swing_up_problem
 from .examples.se2_car import se2_problem
+from .examples.solo_jump import legged_problem
 from .examples.talos_walk import talos_walk_problem
 from .examples.theta_family import double_integrator_family
 from .examples.ur5_reach import ur5_reach_problem
+from .examples.ur10_ballistic import ur10_ballistic_problem
 from .examples.ur10_midpoint import ur10_midpoint_problem
 from .gar.lqr_problem import LQRKnots, LQRProblem
 from .modelling.multibody import model as rbd
@@ -252,3 +254,35 @@ def ur10_midpoint_problem_from_numpy(params, nsteps: int = 50, device="cuda"):
     return ur10_midpoint_problem(
         robot_model_from_numpy(params, device=device), t("x0"), t("x_ref"), t("u0"),
         t("p_target"), t("w_x"), t("w_u"), t("w_term"), t("effort"), t("timestep"), nsteps)
+
+
+def ur10_ballistic_problem_from_numpy(params, nsteps: int = 80, device="cuda"):
+    """The UR10 payload throw
+    (:func:`~.examples.ur10_ballistic.ur10_ballistic_problem`) from the robot
+    model's leaves, ``x0 (B, nx)``, ``u0``, the grasp's schedule ``active
+    (N, 1)``, the weights ``w_x``, ``w_u``, ``w_term``, ``effort``,
+    ``vel_limits``, ``target_pos`` ((3,) or (B, 3)), the grasp's relative
+    position reference ``p_refs (1, 3)``, the scalars ``timestep``, ``kp``,
+    ``kd`` and ``prox_mu``."""
+    t = _loader(params, device)
+    return ur10_ballistic_problem(
+        robot_model_from_numpy(params, device=device), t("x0"), t("u0"), t("active"),
+        t("w_x"), t("w_u"), t("w_term"), t("effort"), t("vel_limits"), t("target_pos"),
+        t("p_refs"), t("timestep"), nsteps, kp=float(params["kp"]),
+        kd=float(params["kd"]), prox_mu=float(params["prox_mu"]))
+
+
+def legged_problem_from_numpy(params, nsteps: int, device="cuda"):
+    """The Solo jump and squat and the biped walk
+    (:func:`~.examples.solo_jump.legged_problem`) from the robot model's
+    leaves, ``actuation``, ``x0 (B, nx)``, the contact activity ``active``
+    ((ncont,) or (N, ncont)), the state targets ``targets`` ((nx,) or (N,
+    nx)), the weights ``w_x``, ``w_u``, ``term_target``, ``w_term``, the
+    ``contact_frames`` and the scalars ``timestep``, ``kd`` and
+    ``prox_mu``."""
+    t = _loader(params, device)
+    return legged_problem(
+        robot_model_from_numpy(params, device=device), t("actuation"), t("x0"),
+        t("active"), t("targets"), t("w_x"), t("w_u"), t("term_target"), t("w_term"),
+        t("timestep"), nsteps, tuple(int(f) for f in params["contact_frames"]),
+        kd=float(params["kd"]), prox_mu=float(params["prox_mu"]))

@@ -12,7 +12,8 @@ from .costs import (
     QuadraticStateCost,
     RelaxedLogBarrierCost,
 )
-from .dynamics import ExplicitDynamics, ImplicitDynamics, LinearDiscreteDynamics
+from .dynamics import (ExplicitDynamics, ImplicitDynamics, LinearDiscreteDynamics,
+                       dynamics_at)
 from .functions import (ControlBoxFunction, ControlErrorResidual, FunctionSlice,
                         GatedFunction, LinearFunction, LinearFunctionComposition,
                         StageFunction, StateErrorResidual, stage_param)

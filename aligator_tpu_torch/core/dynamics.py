@@ -11,6 +11,7 @@ Jacobians ``A = ∂value/∂x``, ``B = ∂value/∂u``, ``E = ∂value/∂y``
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -27,6 +28,29 @@ def _lead_shape(*ts: Tensor) -> tuple:
     n = max(len(s) for s in shapes)
     return tuple(0 if 0 in d else max(d)
                  for d in zip(*((1,) * (n - len(s)) + s for s in shapes)))
+
+
+def dynamics_at(dynamics, t: int, N: int):
+    """The dynamics of stage ``t`` of a model shared by N stages: each leaf
+    that a dataclass of ``dynamics`` lists in its ``STAGE_PARAMS`` (name:
+    per-stage ndim) and that carries a leading stage axis of size N (a
+    contact schedule) is replaced by its row ``t``, in the model and in the
+    models it holds (an integrator's ODE). What a per-stage loop (a rollout)
+    applies to one stage's ``(B, nx)`` state."""
+    if not dataclasses.is_dataclass(dynamics):
+        return dynamics
+    varying = getattr(dynamics, "STAGE_PARAMS", {})
+    new = {}
+    for f in dataclasses.fields(dynamics):
+        val = getattr(dynamics, f.name)
+        if f.name in varying and isinstance(val, Tensor):
+            if val.ndim == varying[f.name] + 1 and val.shape[0] == N:
+                new[f.name] = val[t]
+        elif dataclasses.is_dataclass(val) and not isinstance(val, type):
+            sub = dynamics_at(val, t, N)
+            if sub is not val:
+                new[f.name] = sub
+    return dataclasses.replace(dynamics, **new) if new else dynamics
 
 
 class ExplicitDynamics:

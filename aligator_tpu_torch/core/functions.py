@@ -154,13 +154,22 @@ class FunctionSlice(StageFunction):
     def dim(self, space, nu):
         return len(self.indices)
 
+    def _rows(self, r: Tensor, axis: int) -> Tensor:
+        # a slice for a run of consecutive rows, else one pick a row: a
+        # Python list as an index is copied to the device, which a CUDA
+        # graph's capture (a line-search trial) refuses
+        idx = tuple(self.indices)
+        start = idx[0] if idx else 0
+        if idx == tuple(range(start, start + len(idx))):
+            return r.narrow(axis, start, len(idx))
+        return torch.stack([r.select(axis, i) for i in idx], axis)
+
     def value(self, space, x, u):
-        return self.func.value(space, x, u)[..., list(self.indices)]
+        return self._rows(self.func.value(space, x, u), -1)
 
     def jacobians(self, space, x, u):
         Jx, Ju = self.func.jacobians(space, x, u)
-        idx = list(self.indices)
-        return Jx[..., idx, :], Ju[..., idx, :]
+        return self._rows(Jx, -2), self._rows(Ju, -2)
 
 
 @dataclass

@@ -10,8 +10,14 @@
 // the line-search trial's CUDA graph: the rollout's time was the launch
 // chain of those kernels, not their arithmetic.
 //
-// Same formulation as the PyTorch version, every spatial quantity at the
-// world origin: forward kinematics down the tree (joints in topological
+// Same formulation as the PyTorch version, every spatial quantity at one
+// point, here the first joint's position rather than the world origin (the
+// dynamics are invariant under the shift, gravity being uniform, and far
+// from the origin the spatial inertias' m c^ c^ terms would cancel to
+// garbage: a free-flying base at 5e9 m, which a line search's trial
+// rollout can reach, failed the Cholesky factorization where the PyTorch
+// version, summing in another order, did not): forward kinematics down the
+// tree (joints in topological
 // order, parents[i] < i), the dof axes S_k, body velocities V_b = V_parent
 // + sum S_k v_k, bias accelerations with gravity, Newton-Euler forces f_b =
 // I_b Acc_b + V_b x* (I_b V_b) and their subtree sums F_j, b_k = S_k . F_j;
@@ -157,12 +163,13 @@ free_fd_kernel(int B, int nj, int nq, int nv, const int* __restrict__ itab,
   const S* qs = q + static_cast<long long>(sc) * nq;
   const S* vs = v + static_cast<long long>(sc) * nv;
 
-  S Rw[kMaxJ][9], pw[kMaxJ][3];    // world poses
-  S Sax[kMaxV][6];                 // dof axes at the world origin
+  S Rw[kMaxJ][9], pw[kMaxJ][3];    // world poses, positions from `origin`
+  S Sax[kMaxV][6];                 // dof axes at `origin`
   S V[kMaxJ][6], Acc[kMaxJ][6];    // body velocities, bias accelerations
   S F[kMaxJ][6];                   // forces, then their subtree sums
   S Ic[kMaxJ][36];                 // spatial inertias, then composite
   S M[kMaxV][kMaxV];
+  S origin[3] = {0, 0, 0};  // the first joint's world position
 
   for (int i = 0; i < nj; ++i) {
     // local transform
@@ -184,16 +191,18 @@ free_fd_kernel(int B, int nj, int nq, int nv, const int* __restrict__ itab,
     for (int k = 0; k < 3; ++k) pl[k] += p0[3 * i + k];
     const int par = parent[i];
     if (par < 0) {
+      if (i == 0)
+        for (int k = 0; k < 3; ++k) origin[k] = pl[k];
       for (int k = 0; k < 9; ++k) Rw[i][k] = Rl[k];
-      for (int k = 0; k < 3; ++k) pw[i][k] = pl[k];
+      for (int k = 0; k < 3; ++k) pw[i][k] = pl[k] - origin[k];
     } else {
       S t[3];
       matmul3(Rw[par], Rl, Rw[i]);
       matvec3(Rw[par], pl, t);
       for (int k = 0; k < 3; ++k) pw[i][k] = pw[par][k] + t[k];
     }
-    // dof axes: local (lin; ang) rotated to the world, linear part at the
-    // world origin
+    // dof axes: local (lin; ang) rotated to the world, linear part at
+    // `origin`
     for (int c = 0; c < joint_nv(type[i]); ++c) {
       S sl[3] = {0, 0, 0}, sa[3] = {0, 0, 0};
       if (type[i] == 0) {
@@ -243,7 +252,7 @@ free_fd_kernel(int B, int nj, int nq, int nv, const int* __restrict__ itab,
     inertia_apply(m, cw, Iw, Acc[i], fa);
     cross_force(V[i], h, vxh);
     for (int k = 0; k < 6; ++k) F[i][k] = fa[k] + vxh[k];
-    // 6x6 spatial inertia at the origin: [[m I, -m c^], [m c^, I_w - m c^ c^]]
+    // 6x6 spatial inertia at `origin`: [[m I, -m c^], [m c^, I_w - m c^ c^]]
     const S ch[9] = {0, -cw[2], cw[1], cw[2], 0, -cw[0], -cw[1], cw[0], 0};
     S* I6 = Ic[i];
     for (int r = 0; r < 3; ++r)

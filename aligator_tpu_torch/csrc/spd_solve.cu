@@ -44,6 +44,17 @@
 // width in the same launch, each eliminating W again, as the column split
 // does.
 //
+// Accuracy: block Gauss-Jordan with explicit 4 x 4 pivot-block inverses is
+// not backward stable; on nearly singular SPD systems its error in X grew
+// to ~1e-6 relative in float64 where a Cholesky solve's stays ~1e-12 (the
+// Solo jump's Delassus matrix, four redundant point feet at mu = 1e-8),
+// which the trajectory solve then magnified. In float64 the register
+// route therefore refines its solution once in the same launch (a second
+// elimination of [W | R - W X], the residual formed from A's lower
+// triangle and the block's X): twice the arithmetic, one launch. float32
+// keeps one elimination. The shared-memory route eliminates one pivot a
+// step, with no block inverse.
+//
 // C interface (one function per scalar type): returns -1 for n out of
 // range (1 <= n <= 64) or an empty system, otherwise cudaGetLastError()
 // after the launch.
@@ -59,6 +70,10 @@ namespace {
 constexpr int kThreads = 256;  // most threads a block
 constexpr int kMaxN = 64;
 constexpr int kMaxR = 128;  // columns of Y a block at most
+// float64 systems on the register route take one step of iterative
+// refinement in the same launch (spd_solve_kernel_regs)
+template <typename S>
+constexpr bool kRefine = sizeof(S) == 8;
 
 // [W | Y] in registers, C columns a tile; block (m, s) solves system m for
 // the columns s rs .. s rs + rs - 1 of Y
@@ -79,12 +94,32 @@ spd_solve_kernel_regs(const int n, const int r, const int rs, const S* __restric
   __syncthreads();
   const S nan = aligator::qnan<S>();
   const int* failed = &bad;  // final when X is stored
+  const int cols = min(rs, r - c0);
+  auto a = [=](int i, int j) -> S { return i >= j ? Am[i * n + j] : Am[j * n + i]; };
   aligator::gauss_jordan_regs<C>(
-      n, min(rs, r - c0), buf, &bad,
-      [=](int i, int j) {
-        return j >= n ? Rm[i * r + j - n] : i >= j ? Am[i * n + j] : Am[j * n + i];
-      },
+      n, cols, buf, &bad,
+      [=](int i, int j) -> S { return j >= n ? Rm[i * r + j - n] : a(i, j); },
       [=](int i, int c, S x) { Xm[i * r + c] = *failed ? nan : x; });
+  if constexpr (kRefine<S>) {
+    // one step of iterative refinement, X += solve(A, R - A X): the
+    // explicit 4 x 4 pivot-block inverses lose up to cond(A_KK) eps, which
+    // on a nearly singular system (a Delassus matrix of redundant contacts
+    // at mu = 1e-8, a Riccati Schur system) reached 1e-6 relative in X.
+    // The barrier makes this block's X visible to all its threads; each
+    // thread loads every residual it needs before the first barrier of the
+    // second elimination and stores after its last one.
+    __syncthreads();
+    aligator::gauss_jordan_regs<C>(
+        n, cols, buf, &bad,
+        [=](int i, int j) -> S {
+          if (j < n) return a(i, j);
+          const int c = j - n;
+          S res = Rm[i * r + c];
+          for (int k = 0; k < n; ++k) res -= a(i, k) * Xm[k * r + c];
+          return res;
+        },
+        [=](int i, int c, S x) { Xm[i * r + c] = *failed ? nan : Xm[i * r + c] + x; });
+  }
 }
 
 // [W | Y] in shared memory (W mirrored from A's lower triangle),

@@ -33,12 +33,14 @@ plain version of K1).
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 from torch import Tensor
 
+from .. import _build
 from .._linalg import chol_solve, mv
 from . import fused_stage, spd_solve
 from .lqr_problem import LQRKnots, LQRProblem, batch_param
@@ -128,13 +130,20 @@ def _terminal_solve(kn: LQRKnots, mueq: Tensor) -> dict:
     return out
 
 
+def _inv(E: Tensor) -> Tensor:
+    """Batched inverse without the host-side check of the factorization
+    (which waits on the device); a singular E gives inf/NaN, as in JAX."""
+    return torch.linalg.inv_ex(E)[0]
+
+
 def _stage_kernel(knot: LQRKnots, P_n, p_n, mudyn, mueq,
-                  assume_explicit: bool, spd, th_n=None) -> dict:
+                  assume_explicit: bool, spd, th_n=None, Einv=None) -> dict:
     """One backward Riccati stage given the next stage's value function
     ``(P_n, p_n)`` and, with θ blocks, ``th_n = (Vxt_n, Vtt_n, vt_n)``.
     ``knot`` holds one stage's fields as ``(M, ...)`` tensors over any flat
     batch ``M`` (no time axis); ``mudyn``/``mueq`` are ``(M, 1, 1)``; the
-    SPD solves go through ``spd``."""
+    SPD solves go through ``spd``; ``Einv``, E's inverse, is computed here
+    unless given."""
     Q, S, R = knot.Q, knot.S, knot.R
     q, r = knot.q, knot.r
     A, Bm, f = knot.A, knot.B, knot.f
@@ -146,7 +155,8 @@ def _stage_kernel(knot: LQRKnots, P_n, p_n, mudyn, mueq,
         # E = -I: E^{-1} = E^{-T} = -I
         Ptilde, ptilde, Einv = P_n, p_n, None
     else:
-        Einv = torch.linalg.inv(knot.E)
+        if Einv is None:
+            Einv = _inv(knot.E)
         Ptilde = _sym(Einv.mT @ P_n @ Einv)
         ptilde = -mv(Einv.mT, p_n)
 
@@ -218,11 +228,12 @@ def _theta_buffers(kn: LQRKnots, n_stages: int) -> dict:
 
 
 def _sweep_loop(kn: LQRKnots, term: dict, mudyn, mueq, assume_explicit: bool,
-                spd) -> dict:
+                spd, Einv=None) -> dict:
     """Per-stage loop over stages ``N-1 .. 0`` from the terminal factor
     ``term``, SPD solves by ``spd``; factors as :func:`fused_stage.sweep`
     returns them (zero at index N), with the θ factors when the knots have
-    θ blocks."""
+    θ blocks. ``Einv (B, T, nx, nx)``, the inverses of E, may be given;
+    else each stage inverts its own."""
     md = mudyn[:, None, None]
     me = mueq[:, None, None]
     N = kn.horizon
@@ -233,7 +244,8 @@ def _sweep_loop(kn: LQRKnots, term: dict, mudyn, mueq, assume_explicit: bool,
         th = (term["Vxt"], term["Vtt"], term["vt"])
     for t in range(N - 1, -1, -1):
         st = _stage_kernel(kn.map(lambda a: a[:, t]), P, p, md, me,
-                           assume_explicit, spd, th)
+                           assume_explicit, spd, th,
+                           None if Einv is None else Einv[:, t])
         P, p = st["Pmat"], st["pvec"]
         if kn.nth:
             th = (st["Vxt"], st["Vtt"], st["vt"])
@@ -242,14 +254,89 @@ def _sweep_loop(kn: LQRKnots, term: dict, mudyn, mueq, assume_explicit: bool,
     return out
 
 
+class SweepGraph:
+    """The per-stage loop (:func:`_sweep_loop` on K2) of one shape of knots
+    on CUDA tensors, captured as a CUDA graph after its first, eager, call
+    and replayed for the later ones, its inputs copied into the graph's
+    static tensors: a stage is some 60 small operations, each a host
+    launch, and a sweep N stages of them. The launches that the capture
+    records (``_build.LAUNCHES``) are taken back and added again at every
+    replay, so that the counts are those of eager sweeps. A sweep that
+    cannot be captured runs eagerly from then on."""
+
+    def __init__(self):
+        self.graph = None
+        self.eager = False
+        self.replay_launches = None
+
+    def __call__(self, kn: LQRKnots, term: dict, mudyn, mueq, assume_explicit: bool):
+        # E's inverses for every stage at once, outside the graph: the
+        # batched LU of larger matrices (nx > 32) is not captured safely
+        ins = dict(kn=kn, term=term, mudyn=mudyn, mueq=mueq,
+                   Einv=None if assume_explicit else _inv(kn.E[:, :kn.horizon]))
+
+        def run(a):
+            return _sweep_loop(a["kn"], a["term"], a["mudyn"], a["mueq"], assume_explicit,
+                               spd_solve.spd_solve, a["Einv"])
+
+        if self.eager or not kn.Q.is_cuda:
+            return run(ins)
+        if self.graph is None:
+            out = run(ins)  # the first sweep, eager, also warms up the capture
+            self.static = _tree_map(ins, lambda t: t.clone())
+            before = _build.LAUNCHES.copy()
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph):
+                    self.out = run(self.static)
+            except RuntimeError:
+                _build.LAUNCHES.clear()
+                _build.LAUNCHES.update(before)
+                self.eager = True
+                return out
+            self.replay_launches = _build.LAUNCHES - before
+            _build.LAUNCHES.subtract(self.replay_launches)
+            self.graph = graph
+            return out
+        _tree_copy(self.static, ins)
+        self.graph.replay()
+        _build.LAUNCHES.update(self.replay_launches)
+        return {k: v.clone() for k, v in self.out.items()}
+
+
+def _tree_map(x, fn):
+    if isinstance(x, Tensor):
+        return fn(x)
+    if isinstance(x, dict):
+        return {k: _tree_map(v, fn) for k, v in x.items()}
+    if isinstance(x, LQRKnots):
+        return x.map(lambda t: _tree_map(t, fn))
+    return x
+
+
+def _tree_copy(dst, src):
+    if isinstance(dst, Tensor):
+        dst.copy_(src)
+    elif isinstance(dst, dict):
+        for k in dst:
+            _tree_copy(dst[k], src[k])
+    elif isinstance(dst, LQRKnots):
+        for f in dataclasses.fields(dst):
+            if getattr(dst, f.name) is not None:
+                _tree_copy(getattr(dst, f.name), getattr(src, f.name))
+
+
 def _sweep(kn: LQRKnots, mudyn: Tensor, mueq: Tensor, assume_explicit: bool,
-           plain: bool) -> dict:
+           plain: bool, graphs: Optional[dict] = None) -> dict:
     term = _terminal_solve(kn, mueq[:, None, None])
     if plain:
         out = _sweep_loop(kn, term, mudyn, mueq, assume_explicit, chol_solve)
     elif fused_stage.sweep_eligible(kn.nx, kn.nu, kn.nc, assume_explicit,
                                     kn.Q.element_size(), kn.nth):
         out = fused_stage.sweep(kn, term["Pmat"], term["pvec"], mudyn, mueq)
+    elif graphs is not None:
+        key = (tuple(kn.Q.shape), tuple(kn.C.shape), kn.nth, kn.Q.dtype, assume_explicit)
+        out = graphs.setdefault(key, SweepGraph())(kn, term, mudyn, mueq, assume_explicit)
     else:
         out = _sweep_loop(kn, term, mudyn, mueq, assume_explicit,
                           spd_solve.spd_solve)
@@ -297,10 +384,10 @@ def _initial_solve(P0, p0, G0, g0, mudyn, Vxt0=None):
 
 
 def _backward(problem: LQRProblem, mudyn, mueq, assume_explicit: bool,
-              plain: bool) -> RiccatiFactors:
+              plain: bool, graphs: Optional[dict] = None) -> RiccatiFactors:
     md = batch_param(mudyn, problem)
     me = batch_param(mueq, problem)
-    stages = _sweep(problem.knots, md, me, assume_explicit, plain)
+    stages = _sweep(problem.knots, md, me, assume_explicit, plain, graphs)
     Vxt0 = stages["Vxt"][:, 0] if problem.nth else None
     x0, lam0, x0_th, lam0_th = _initial_solve(
         stages["Pmat"][:, 0], stages["pvec"][:, 0], problem.G0, problem.g0, md,
@@ -315,11 +402,13 @@ def _backward(problem: LQRProblem, mudyn, mueq, assume_explicit: bool,
     )
 
 
-def backward(problem: LQRProblem, mudyn, mueq,
-             assume_explicit: bool = False) -> RiccatiFactors:
+def backward(problem: LQRProblem, mudyn, mueq, assume_explicit: bool = False,
+             graphs: Optional[dict] = None) -> RiccatiFactors:
     """Backward sweep over the full horizon (routed, :func:`sweep`) plus the
-    initial-stage solve."""
-    return _backward(problem, mudyn, mueq, assume_explicit, plain=False)
+    initial-stage solve. ``graphs``, a dict the caller keeps between
+    solves of knots of one shape, holds a :class:`SweepGraph` by shape for
+    the per-stage loop on the card."""
+    return _backward(problem, mudyn, mueq, assume_explicit, plain=False, graphs=graphs)
 
 
 def backward_plain(problem: LQRProblem, mudyn, mueq,
@@ -376,18 +465,18 @@ def solve(problem: LQRProblem, mudyn, mueq, assume_explicit: bool = False,
 
 
 def solve_and_gains(problem: LQRProblem, mudyn, mueq,
-                    assume_explicit: bool = True):
+                    assume_explicit: bool = True, graphs: Optional[dict] = None):
     """Solve and return ``(xs, us, vs, lams, gains)``, ``gains`` a dict of the
     per-stage ``kff K zff Z lff L yff Afb``.
 
     Problems inside the fused kernel's domain (:func:`fused_riccati.available`)
     go to :func:`fused_riccati.solve` (K1); the others take :func:`backward`
-    and :func:`forward`, routed to K3, K2 and K4 by shape. Each kernel
-    wrapper takes its plain version for CPU tensors.
+    (with ``graphs``) and :func:`forward`, routed to K3, K2 and K4 by shape.
+    Each kernel wrapper takes its plain version for CPU tensors.
     """
     from . import fused_riccati  # fused_riccati builds on this module
 
     if fused_riccati.available(problem):
         return fused_riccati.solve(problem, mudyn, mueq, assume_explicit)
-    factors = backward(problem, mudyn, mueq, assume_explicit)
+    factors = backward(problem, mudyn, mueq, assume_explicit, graphs)
     return (*forward(factors), factors.gains())

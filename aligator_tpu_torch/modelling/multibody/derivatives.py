@@ -224,6 +224,36 @@ def frame_velocity_jacobians(model, q: Tensor, v: Tensor, frame_id: int):
     return Jq, Jv
 
 
+def com_jacobian(model, q: Tensor, kin=None) -> Tensor:
+    """Analytic (..., 3, nv) Jacobian of the centre of mass: dof j moves
+    body b's com c_b at the point velocity of its screw, A[b,j] (S_j,lin +
+    S_j,ang × c_b), weighted by the masses."""
+    if kin is None:
+        kin = rbd.kinematics(model, q)
+    dt = q.dtype
+    m = model.mass.to(dt)
+    c_w = kin["p"] + (kin["R"] @ model.com.to(dt)[..., None])[..., 0]
+    S = kin["Phi"]
+    pt = S[..., :, None, :3] + cross(S[..., :, None, 3:], c_w[..., None, :, :])
+    dcom = torch.einsum("b,bj,...jbs->...js", m, kin["A"], pt) / m.sum()
+    return dcom.mT
+
+
+def com_velocity_jacobians(model, q: Tensor, v: Tensor):
+    """Analytic (Jq, Jv), each (..., 3, nv), of the centre of mass's linear
+    velocity v_com = Σ m_b (V_b,lin + ω_b × c_b) / Σ m_b."""
+    t = velocity_tensors(model, q, v)
+    kin, S, A, Vb, dV = t["kin"], t["S"], t["A"], t["Vb"], t["dV"]
+    dt = q.dtype
+    m = model.mass.to(dt)
+    c_w = kin["p"] + (kin["R"] @ model.com.to(dt)[..., None])[..., 0]
+    cb = c_w[..., None, :, :]
+    dc = A.T[:, :, None] * (S[..., :, None, :3] + cross(S[..., :, None, 3:], cb))
+    dterm = dV[..., :3] + cross(dV[..., 3:], cb) + cross(Vb[..., None, :, 3:], dc)
+    Jq = (torch.einsum("b,...jbs->...js", m, dterm) / m.sum()).mT
+    return Jq, com_jacobian(model, q, kin=kin)
+
+
 def point_derivative_rows(tensors: dict, body: int, p_c: Tensor, dim: int,
                           kp: float, kd: float, has_prefs: bool):
     """Directional derivatives of the contact-acceleration rows ``J a + γ +

@@ -283,19 +283,21 @@ def tables(model: RobotModel, like: Tensor) -> dict:
     return _device_tables(model.joint_types, model.parents, like.dtype, like.device)
 
 
-def _placement_rotations(model: RobotModel, like: Tensor) -> Tensor:
-    """The joints' placement rotations (nj, 3, 3) in ``like``'s dtype and
-    device, made once a model: constant, they would otherwise cost ~45 small
-    operations in every kinematics pass of a rollout. Not kept when made
-    while a CUDA graph is being captured (such a tensor holds its values
-    only after a replay) or when the placements take gradients."""
-    key = (like.dtype, like.device)
+def _placement_rotations(model: RobotModel, like: Tensor, frames: bool = False) -> Tensor:
+    """The joints' placement rotations (nj, 3, 3), or with ``frames`` the
+    operational frames' (nf, 3, 3), in ``like``'s dtype and device, made
+    once a model: constant, they would otherwise cost ~45 small operations
+    in every kinematics pass (or frame placement) of a rollout. Not kept
+    when made while a CUDA graph is being captured (such a tensor holds its
+    values only after a replay) or when the placements take gradients."""
+    key = (like.dtype, like.device, frames)
     cache = model.__dict__.setdefault("_placement_rotations", {})
     R0 = cache.get(key)
     if R0 is None:
-        R0 = quat_to_matrix(model.jplac_q.to(like.dtype))
+        quats = model.fplac_q if frames else model.jplac_q
+        R0 = quat_to_matrix(quats.to(like.dtype))
         capturing = like.is_cuda and torch.cuda.is_current_stream_capturing()
-        if not (capturing or model.jplac_q.requires_grad):
+        if not (capturing or quats.requires_grad):
             cache[key] = R0
     return R0
 
@@ -466,7 +468,7 @@ def frame_placement(model: RobotModel, q: Tensor, frame_id: int,
     if kin is None:
         kin = kinematics(model, q)
     par = model.frame_parents[frame_id]
-    Rf = quat_to_matrix(model.fplac_q[frame_id].to(q.dtype))
+    Rf = _placement_rotations(model, q, frames=True)[frame_id]
     pf = model.fplac_p[frame_id].to(q.dtype)
     Rp = kin["R"][..., par, :, :]
     return Rp @ Rf, kin["p"][..., par, :] + (Rp @ pf[:, None])[..., 0]

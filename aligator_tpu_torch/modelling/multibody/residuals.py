@@ -1,7 +1,8 @@
 """Multibody residuals (task-space errors).
 
 PyTorch counterpart of the frame translation, placement and velocity
-residuals of ``aligator_tpu/modelling/multibody/residuals.py``, on a
+residuals, the centre-of-mass residuals and the gravity-compensation
+residual of ``aligator_tpu/modelling/multibody/residuals.py``, on a
 phase-space state x = (q, v), with analytic Jacobians.
 """
 
@@ -16,7 +17,8 @@ from ...core.functions import StageFunction, stage_param
 from ...core.manifolds import batched_jacfwd
 from ..spaces.se3 import exp3_quat, quat_to_matrix, se3_log
 from . import model as rbd
-from .derivatives import frame_velocity_jacobians
+from .derivatives import (com_jacobian, com_velocity_jacobians, frame_velocity_jacobians,
+                          rnea_derivatives)
 
 
 def _zero_ju(x: Tensor, u: Tensor, nr: int) -> Tensor:
@@ -27,17 +29,23 @@ def _zero_ju(x: Tensor, u: Tensor, nr: int) -> Tensor:
 @dataclass
 class FrameTranslationResidual(StageFunction):
     """r(x) = p_frame(q) − p_ref ∈ R³; ``p_ref`` is ``(3,)``, or ``(N, 3)``
-    for a target that varies over the stages."""
+    for a target that varies over the stages, or with ``per_scenario``
+    ``(B, 3)``, one target for each scenario of the batch (the leading axis
+    of the state)."""
 
     model: rbd.RobotModel
     p_ref: Tensor
     frame_id: int = 0
+    per_scenario: bool = False
 
     def dim(self, space, nu):
         return 3
 
     def value(self, space, x, u):
         _, p = rbd.frame_placement(self.model, x[..., :self.model.nq], self.frame_id)
+        if self.per_scenario:
+            ref = self.p_ref
+            return p - ref.reshape(ref.shape[:1] + (1,) * (x.ndim - 2) + ref.shape[1:])
         return p - stage_param(self.p_ref, x, 1)
 
     def jacobians(self, space, x, u):
@@ -141,3 +149,82 @@ class FrameVelocityResidual(StageFunction):
                                           self.frame_id)
         Ju = _zero_ju(x, u, 6)
         return torch.cat([Jq, Jv], -1).expand(Ju.shape[:-2] + (6, space.ndx)), Ju
+
+
+def _pad_x(J: Tensor, Ju: Tensor, ndx: int) -> Tensor:
+    """``J (..., nr, nv)`` as a state Jacobian (..., nr, ndx), zero in the
+    velocity columns, broadcast to the leading dims of ``Ju``."""
+    Jx = J.new_zeros(Ju.shape[:-1] + (ndx,))
+    Jx[..., :J.shape[-1]] = J
+    return Jx
+
+
+@dataclass
+class CenterOfMassTranslationResidual(StageFunction):
+    """r(x) = com(q) − p_ref ∈ R³."""
+
+    model: rbd.RobotModel
+    p_ref: Tensor
+
+    def dim(self, space, nu):
+        return 3
+
+    def value(self, space, x, u):
+        return rbd.center_of_mass(self.model, x[..., :self.model.nq]) - self.p_ref
+
+    def jacobians(self, space, x, u):
+        J = com_jacobian(self.model, x[..., :self.model.nq])
+        Ju = _zero_ju(x, u, 3)
+        return _pad_x(J, Ju, space.ndx), Ju
+
+
+@dataclass
+class CenterOfMassVelocityResidual(StageFunction):
+    """r(x) = d/dt com(q) − v_ref ∈ R³, the centre of mass's velocity along
+    the tangent v (forward mode through the configuration chart)."""
+
+    model: rbd.RobotModel
+    v_ref: Tensor
+
+    def dim(self, space, nu):
+        return 3
+
+    def value(self, space, x, u):
+        nq = self.model.nq
+        q, v = x[..., :nq], x[..., nq:]
+        cs = self.model.configuration_space()
+        vel = torch.func.jvp(lambda dq: rbd.center_of_mass(self.model, cs.integrate(q, dq)),
+                             (torch.zeros_like(v),), (v,))[1]
+        return vel - self.v_ref
+
+    def jacobians(self, space, x, u):
+        nq = self.model.nq
+        Jq, Jv = com_velocity_jacobians(self.model, x[..., :nq], x[..., nq:])
+        Ju = _zero_ju(x, u, 3)
+        return torch.cat([Jq, Jv], -1).expand(Ju.shape[:-2] + (3, space.ndx)), Ju
+
+
+@dataclass
+class GravityCompensationResidual(StageFunction):
+    """r(x, u) = B·u − g(q), g the generalized gravity (RNEA at zero
+    velocity and acceleration)."""
+
+    model: rbd.RobotModel
+    actuation: Tensor  # (nv, nu)
+
+    def dim(self, space, nu):
+        return self.model.nv
+
+    def value(self, space, x, u):
+        q = x[..., :self.model.nq]
+        zero = q.new_zeros(q.shape[:-1] + (self.model.nv,))
+        return (self.actuation @ u[..., None])[..., 0] - rbd.rnea(self.model, q, zero, zero)
+
+    def jacobians(self, space, x, u):
+        """Analytic: −∂g/∂dq from the RNEA derivative pass at zero velocity
+        and acceleration; Ju = B."""
+        q = x[..., :self.model.nq]
+        zero = q.new_zeros(q.shape[:-1] + (self.model.nv,))
+        dg_dq, _ = rnea_derivatives(self.model, q, zero, zero)
+        Ju = self.actuation.expand(_zero_ju(x, u, self.model.nv).shape)
+        return _pad_x(-dg_dq, Ju, space.ndx), Ju

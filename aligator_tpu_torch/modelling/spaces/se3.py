@@ -145,6 +145,64 @@ def se3_log(p: Tensor, q: Tensor):
     return v, w
 
 
+def _right_jac_blocks(xi: Tensor):
+    """The blocks of the SE(3) right Jacobian J_r(ξ) = [[J, Q], [0, J]] of
+    exp₆ at ξ = (v, ω) (exp₆(ξ + δ) ≈ exp₆(ξ)·exp₆(J_r δ)): J the SO(3)
+    right Jacobian I − a ŵ + b ŵ², and Q Barfoot's coupling block at −ξ,
+    −½ v̂ + c₁(ŵv̂ + v̂ŵ − ŵv̂ŵ) + c₂(3ŵv̂ŵ − ŵŵv̂ − v̂ŵŵ) + c₃(ŵv̂ŵŵ + ŵŵv̂ŵ)
+    with c₁ = (t − sin t)/t³, c₂ = (t² + 2 cos t − 2)/(2t⁴), c₃ = (2t − 3 sin t
+    + t cos t)/(2t⁵), Taylor series below t = 0.1 (c₂ and c₃ cancel there).
+    Returns (J, Q, ŵ, v̂)."""
+    v, w = xi[..., :3], xi[..., 3:]
+    a, b = so3_jac_terms(w)
+    t2 = (w * w).sum(-1, keepdim=True)[..., None]
+    W, V = _hat(w), _hat(v)
+    WW = W @ W
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device)
+    J = eye - a[..., None] * W + b[..., None] * WW
+    small = t2 < 1e-2
+    ts = torch.where(small, torch.ones_like(t2), t2)  # keep the unused branch finite
+    t = torch.sqrt(ts)
+    c2 = torch.where(small, 1.0 / 24 - t2 / 720 + t2 * t2 / 40320,
+                     (ts + 2 * torch.cos(t) - 2) / (2 * ts * ts))
+    c3 = torch.where(small, 1.0 / 120 - t2 / 2520 + t2 * t2 / 120960,
+                     (2 * t - 3 * torch.sin(t) + t * torch.cos(t)) / (2 * ts * ts * t))
+    WV, VW = W @ V, V @ W
+    WVW = WV @ W
+    Q = (-0.5 * V + b[..., None] * (WV + VW - WVW) + c2 * (3 * WVW - W @ WV - VW @ W)
+         + c3 * (WVW @ W + W @ WVW))
+    return J, Q, W, V
+
+
+def _blocks(A: Tensor, B: Tensor, D: Tensor) -> Tensor:
+    """(..., 6, 6) block upper-triangular matrix [[A, B], [0, D]]."""
+    return torch.cat([torch.cat([A, B], -1), torch.cat([torch.zeros_like(D), D], -1)], -2)
+
+
+def se3_jexp(xi: Tensor) -> Tensor:
+    """The right Jacobian (..., 6, 6) of exp₆ at the twist ξ = (v, ω)."""
+    J, Q, _, _ = _right_jac_blocks(xi)
+    return _blocks(J, Q, J)
+
+
+def se3_jlog(xi: Tensor) -> Tensor:
+    """The inverse (..., 6, 6) of :func:`se3_jexp`, the Jacobian of log₆
+    under a right perturbation at exp₆(ξ): [[J⁻¹, −J⁻¹QJ⁻¹], [0, J⁻¹]] with
+    J⁻¹ = I + ½ŵ + d ŵ², d = (1 − (t/2)·cot(t/2))/t² (as in :func:`se3_log`)."""
+    _, Q, W, _ = _right_jac_blocks(xi)
+    w = xi[..., 3:]
+    t2 = (w * w).sum(-1, keepdim=True)
+    t = torch.sqrt(torch.clamp(t2, min=_EPS ** 2))
+    half = 0.5 * t
+    d = torch.where(
+        t2 < _EPS, 1.0 / 12.0 + t2 / 720.0,
+        (1.0 - half * torch.cos(half) / torch.clamp(torch.sin(half), min=_EPS))
+        / torch.clamp(t2, min=_EPS ** 2))[..., None]
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device)
+    Ji = eye + 0.5 * W + d * (W @ W)
+    return _blocks(Ji, -Ji @ Q @ Ji, Ji)
+
+
 class SO3(Manifold):
     """3D rotations, quaternion chart."""
 
@@ -188,6 +246,24 @@ class SE3(Manifold):
         q0c = quat_conj(q0)
         v, w = se3_log(quat_rotate(q0c, p1 - p0), quat_mul(q0c, q1))
         return torch.cat([v, w], -1)
+
+    # closed-form chart Jacobians (those of the generic forward-mode default
+    # cost ~60 small operations a direction under torch.func)
+
+    def jintegrate(self, x, v, arg):
+        """∂ integrate(x ⊕ dx, v + dv): Ad(exp₆(v)⁻¹) in x, J_r(v) in v."""
+        v = v.expand(torch.broadcast_shapes(x.shape[:-1], v.shape[:-1]) + v.shape[-1:])
+        if arg == 1:
+            return se3_jexp(v)
+        p, q = se3_exp(-v[..., :3], -v[..., 3:])
+        R = quat_to_matrix(q)
+        return _blocks(R, _hat(p) @ R, R)
+
+    def jdifference(self, x0, x1, arg):
+        """∂ difference(x0 ⊕ d0, x1 ⊕ d1) = Jlog₆(ξ) in x1 and −Jlog₆(−ξ) in
+        x0, ξ = difference(x0, x1)."""
+        xi = self.difference(x0, x1)
+        return se3_jlog(xi) if arg == 1 else -se3_jlog(-xi)
 
     def __eq__(self, other):
         return type(other) is SE3

@@ -62,6 +62,7 @@ from .. import _build
 from .._linalg import infnorm, mtv, mv
 from .._linalg import select as _where
 from ..core import problem as problem_mod
+from ..core.dynamics import dynamics_at
 from ..core.manifolds import VectorSpace
 from ..core.problem import ProblemData, TrajOptProblem
 from ..gar import associative as gar_associative
@@ -77,8 +78,10 @@ LINEAR_SOLVERS = ("serial", "serial_scan", "parallel", "associative")
 # below the μ floor). The counts accumulate on the solve's device, without
 # a host sync; read them with int()
 ROUTE_STEPS = dict.fromkeys(LINEAR_SOLVERS + ("associative_fallback",), 0)
-# nonlinear line-search trials made (each a rollout), for launch accounting
+# line-search trials made, for launch accounting: nonlinear (each a
+# rollout) and linear (each an evaluation of the problem)
 NONLINEAR_TRIALS = 0
+LINEAR_TRIALS = 0
 
 
 def _count_steps(route: str, mask: Tensor) -> None:
@@ -443,7 +446,7 @@ def _nonlinear_rollout(problem, cfg, st: _State, gains: dict, dx0: Tensor,
         v = st.vs[:, t] + a1 * g["zff"][:, :nc] + mv(g["Z"][:, :nc], dx)
         lam = st.lams[:, t + 1] + a1 * g["lff"] + mv(g["L"], dx)
         slack = mudyn * (st.prev_lams[:, t + 1] - lam)
-        dyn = (stage.at(t) if stage.nstack else stage).dynamics
+        dyn = stage.at(t).dynamics if stage.nstack else dynamics_at(stage.dynamics, t, N)
         if dyn.is_explicit:
             x = space.integrate(dyn.forward(space, x, u), slack)
         else:
@@ -474,92 +477,7 @@ def _nonlinear_trial(problem, cfg, st, gains: dict, dx0, dlam0, alpha):
     return _trial_values(problem, cfg, st, data, trial)
 
 
-# what a nonlinear trial reads: the state's fields and the LQ gains
-_TRIAL_STATE = ("xs", "us", "vs", "vs_term", "lams", "prev_lams", "prev_vs",
-                "prev_vs_term", "mu")
-_TRIAL_GAINS = ("kff", "K", "zff", "Z", "lff", "L")
-
-
-class TrialGraphWarning(RuntimeWarning):
-    """A nonlinear line-search trial could not be captured as a CUDA graph
-    and runs eagerly (several times slower)."""
-
-
-class _TrialGraph:
-    """The nonlinear trial (rollout, evaluation, multipliers, merit) on CUDA
-    tensors, captured as one CUDA graph at the first trial of a solve and
-    replayed for every later trial, its inputs copied into the graph's
-    static tensors. A trial is some N·150 small PyTorch operations (several
-    times more with an implicit rule's Newton steps), each a host launch,
-    whose stages cannot be batched; the replay launches them as one. A
-    trial that cannot be captured (an operation that waits on the host)
-    runs eagerly, with a :class:`TrialGraphWarning`. The kernel launches
-    that the capture records (``_build.LAUNCHES``) are taken back, since
-    recording is not launching, and added again at every replay."""
-
-    def __init__(self):
-        self.graph = None
-        self.eager = False
-        self.replay_launches = collections.Counter()
-
-    def __call__(self, problem, cfg, st, gains: dict, dx0, dlam0, alpha):
-        if self.eager:
-            return _nonlinear_trial(problem, cfg, st, gains, dx0, dlam0, alpha)
-        ins = {k: getattr(st, k) for k in _TRIAL_STATE}
-        ins.update({f"gain_{k}": gains[k] for k in _TRIAL_GAINS},
-                   dx0=dx0, dlam0=dlam0, alpha=alpha)
-        if self.graph is None:
-            self.static = {k: v.clone() for k, v in ins.items()}
-            try:
-                self._capture(problem, cfg)
-            except RuntimeError as err:
-                warnings.warn(f"the nonlinear trial runs eagerly: its capture "
-                              f"as a CUDA graph failed ({err})", TrialGraphWarning)
-                self.eager = True
-                return _nonlinear_trial(problem, cfg, st, gains, dx0, dlam0, alpha)
-        for k, v in ins.items():
-            self.static[k].copy_(v)
-        self.graph.replay()
-        _build.LAUNCHES.update(self.replay_launches)
-        trial, *values = self.out
-        return tuple(t.clone() for t in trial), *(v.clone() for v in values)
-
-    def _run(self, problem, cfg):
-        s = self.static
-        st = SimpleNamespace(**{k: s[k] for k in _TRIAL_STATE})
-        gains = {k: s[f"gain_{k}"] for k in _TRIAL_GAINS}
-        return _nonlinear_trial(problem, cfg, st, gains, s["dx0"], s["dlam0"],
-                                s["alpha"])
-
-    def _capture(self, problem, cfg):
-        # a warm-up on a side stream first, as torch.cuda.graph asks: the
-        # lazy initializations (cuBLAS handles) stay out of the capture
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self._run(problem, cfg)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        before = _build.LAUNCHES.copy()
-        with torch.cuda.graph(graph):
-            self.out = self._run(problem, cfg)
-        self.replay_launches = _build.LAUNCHES - before
-        _build.LAUNCHES.subtract(self.replay_launches)
-        self.graph = graph
-
-
-def _forward_pass(problem, cfg, st: _State, gains: dict, steps, alpha: Tensor,
-                  graph: Optional[_TrialGraph] = None):
-    """Trial point of a step of length ``alpha (B,)`` (a linear step, or the
-    nonlinear rollout along ``gains``, through ``graph`` where given), its
-    cost, merit and primal infeasibility."""
-    global NONLINEAR_TRIALS
-    if cfg.rollout == "nonlinear":
-        NONLINEAR_TRIALS += 1
-        args = (st, gains, steps[0][:, 0], steps[4][:, 0], alpha)
-        if graph is not None:
-            return graph(problem, cfg, *args)
-        return _nonlinear_trial(problem, cfg, *args)
+def _linear_trial(problem, cfg, st, steps, alpha):
     dxs, dus, dvs, dvs_t, dlams = steps
     a3 = alpha[:, None, None]
     trial = (problem.space.integrate(st.xs, a3 * dxs), st.us + a3 * dus,
@@ -567,6 +485,125 @@ def _forward_pass(problem, cfg, st: _State, gains: dict, steps, alpha: Tensor,
              st.lams + a3 * dlams)
     return _trial_values(problem, cfg, st, problem_mod.evaluate(problem, *trial[:2]),
                          trial)
+
+
+# what a trial reads: the state's fields, and the LQ gains (nonlinear) or the
+# Newton step (linear)
+_TRIAL_STATE = ("xs", "us", "vs", "vs_term", "lams", "prev_lams", "prev_vs",
+                "prev_vs_term", "mu")
+_TRIAL_GAINS = ("kff", "K", "zff", "Z", "lff", "L")
+_TRIAL_STEP = ("dxs", "dus", "dvs", "dvs_t", "dlams")
+
+
+def _trial_inputs(cfg, st, gains: dict, steps, alpha: Tensor) -> dict:
+    ins = {k: getattr(st, k) for k in _TRIAL_STATE}
+    if cfg.rollout == "nonlinear":
+        ins.update({f"gain_{k}": gains[k] for k in _TRIAL_GAINS},
+                   dx0=steps[0][:, 0], dlam0=steps[4][:, 0])
+    else:
+        ins.update(zip(_TRIAL_STEP, steps))
+    ins["alpha"] = alpha
+    return ins
+
+
+def _trial(problem, cfg, ins: dict):
+    """The trial point of :func:`_trial_inputs`' tensors, its cost, merit and
+    primal infeasibility."""
+    st = SimpleNamespace(**{k: ins[k] for k in _TRIAL_STATE})
+    if cfg.rollout == "nonlinear":
+        gains = {k: ins[f"gain_{k}"] for k in _TRIAL_GAINS}
+        return _nonlinear_trial(problem, cfg, st, gains, ins["dx0"], ins["dlam0"],
+                                ins["alpha"])
+    return _linear_trial(problem, cfg, st, tuple(ins[k] for k in _TRIAL_STEP),
+                         ins["alpha"])
+
+
+class TrialGraphWarning(RuntimeWarning):
+    """A line-search trial could not be captured as a CUDA graph and runs
+    eagerly (several times slower)."""
+
+
+class _TrialGraph:
+    """The line-search trial (the nonlinear rollout or the linear step, the
+    problem's evaluation, multipliers, merit) on CUDA tensors, captured as
+    one CUDA graph at its first trial and replayed for every later trial
+    (of the problem's later solves too, :func:`_trial_graph`), its inputs
+    copied into the graph's static tensors. A trial is
+    hundreds of small PyTorch operations (the nonlinear rollout some N·150,
+    several times more with an implicit rule's Newton steps), each a host
+    launch; the replay launches them as one. A trial that cannot be captured
+    (an operation that waits on the host) runs eagerly, with a
+    :class:`TrialGraphWarning`. The kernel launches that the capture records
+    (``_build.LAUNCHES``) are taken back, since recording is not launching,
+    and added again at every replay; those of the warm-up before the capture
+    stay counted."""
+
+    def __init__(self):
+        self.graph = None
+        self.eager = False
+        self.replay_launches = collections.Counter()
+
+    def __call__(self, problem, cfg, ins: dict):
+        if self.eager:
+            return _trial(problem, cfg, ins)
+        if self.graph is None:
+            self.static = {k: v.clone() for k, v in ins.items()}
+            try:
+                self._capture(problem, cfg)
+            except RuntimeError as err:
+                warnings.warn(f"the line-search trial runs eagerly: its capture "
+                              f"as a CUDA graph failed ({err})", TrialGraphWarning)
+                self.eager = True
+                return _trial(problem, cfg, ins)
+        for k, v in ins.items():
+            self.static[k].copy_(v)
+        self.graph.replay()
+        _build.LAUNCHES.update(self.replay_launches)
+        trial, *values = self.out
+        return tuple(t.clone() for t in trial), *(v.clone() for v in values)
+
+    def _capture(self, problem, cfg):
+        # a warm-up on a side stream first, as torch.cuda.graph asks: the
+        # lazy initializations (cuBLAS handles) stay out of the capture
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            _trial(problem, cfg, self.static)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = _build.LAUNCHES.copy()
+        with torch.cuda.graph(graph):
+            self.out = _trial(problem, cfg, self.static)
+        self.replay_launches = _build.LAUNCHES - before
+        _build.LAUNCHES.subtract(self.replay_launches)
+        self.graph = graph
+
+
+def _trial_graph(problem, cfg) -> _TrialGraph:
+    """The trial graph of ``problem`` under ``cfg``, kept on the problem
+    object: later solves of the same problem replay the first one's capture
+    (a capture and its warm-up cost about as much as a short solve)."""
+    graphs = problem.__dict__.setdefault("_trial_graphs", {})
+    try:
+        return graphs.setdefault(cfg, _TrialGraph())
+    except TypeError:  # a configuration that does not hash (a callback)
+        return _TrialGraph()
+
+
+def _forward_pass(problem, cfg, st: _State, gains: dict, steps, alpha: Tensor,
+                  graph: Optional[_TrialGraph] = None):
+    """Trial point of a step of length ``alpha (B,)`` (a linear step, or the
+    nonlinear rollout along ``gains``; through ``graph`` where given), its
+    cost, merit and primal infeasibility."""
+    global NONLINEAR_TRIALS, LINEAR_TRIALS
+    if cfg.rollout == "nonlinear":
+        NONLINEAR_TRIALS += 1
+    else:
+        LINEAR_TRIALS += 1
+    ins = _trial_inputs(cfg, st, gains, steps, alpha)
+    if graph is not None:
+        return graph(problem, cfg, ins)
+    return _trial(problem, cfg, ins)
 
 
 # ---------------------------------------------------------------------------
@@ -768,11 +805,12 @@ def _associative(cfg, lq, mudyn, mu, assume_explicit, step_mask):
     return tuple(out)
 
 
-def _lq_solve(cfg, lq, mudyn, mu, assume_explicit: bool, step_mask):
+def _lq_solve(cfg, lq, mudyn, mu, assume_explicit: bool, step_mask, graphs=None):
     """The Newton step's LQ solve on the route of ``cfg.linear_solver``.
     Returns ``(xs, us, vs, lams, gains)``, ``gains`` a dict of the per-stage
     ``kff K zff Z lff L yff Afb`` (``'parallel'``: ``kff K`` only; it takes
-    no nonlinear rollout)."""
+    no nonlinear rollout). ``graphs`` holds the serial route's sweep graphs
+    (:class:`~..gar.riccati.SweepGraph`)."""
     route = cfg.linear_solver
     if route == "associative":
         sol = _associative(cfg, lq, mudyn, mu, assume_explicit, step_mask)
@@ -785,7 +823,9 @@ def _lq_solve(cfg, lq, mudyn, mu, assume_explicit: bool, step_mask):
     if route == "serial_scan":
         sol = _serial_scan(lq, mudyn, mu, assume_explicit)
         return (*sol[:4], dict(zip(GAINS, sol[4:])))
-    return riccati.solve_and_gains(lq, mudyn, mu, assume_explicit)
+    if graphs is None:
+        return riccati.solve_and_gains(lq, mudyn, mu, assume_explicit)
+    return riccati.solve_and_gains(lq, mudyn, mu, assume_explicit, graphs=graphs)
 
 
 def _newton_step(problem, cfg, st: _State, data: ProblemData, step_mask,
@@ -809,8 +849,9 @@ def _newton_step(problem, cfg, st: _State, data: ProblemData, step_mask,
 
     mudyn = cfg.dyn_al_scale * st.mu
     lq = _assemble_lq(problem, cfg, data, m, Lxs, Lus, st.preg, st.mu, vhp)
+    graphs = problem.__dict__.setdefault("_sweep_graphs", {}) if st.xs.is_cuda else None
     dxs, dus_p, dvs_p, dlams, gains = _lq_solve(
-        cfg, lq, mudyn, st.mu, assume_explicit, step_mask
+        cfg, lq, mudyn, st.mu, assume_explicit, step_mask, graphs
     )
     dus = dus_p[:, :N]
     dvs = dvs_p[:, :N, :nc]
@@ -1013,9 +1054,7 @@ def solve(problem: TrajOptProblem, cfg: ProxDDPConfig = ProxDDPConfig(),
         alpha_last=full((B,), 0.0), dphi_last=full((B,), 0.0),
     )
     hist = _history_buffers(cfg, st, dtype)
-    graph = None
-    if cfg.rollout == "nonlinear" and x0.is_cuda:
-        graph = _TrialGraph()
+    graph = _trial_graph(problem, cfg) if x0.is_cuda else None
 
     while True:
         run = _running(cfg, st)

@@ -10,8 +10,8 @@ any failed check raises and the script exits non-zero:
    in parallel, with ptxas's registers and spills for each; the two K1
    shapes that take nvcc one to two minutes build in a background thread
    while the phases run, and are checked after the Talos walk; a worker
-   process (CPU only) meanwhile solves the free-dynamics paths' CPU
-   references (phase 11);
+   process (CPU only) meanwhile solves the free-dynamics and contact paths'
+   CPU references (phases 11 and 12);
 3. kernels: each kernel (K1 fused Riccati, K2 SPD solve, K3 fused backward
    sweep, K4 forward substitution, K5 contact-dynamics derivative rows) held
    against its plain PyTorch version on the card, at the main paths' shapes
@@ -27,7 +27,10 @@ any failed check raises and the script exits non-zero:
    K4 also print their shared memory, registers and resident blocks per SM
    at the main shapes, and K3 its time at batches of 132 to 1024 (1 to 7.8
    scenarios for each of the 132 SMs); K2 and K4 also at the free-dynamics
-   reaches' shapes (fp64) and K1 at the acrobot's; the free-dynamics kernel
+   reaches' shapes (fp64) and K1 at the acrobot's; K2 (with the
+   differentiable solve's tangent and adjoint launches), K4 and K5 (without
+   and with position references) at the contact paths' shapes (fp64); the
+   free-dynamics kernel
    (``csrc/free_fd.cu``, the forward dynamics of ``model.aba``) on every
    robot builder against its plain version and timed at the three paths'
    shapes;
@@ -96,7 +99,8 @@ any failed check raises and the script exits non-zero:
 11. the free multibody dynamics (``examples/ur5_reach.py``, N = 40, batch
    1024; ``examples/dual_ffsr_reach.py``, the dual-arm free-floating space
    robot, N = 60, batch 256; ``examples/acrobot.py``, N = 120, batch 1024;
-   float64, the published options, ``rollout='nonlinear'``), with the
+   float64, the published options, ``rollout='nonlinear'``, the budgets
+   cut to 50, 60 and 150 iterations for the script's time), with the
    plain versions patched to raise and the launch counts checked against
    the route (K2 twice a stage and K4 once a Newton step on the reaches,
    K1 once a Newton step on the acrobot, the free-dynamics kernel once a
@@ -110,7 +114,24 @@ any failed check raises and the script exits non-zero:
    free-dynamics kernel held likewise (the witness that the kernel's
    rounding is no larger than any other), and a device-time breakdown of
    an FFSR solve cut to 1 iteration;
-12. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
+12. the contact paths (float64, the published options): the UR10 payload
+   throw (``examples/ur10_ballistic.py``: the arm and a free-flying payload,
+   a 6D grasp as a loop constraint with position references, released at
+   40% of the horizon; N = 80, dt = 0.025, 400 iterations, linear rollout,
+   filter line search, from its warm start) at 64 targets, and the Solo
+   jump (``examples/solo_jump.py``: 4 point feet under a stance, flight,
+   landing schedule, N = 28, 60 iterations, ``rollout='nonlinear'``) at
+   256 initial states, with the plain versions patched to raise and the
+   launch counts checked against the route (the throw: K2 for the per-stage
+   loop, the loop constraint's KKT and its implicit tangents, and the
+   trials' dynamics, K4; the jump: K5, K2, K4): solves/s, frac_converged,
+   the iterations, a device-time breakdown of one iteration, the first 4
+   scenarios' converged count held to the JAX package's less one
+   (``tests/data/torch_contact_ref.npz``) and those 4 against the CPU over 4
+   iterations as in phase 11; the throw's payload landing error (held to
+   1e-3 on the converged first 4) and torque-box violation, the jump's peak
+   base height;
+13. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -244,6 +265,12 @@ FREE_BATCHES = {"ur5": 1024, "ffsr": 256, "acrobot": 1024}
 # on them is held to JAX's less one
 FREE_REF = "tests/data/torch_free_ref.npz"
 FREE_NSTEPS = {"ur5": 40, "ffsr": 60, "acrobot": 120}
+# iteration budgets cut for the script's time limit, which the contact
+# phase after them also needs: the FFSR reach 120 -> 60, the UR5 reach 100
+# -> 50, the acrobot 250 -> 150; the first 16 scenarios are then held to
+# the JAX package's count of those that converged within the cut budget,
+# less one
+FREE_MAX_ITERS = {"ffsr": 60, "ur5": 50, "acrobot": 150}
 FREE_CPU_SCENARIOS = 16
 # card vs CPU, relative, by iteration: these solves magnify any difference
 # of rounding from their first Newton step. Two CPU solves of the first 16
@@ -269,6 +296,20 @@ FREE_PROFILE_ITERS = 1
 # different orders differ by ~cond·eps
 FREE_FD_FP32_TOL = 1e-2
 # inverse LQR (examples/inverse_lqr.py)
+# phase 12, the contact paths (fp64, the published options): the UR10
+# payload throw (examples/ur10_ballistic.py, N = 80, dt = 0.025, 400
+# iterations, linear rollout, filter line search, from its warm start) at
+# B = 64 targets, the Solo jump (examples/solo_jump.py, stance, flight,
+# landing = 10, 8, 10, 60 iterations, nonlinear rollout) at B = 256 initial
+# states; the first 4 of each against the JAX package's converged count
+# (tests/data/torch_contact_ref.npz, tools/torch_contact_fixture.py) and,
+# over CART_CPU_ITERS iterations, against the CPU as the free paths are
+UR10_BATCH, UR10_NSTEPS, UR10_DT = 64, 80, 0.025
+SOLO_BATCH, SOLO_PHASES = 256, (10, 8, 10)
+CONTACT_REF = "tests/data/torch_contact_ref.npz"
+CONTACT_CPU_SCENARIOS = 4
+UR10_LANDING_TOL = 1e-3  # tests/test_ballistic.py's bound
+CONTACT_PROFILE_ITERS = 1
 INV_DEMOS = (16, 4096)
 INV_STEPS = 100  # cut from 300 (the published fit) for the free-dynamics phase
 INV_TIMED_STEPS = 10
@@ -599,8 +640,11 @@ def kernel_ms(fn, reps, kernel_name):
     if count == 0 or total_us == 0:
         print(f"[kernel] profiler saw no {kernel_name}: timing whole calls")
         return avg_time_ms(fn, reps)
-    check(reps - max(1, reps // 10) <= count <= reps,
-          f"{kernel_name}: {count} launches profiled, {reps} made")
+    check(count <= reps, f"{kernel_name}: {count} launches profiled, {reps} made")
+    if count < reps - max(1, reps // 10):
+        print(f"[kernel] {kernel_name}: the profiler recorded {count} of {reps} launches, "
+              "too few to trust: timing whole calls")
+        return avg_time_ms(fn, reps)
     if count < reps:
         print(f"[kernel] {kernel_name}: the profiler recorded {count} of {reps} "
               "launches; time averaged over those")
@@ -735,6 +779,21 @@ def k2_phase():
     # at 256
     shapes += [("UR5 loop", FREE_BATCHES["ur5"], n, 13, f64) for n in (12, 6)]
     shapes += [("FFSR loop", FREE_BATCHES["ffsr"], n, 41, f64) for n in (40, 14)]
+    # the contact paths (fp64): the UR10 throw's loop-constraint KKT at K =
+    # B N (mass matrix n = nv = 12 against [Jcᵀ | τ − b], r = 7, and its
+    # implicit tangents folded into r = 7 x 30 directions; Delassus n = 6
+    # against 1 and 30), its per-stage loop (n = ndx 24 and nu 6, r = 25);
+    # the Solo jump's contact-KKT derivative solves at K = B N (n = nv = 14
+    # and nc = 12 against 3 nv = 42) and its per-stage loop (n = 28 and 8, r
+    # = 29)
+    K_ur, K_solo = UR10_BATCH * UR10_NSTEPS, SOLO_BATCH * sum(SOLO_PHASES)
+    ntan = 2 * 12 + 6
+    shapes += [("UR10 loop KKT", K_ur, 12, 7, f64), ("UR10 loop KKT", K_ur, 6, 1, f64),
+               ("UR10 KKT tangents", K_ur, 12, 7 * ntan, f64),
+               ("UR10 KKT tangents", K_ur, 6, ntan, f64)]
+    shapes += [("UR10 LQ loop", UR10_BATCH, n, 25, f64) for n in (24, 6)]
+    shapes += [("Solo contact KKT", K_solo, n, 42, f64) for n in (14, 12)]
+    shapes += [("Solo LQ loop", SOLO_BATCH, n, 29, f64) for n in (28, 8)]
     by_shape = {}
     for i, (what, M, n, r, dtype) in enumerate(shapes):
         A, R = spd_batch(M, n, r, dtype, SEED + 10 + i)
@@ -767,6 +826,9 @@ def k2_phase():
             bound_by=by, nbytes=nbytes, flops=flops, max_abs_err=abs_err(X, ref))
         del A, R, X, ref, ref64
 
+    spd_solve_diff_check(sp)
+    spd_solve_conditioning_check(sp)
+
     # the kernel line: one stage of the LQR-56 loop, both solves
     pair = [by_shape[f"M={LQR_BATCH} n={n} r=57"] for n in (56, 22)]
     tot = {k: sum(p[k] for p in pair)
@@ -781,6 +843,78 @@ def k2_phase():
         ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=bms, bound_by=by,
         library_ms=tot["library_ms"],
     ), dict(wrapper_call_ms=tot["call_ms"], by_shape=by_shape)
+
+
+def spd_solve_conditioning_check(sp):
+    """K2 in fp64 on nearly singular SPD systems (eigenvalues log-spaced
+    from 1 down to 1e-10, the conditioning of a Delassus matrix of
+    redundant contacts at μ = 1e-8), at the Solo's Delassus shape (n = 12,
+    r = 42): its backward error max |A X − R| / (max |A| max |X|) beside
+    the plain Cholesky solve's, held to 1e-12 (one elimination without the
+    kernel's refinement step is not backward stable there)."""
+    g = _gen(SEED + 92)
+    M, n, r = 4096, 12, 42
+    Q = torch.linalg.qr(torch.randn((M, n, n), generator=g, device="cuda",
+                                    dtype=torch.float64))[0]
+    lam = torch.logspace(0, -10, n, device="cuda", dtype=torch.float64)
+    A = (Q * lam) @ Q.mT
+    A = 0.5 * (A + A.mT)
+    R = torch.randn((M, n, r), generator=g, device="cuda", dtype=torch.float64)
+
+    def backward_err(X):
+        res = (A @ X - R).abs().flatten(1).amax(1)
+        return (res / (A.abs().flatten(1).amax(1) * X.abs().flatten(1).amax(1))).max().item()
+
+    X, Xp = sp.spd_solve(A, R), sp.spd_solve_plain(A, R)
+    torch.cuda.synchronize()
+    e, ep = backward_err(X), backward_err(Xp)
+    print(f"[kernel] spd_solve fp64 M={M} n={n} r={r}, condition 1e10: backward error "
+          f"kernel {e:.2e}, plain (Cholesky) {ep:.2e} (tol 1e-12); forward gap "
+          f"{rel_err(X, Xp):.2e}")
+    check(e <= 1e-12, f"spd_solve on nearly singular systems: backward error {e}")
+
+
+def spd_solve_diff_check(sp):
+    """The differentiable SPD solve on the card at the UR10 loop KKT's
+    shape (K = 512, n = 12, r = 7): its forward, its forward-mode tangents
+    under ``jacfwd`` (30 directions folded into one launch) and its
+    reverse mode each one K2 launch, against ``torch.func`` through the
+    plain Cholesky solve on the same card."""
+    from aligator_tpu_torch import _build
+    from aligator_tpu_torch._linalg import chol_solve
+
+    A, R = spd_batch(512, 12, 7, torch.float64, SEED + 90)
+    P = torch.linalg.cholesky(A)
+    d = torch.randn((30, 12, 12), generator=_gen(SEED + 91), device="cuda",
+                    dtype=torch.float64)
+
+    def f(solve):
+        # A(z) = (P + Σ z_i d_i)(P + Σ z_i d_i)ᵀ, R(z) = R (1 + Σ z_i): one
+        # tangent basis shared by every system
+        def fn(z):
+            L = P + torch.einsum("i,ijk->jk", z, d)
+            return solve(L @ L.mT, R * (1 + z.sum()))
+        return fn
+
+    z = torch.zeros(30, device="cuda", dtype=torch.float64)
+    before = _build.LAUNCHES["spd_solve"]
+    J = torch.func.jacfwd(f(sp.spd_solve_diff))(z)
+    fwd_launches = _build.LAUNCHES["spd_solve"] - before
+    J_ref = torch.func.jacfwd(f(chol_solve))(z)
+    Pg, Rg = P.clone().requires_grad_(), R.clone().requires_grad_()
+    before = _build.LAUNCHES["spd_solve"]
+    g = torch.autograd.grad(sp.spd_solve_diff(Pg @ Pg.mT, Rg).sin().sum(), (Pg, Rg))
+    rev_launches = _build.LAUNCHES["spd_solve"] - before
+    Pg, Rg = P.clone().requires_grad_(), R.clone().requires_grad_()
+    g_ref = torch.autograd.grad(chol_solve(Pg @ Pg.mT, Rg).sin().sum(), (Pg, Rg))
+    torch.cuda.synchronize()
+    err = max([rel_err(J, J_ref)] + [rel_err(a, b) for a, b in zip(g, g_ref)])
+    print(f"[kernel] spd_solve_diff fp64 K=512 n=12 r=7: jacfwd over 30 directions "
+          f"{fwd_launches} launches (forward and the folded tangents), reverse mode "
+          f"{rev_launches} (forward and the adjoint solve); vs torch.func through the "
+          f"Cholesky solve {err:.2e} (tol {FP64_TOL:g})")
+    check(fwd_launches == 2 and rev_launches == 2, "spd_solve_diff launches")
+    check(err <= FP64_TOL, f"spd_solve_diff: {err}")
 
 
 def k3_flops_per_stage(n, m, c):
@@ -901,14 +1035,17 @@ def k4_phase():
         check(err <= FP64_TOL, f"fused_stage forward fp64 {err}")
 
     out = {}
-    # the medium-dim paths' shapes in fp32 and the free-dynamics reaches' in
-    # fp64 (UR5 at 1024, T = 41; FFSR at 256, T = 61)
+    # the medium-dim paths' shapes in fp32, the free-dynamics reaches' in
+    # fp64 (UR5 at 1024, T = 41; FFSR at 256, T = 61) and the contact paths'
+    # (UR10 throw at 64, T = 81; Solo jump at 256, T = 29)
     T_med = MEDIUM_NSTEPS + 1
     f32, f64 = torch.float32, torch.float64
     for i, (B, T, nx, nu, nc, dt) in enumerate((
             (HUMANOID_BATCH, T_med, 36, 12, 12, f32), (LQR_BATCH, T_med, 56, 22, 0, f32),
             (FREE_BATCHES["ur5"], FREE_NSTEPS["ur5"] + 1, 12, 6, 6, f64),
-            (FREE_BATCHES["ffsr"], FREE_NSTEPS["ffsr"] + 1, 40, 14, 14, f64))):
+            (FREE_BATCHES["ffsr"], FREE_NSTEPS["ffsr"] + 1, 40, 14, 14, f64),
+            (UR10_BATCH, UR10_NSTEPS + 1, 24, 6, 12, f64),
+            (SOLO_BATCH, sum(SOLO_PHASES) + 1, 28, 8, 0, f64))):
         gains, x0, lam0 = random_gains(B, T, nx, nu, nc, dt, SEED + 10 + i)
         got = fs.forward(gains, x0, lam0)
         ref = fs.forward_plain(gains, x0, lam0)
@@ -1060,7 +1197,7 @@ def free_fd_phase():
     ), by_shape
 
 
-def k5_flops(model, bodies, dims, active):
+def k5_flops(model, bodies, dims, active, kp=0.0):
     """Flops that K5's function needs on these inputs, summed over the
     ``active.shape[0]`` instances: the kernel's
     arithmetic (a multiply-add is 2) counted only where it is not a product
@@ -1095,7 +1232,8 @@ def k5_flops(model, bodies, dims, active):
     act = (active != 0).sum(0).tolist()  # instances with each contact active
     for c, (b, dim) in enumerate(zip(bodies, dims)):
         na, nj, contraction, npair = support(b)
-        per_dir = 243 if dim == 6 else 231  # kp = 0: no kp·dp term
+        # the kp·dp term of the position references: 6 more a direction
+        per_dir = (243 if dim == 6 else 231) + (6 if kp else 0)
         # pdot and F_c; per (k, j) the J' lam transport (6) and, where D is
         # 1, the SxS . F_c term (12)
         one = contraction + per_dir * nj + 24 + 3 * (dim == 6) + 6 * na * nj + 12 * npair
@@ -1211,6 +1349,7 @@ def k5_phase():
         by_batch[K] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bms,
                            bound_by=by, flops_per_instance=flops / K)
         del inputs, args
+    by_batch.update(k5_solo_rows())
     main = by_batch[TALOS_BATCHES[0] * N]
     return dict(
         name="fd_rows", route="cuda", source="aligator_tpu_torch/csrc/fd_rows.cu",
@@ -1219,6 +1358,58 @@ def k5_phase():
                                                      "bound_by")},
         library_ms=None,
     ), dict(by_K=by_batch)
+
+
+def k5_solo_rows():
+    """K5 at the Solo jump's shape (fp64, K = B N = 7168 over its schedule,
+    the flight's contacts inactive), without position references (the
+    path's) and with them (kp = 50), against its plain version, timed
+    beside its bound."""
+    from aligator_tpu_torch.examples.solo_jump import create_solo_jump_problem
+    from aligator_tpu_torch.modelling.multibody import contact, fd_rows
+    from aligator_tpu_torch.modelling.multibody.derivatives import fd_rows_inputs
+
+    prob, model, _ = create_solo_jump_problem(*SOLO_PHASES, device="cuda")
+    ode, N = prob.stages.dynamics.ode, prob.nsteps
+    frames, dims = ode.contact_frames, (3,) * len(ode.contact_frames)
+    bodies = tuple(model.frame_parents[f] for f in frames)
+    x0s = torch.tensor(solo_x0s(SOLO_BATCH, prob.x0[0].cpu().numpy()), device="cuda")
+    q, v, tau, act = k5_inputs(model, x0s, ode.active, N, 0.05, 0.2, SEED + 41)
+    out = contact.cfd_internals(model, q, v, tau, frames, act, prox_mu=ode.prox_mu,
+                                kd=ode.kd, contact_dims=dims)
+    args = (model, q, v, out["a"], out["lam"], act, frames, dims)
+    K, nv, nb = q.shape[:-1].numel(), model.nv, model.njoints
+    ncont, nc = len(bodies), sum(dims)
+    rows = {}
+    for kp in (0.0, 50.0):
+        kw = dict(kd=ode.kd, kp=kp, has_prefs=kp != 0)
+        got = fd_rows.fd_rows(*args, **kw)
+        ref = fd_rows.fd_rows_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = max(rel_err(a, b) for a, b in zip(got, ref))
+        check(all(torch.isfinite(t).all().item() for t in got), "fd_rows solo non-finite")
+        check(err <= FP64_TOL, f"fd_rows solo kp={kp}: {err}")
+        inputs = fd_rows_inputs(model, q, v, out["a"], frames)
+        inputs.update(v=v, lam=out["lam"], act=act)
+        ms = kernel_ms(lambda: fd_rows.launch(model, inputs, bodies, dims, ode.kd, kp),
+                       20, "fd_rows_kernel")
+        call_ms = avg_time_ms(lambda: fd_rows.fd_rows(*args, **kw), 10)
+        plain_ms = avg_time_ms(lambda: fd_rows.fd_rows_plain(*args, **kw), 3)
+        in_words = 4 * nv * 6 + nv + 5 * nb * 6 + nb * 36 + nc + 4 * ncont
+        out_words = 2 * nv * nv + 2 * nc * nv
+        nbytes = 8 * (K * (in_words + out_words) + nb * nv + nv * nv)
+        flops = k5_flops(model, bodies, dims, act.reshape(K, ncont).cpu(), kp)
+        bms, by = bound(nbytes, flops, fp64=True)
+        print(f"[kernel] fd_rows fp64 Solo K={K} kp={kp:g}: vs plain {err:.2e} (tol "
+              f"{FP64_TOL:g}); kernel {ms:.4f} ms (wrapper call {call_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms; bound {bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, "
+              f"{flops / 1e9:.3f} GFLOP; kernel {ms / bms:.1f}x)")
+        rows[f"solo K={K} kp={kp:g}"] = dict(
+            ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            flops_per_instance=flops / K, max_abs_err=max(abs_err(a, b)
+                                                          for a, b in zip(got, ref)))
+        del got, ref, inputs
+    return rows
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1962,35 +2153,45 @@ def free_fd_by_plain():
 
 
 def nonlinear_run(label, make, cfg, batch, want, cpu_n, profile=False, min_frac=None,
-                  cpu_refs=None, profile_iters=CART_PROFILE_ITERS):
-    """One ProxDDP solve with the nonlinear rollout on the card, the plain
-    versions patched to raise, its history recorded; its launch counts held
-    to ``want(newton_steps)``, its converged fraction to ``min_frac`` where
-    given; with ``profile`` a profiled solve cut to ``profile_iters``
-    iterations; the first ``cpu_n`` scenarios against the CPU over at most
-    CART_CPU_ITERS iterations. Without ``cpu_refs`` they are solved again on
-    the CPU here and held to CART_CPU_TOL. With ``cpu_refs`` (the free
-    paths: the CPU solves from x0 and from the perturbed initial states,
+                  cpu_refs=None, profile_iters=CART_PROFILE_ITERS, init=None, witness=True,
+                  keep=False):
+    """One ProxDDP solve on the card (the nonlinear rollout, or the linear
+    one), the plain versions patched to raise, its history recorded; its
+    launch counts held to ``want(newton_steps, trials, N, iterations)``, its
+    converged fraction to ``min_frac`` where given; with ``profile`` a
+    profiled solve cut to ``profile_iters`` iterations; the first ``cpu_n``
+    scenarios against the CPU over at most CART_CPU_ITERS iterations.
+    Without ``cpu_refs`` they are solved again on the CPU here and held to
+    CART_CPU_TOL. With ``cpu_refs`` (the free and contact paths: the CPU
+    solves from x0 and from the perturbed initial states,
     :func:`free_cpu_refs`) each iteration is held to its
-    :func:`spread_limits`, and so is a witness solve of the same scenarios on
-    the card with ``model.aba`` in place of the free-dynamics kernel.
-    ``make(device, n)`` builds the problem of the first ``n`` scenarios."""
+    :func:`spread_limits`, and so is, with ``witness``, a witness solve of
+    the same scenarios on the card with ``model.aba`` in place of the
+    free-dynamics kernel. ``make(device, n)`` builds the problem of the
+    first ``n`` scenarios; ``init(problem)`` gives the solve's warm start
+    (keyword arguments); with ``keep`` the card's result is returned as
+    ``out["result"]``."""
     import aligator_tpu_torch as at
 
     cfg = dataclasses.replace(cfg, record_history=True, record_history_trajs=bool(cpu_n))
     from aligator_tpu_torch.solvers import proxddp
 
+    def solve(problem, cfg):
+        return at.solvers.solve(problem, cfg, **(init(problem) if init else {}))
+
     problem = make("cuda", batch)
+    kw = init(problem) if init else {}
     with plain_versions_raise():
         reset_counts()
-        proxddp.NONLINEAR_TRIALS = 0
+        proxddp.NONLINEAR_TRIALS = proxddp.LINEAR_TRIALS = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = at.solvers.solve(problem, cfg)
+        res = at.solvers.solve(problem, cfg, **kw)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = launch_counts()
-    steps, trials = int(res.newton_steps.max()), proxddp.NONLINEAR_TRIALS
+    steps = int(res.newton_steps.max())
+    trials = proxddp.NONLINEAR_TRIALS + proxddp.LINEAR_TRIALS
     want = want(steps, trials, problem.nsteps, int(res.num_iters.max()))
     finite = (torch.isfinite(res.us).flatten(1).all(1)
               & torch.isfinite(res.xs).flatten(1).all(1))
@@ -2015,9 +2216,11 @@ def nonlinear_run(label, make, cfg, batch, want, cpu_n, profile=False, min_frac=
                newton_steps=steps, trials=trials, max_iters=cfg.max_iters,
                conv=res.conv.cpu(),
                num_iters=res.num_iters.cpu())
+    if keep:
+        out["result"] = res
     if profile:
         out["breakdown"] = profile_solve(
-            lambda: at.solvers.solve(problem, dataclasses.replace(
+            lambda: solve(problem, dataclasses.replace(
                 cfg, max_iters=profile_iters, record_history=False,
                 record_history_trajs=False)),
             f"{label} profile ({profile_iters} iterations)")
@@ -2027,7 +2230,7 @@ def nonlinear_run(label, make, cfg, batch, want, cpu_n, profile=False, min_frac=
     fmt = lambda es: [f"{e:.1e}" for e in es]  # noqa: E731
     if cpu_refs is None:
         t0 = time.perf_counter()
-        rc = at.solvers.solve(make("cpu", cpu_n), dataclasses.replace(cfg, max_iters=k))
+        rc = solve(make("cpu", cpu_n), dataclasses.replace(cfg, max_iters=k))
         cpu_s = time.perf_counter() - t0
         by_iter, err_traj, same = solve_gaps(res, rc, cpu_n, k)
         print(f"[{label}] cpu check ({cpu_n} scenarios, {k} iterations, {cpu_s:.1f} s): "
@@ -2045,11 +2248,12 @@ def nonlinear_run(label, make, cfg, batch, want, cpu_n, profile=False, min_frac=
           f"{FREE_SPREAD_EPS:g}) on the CPU, {rc.secs:.1f} s a solve): history rows by "
           f"iteration {fmt(lim['spread_by_iter'])}, iterate {lim['spread_traj']:.1e}; "
           f"limits {fmt(lim['tol_by_iter'])}, {lim['tol_traj']:.1e}")
-    with free_fd_by_plain():
-        witness = at.solvers.solve(make("cuda", cpu_n), dataclasses.replace(cfg, max_iters=k))
     gaps = {}
-    runs = {"card": ("the free-dynamics kernel", res),
-            "witness": ("model.aba in PyTorch on the card", witness)}
+    runs = {"card": ("the kernels", res)}
+    if witness:
+        with free_fd_by_plain():
+            runs["witness"] = ("model.aba in PyTorch on the card",
+                               solve(make("cuda", cpu_n), dataclasses.replace(cfg, max_iters=k)))
     for name, (what, r) in runs.items():
         by_iter, err_traj, same = solve_gaps(r, rc, cpu_n, k)
         gaps[name] = dict(by_iter=by_iter, traj=err_traj, same=same)
@@ -2366,8 +2570,9 @@ CPU_REF_FIELDS = ("history", "history_xs", "history_us", "xs", "us", "num_iters"
 
 def free_cpu_refs(conn):
     """Worker process, CPU only: each free path's first FREE_CPU_SCENARIOS
-    scenarios solved for CART_CPU_ITERS iterations with the published
-    options from x0 and from x0·(1 ± FREE_SPREAD_EPS); sends ``("ok",
+    scenarios and each contact path's first CONTACT_CPU_SCENARIOS solved for
+    CART_CPU_ITERS iterations with the published options from x0 and from
+    x0·(1 ± FREE_SPREAD_EPS); sends ``("ok",
     {case: [fields of each solve as numpy arrays]})`` or ``("error",
     traceback)``."""
     import aligator_tpu_torch as at
@@ -2375,14 +2580,19 @@ def free_cpu_refs(conn):
     try:
         torch.set_num_threads(2)
         out = {}
-        for case, (create, opts, _) in free_paths().items():
+        jobs = [(case, opts, lambda s, case=case, create=create: free_problem(
+                    case, create, "cpu", FREE_CPU_SCENARIOS, s), None)
+                for case, (create, opts, _) in free_paths().items()]
+        jobs += [(case, p["opts"], lambda s, p=p: p["make"]("cpu", CONTACT_CPU_SCENARIOS, s),
+                  p["init"]) for case, p in contact_paths().items()]
+        for case, opts, make, init in jobs:
             cfg = at.solvers.ProxDDPConfig(**{**opts, "max_iters": CART_CPU_ITERS},
                                            record_history=True, record_history_trajs=True)
             out[case] = []
             for scale in (1.0, 1.0 + FREE_SPREAD_EPS, 1.0 - FREE_SPREAD_EPS):
-                prob = free_problem(case, create, "cpu", FREE_CPU_SCENARIOS, scale)
+                prob = make(scale)
                 t0 = time.perf_counter()
-                r = at.solvers.solve(prob, cfg)
+                r = at.solvers.solve(prob, cfg, **(init(prob) if init else {}))
                 out[case].append(dict({k: getattr(r, k).numpy() for k in CPU_REF_FIELDS},
                                       secs=time.perf_counter() - t0))
         conn.send(("ok", out))
@@ -2440,10 +2650,119 @@ def free_phase(cpu_refs):
         def make(dev, n, create=create, case=case):
             return free_problem(case, create, dev, n)
 
+        budget = FREE_MAX_ITERS.get(case, opts["max_iters"])
         counts[case], out[case] = nonlinear_run(
-            case, make, at.solvers.ProxDDPConfig(**opts), batch, want, n_ref,
-            profile=case == "ffsr", cpu_refs=cpu_refs.get()[case],
+            case, make, at.solvers.ProxDDPConfig(**{**opts, "max_iters": budget}), batch,
+            want, n_ref, profile=case == "ffsr", cpu_refs=cpu_refs.get()[case],
             profile_iters=FREE_PROFILE_ITERS)
+        jax_n = int((ref[f"{case}_full_conv"]
+                     & (ref[f"{case}_full_num_iters"] <= budget)).sum())
+        card_n = int(out[case]["conv"][:n_ref].sum())
+        print(f"[{case}] converged on the first {n_ref} within {budget} iterations: card "
+              f"{card_n}, JAX {jax_n} (floor {jax_n - 1}); JAX's iterations "
+              f"{ref[f'{case}_full_num_iters'].tolist()}, the card's "
+              f"{out[case]['num_iters'][:n_ref].tolist()}")
+        check(card_n >= jax_n - 1, f"{case}: {card_n} of {n_ref} converged, JAX {jax_n}")
+        out[case].update(first_converged=card_n, jax_first_converged=jax_n)
+        del out[case]["conv"], out[case]["num_iters"]
+    return counts, out
+
+
+# ---------------------------------------------------------------- phase 12
+
+
+def ur10_targets(batch):
+    """The throw's targets ``(batch, 3)`` (``tools/torch_contact_fixture.py``'s
+    ``ur10_targets``): TARGET_POS + U(−0.1, 0.1) m per axis; scenario 0
+    keeps TARGET_POS."""
+    from aligator_tpu_torch.examples.ur10_ballistic import TARGET_POS
+
+    rng = np.random.default_rng(SEED + 15)
+    t = np.asarray(TARGET_POS) + rng.uniform(-0.1, 0.1, (batch, 3))
+    t[0] = TARGET_POS
+    return t
+
+
+def solo_x0s(batch, x0):
+    """The jump's initial states (the fixture tool's ``solo_x0s``): the
+    standing state ``x0`` with joint velocities 0.1·N(0, 1), the base at
+    rest."""
+    rng = np.random.default_rng(SEED + 16)
+    out = np.tile(np.asarray(x0), (batch, 1))
+    out[:, -8:] = 0.1 * rng.standard_normal((batch, 8))
+    return out
+
+
+def contact_paths():
+    """``{case: dict(make, init, opts, want, batch)}`` of the contact paths.
+    ``make(device, n, scale=1)`` builds the first ``n`` scenarios (initial
+    states multiplied by ``scale``). The UR10 throw: K2 twice a stage a
+    Newton step (the per-stage loop), six times a derivative evaluation (the
+    loop constraint's KKT, 2 solves for its dynamics residual and 2 for the
+    values and 2 for the folded tangents of ``acc_derivatives``) and twice a
+    line-search trial (the dynamics residual; and twice for the warm-up
+    before the trial's CUDA graph is captured), K4 once a Newton step. The
+    Solo jump: K5 once and K2 twice a derivative evaluation (the contact-KKT
+    derivative solves) and K2 twice a stage and K4 once a Newton step."""
+    from aligator_tpu_torch.examples import solo_jump, ur10_ballistic
+
+    targets = ur10_targets(UR10_BATCH)
+
+    def ur10_make(dev, n, scale=1.0):
+        prob = ur10_ballistic.create_ur10_ballistic_problem(
+            UR10_NSTEPS, UR10_DT, target_pos=targets[:n], device=dev)[0]
+        return dataclasses.replace(prob, x0=prob.x0 * scale)
+
+    def ur10_init(prob):
+        return dict(zip(("xs_init", "us_init"), ur10_ballistic.warm_start(prob)))
+
+    def solo_make(dev, n, scale=1.0):
+        prob = solo_jump.create_solo_jump_problem(*SOLO_PHASES, device=dev)[0]
+        x0 = solo_x0s(SOLO_BATCH, prob.x0[0].cpu().numpy())[:n] * scale
+        return dataclasses.replace(prob, x0=torch.tensor(x0, device=dev))
+
+    def none(**kw):
+        return {k: 0 for k in KERNEL_NAMES} | kw
+
+    return {
+        "ur10": dict(make=ur10_make, init=ur10_init, opts=ur10_ballistic.SOLVE_OPTIONS,
+                     batch=UR10_BATCH, want=lambda steps, trials, n, iters: none(
+                         spd_solve=2 * n * steps + 6 * (iters + 1) + 2 * (trials + 1),
+                         fused_stage_forward=steps)),
+        "solo": dict(make=solo_make, init=None, opts=solo_jump.SOLVE_OPTIONS,
+                     batch=SOLO_BATCH, want=lambda steps, trials, n, iters: none(
+                         spd_solve=2 * n * steps + 2 * (iters + 1),
+                         fused_stage_forward=steps, fd_rows=iters + 1)),
+    }
+
+
+def contact_phase(cpu_refs):
+    """The UR10 payload throw and the Solo jump (:func:`contact_paths`) at
+    the published size and options, float64: solves/s, frac_converged, the
+    iterations, launch counts, a profiled iteration, the first 4 scenarios'
+    converged count held to the JAX package's less one and those 4 against
+    the CPU (``cpu_refs``) for CART_CPU_ITERS iterations; the throw's
+    payload landing error (held to UR10_LANDING_TOL on the converged first
+    4) and torque-box violation, the jump's peak base height."""
+    import aligator_tpu_torch as at
+    from aligator_tpu_torch.modelling.multibody.robots import ur10_effort_limits
+
+    ref = np.load(CONTACT_REF)
+    check(np.array_equal(ur10_targets(UR10_BATCH)[:4], ref["ur10_full_targets"]),
+          "ur10: the targets are not the JAX reference's")
+    counts, out = {}, {}
+    for case, p in contact_paths().items():
+        t_case = time.perf_counter()
+        n_ref = CONTACT_CPU_SCENARIOS
+        if case == "solo":
+            x0 = p["make"]("cpu", n_ref).x0.numpy()
+            check(np.array_equal(x0, ref["solo_full_x0s"]),
+                  "solo: the initial states are not the JAX reference's")
+        counts[case], out[case] = nonlinear_run(
+            case, p["make"], at.solvers.ProxDDPConfig(**p["opts"]), p["batch"], p["want"],
+            n_ref, profile=True, cpu_refs=cpu_refs.get()[case],
+            profile_iters=CONTACT_PROFILE_ITERS, init=p["init"], witness=False, keep=True)
+        res = out[case].pop("result")
         jax_n = int(ref[f"{case}_full_conv"].sum())
         card_n = int(out[case]["conv"][:n_ref].sum())
         print(f"[{case}] converged on the first {n_ref}: card {card_n}, JAX {jax_n} "
@@ -2451,8 +2770,34 @@ def free_phase(cpu_refs):
               f"{ref[f'{case}_full_num_iters'].tolist()}, the card's "
               f"{out[case]['num_iters'][:n_ref].tolist()}")
         check(card_n >= jax_n - 1, f"{case}: {card_n} of {n_ref} converged, JAX {jax_n}")
+        conv = out[case]["conv"]
+        if case == "ur10":
+            targets = torch.tensor(ur10_targets(UR10_BATCH), device="cuda")
+            land = (res.xs[:, -1, 6:9] - targets).abs().amax(-1).cpu()
+            eff = ur10_effort_limits(device="cuda")
+            viol = float((res.us.abs() - eff).clamp(min=0).max())
+            first = land[:n_ref][conv[:n_ref]]
+            worst_first = float(first.max()) if first.numel() else 0.0
+            worst_conv = float(land[conv].max()) if bool(conv.any()) else float("nan")
+            print(f"[ur10] payload landing error |p_mug(N) - target|: the largest "
+                  f"{float(land.max()):.3e} over the batch, {worst_conv:.3e} over the "
+                  f"converged, {worst_first:.3e} over the converged first {n_ref} (tol "
+                  f"{UR10_LANDING_TOL:g}; JAX's {ref['ur10_full_landing_err'].tolist()}); "
+                  f"the largest torque-box violation {viol:.3e} N m")
+            check(worst_first <= UR10_LANDING_TOL, f"ur10: landing error {worst_first}")
+            out[case].update(landing_err_max=float(land.max()), landing_err_conv=worst_conv,
+                             torque_violation=viol)
+        else:
+            peak = res.xs[..., 2].amax(1)
+            print(f"[solo] base peak height: median {float(peak.median()):.4f} m over the "
+                  f"batch (start {float(res.xs[0, 0, 2]):.4f} m; JAX's first {n_ref} "
+                  f"{ref['solo_full_peak'].tolist()}, the card's "
+                  f"{peak[:n_ref].tolist()})")
+            out[case].update(peak_median=float(peak.median()))
         out[case].update(first_converged=card_n, jax_first_converged=jax_n)
-        del out[case]["conv"], out[case]["num_iters"]
+        del out[case]["conv"], out[case]["num_iters"], res
+        print(f"[{case}] the path's checks and measurements took "
+              f"{time.perf_counter() - t_case:.1f} s")
     return counts, out
 
 
@@ -2496,12 +2841,14 @@ def main():
         inv_counts, inv = timed("inverse-lqr", lambda: inverse_lqr_phase(smi))
         sens_counts, sens = timed("sensitivity", lambda: sensitivity_phase(smi))
         free_counts, free = timed("free-dynamics", lambda: free_phase(cpu_refs))
+        contact_counts, contacts = timed("contact", lambda: contact_phase(cpu_refs))
     finally:
         cpu_refs.stop()
         late.thread.join()
     # each kernel's launches: the sum over the paths' counted runs
     runs = [se2_counts, *medium_counts.values(), *talos_counts.values(), *pit_counts,
-            *cart_counts.values(), inv_counts, *sens_counts, *free_counts.values()]
+            *cart_counts.values(), inv_counts, *sens_counts, *free_counts.values(),
+            *contact_counts.values()]
     for k in (k1, k2, k3, k4, k5, k6):
         k["launches"] = sum(c[k["name"]] for c in runs)
     print(json.dumps({"slice": result, "fused_riccati": k1_times,
@@ -2510,7 +2857,8 @@ def main():
                       "parallel_in_time": pit, "cartpole": cart,
                       "cartpole_launches": cart_counts, "inverse_lqr": inv,
                       "sensitivity": sens, "free_dynamics": free,
-                      "free_dynamics_launches": free_counts,
+                      "free_dynamics_launches": free_counts, "contact": contacts,
+                      "contact_launches": contact_counts,
                       "spd_solve": k2_extra, "fused_stage_sweep": k3_extra,
                       "fused_stage_forward": k4_shapes,
                       "fd_rows": k5_extra, "free_fd": k6_extra, "phase_s": phase_s,

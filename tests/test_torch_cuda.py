@@ -843,10 +843,79 @@ def test_nonlinear_trial_graph_matches_eager(cuda_device, integrator):
                      Z=t(B, N + 1, 1, 4), lff=t(B, N + 1, 4), L=0.1 * t(B, N + 1, 4, 4))
         args = (st, gains, 0.1 * t(B, 4), t(B, 4), torch.rand(B, device=cuda_device,
                                                               dtype=torch.float64))
-        got = graph(prob, cfg, *args)
+        ins = {k: getattr(st, k) for k in proxddp._TRIAL_STATE}
+        ins.update({f"gain_{k}": v for k, v in gains.items()}, dx0=args[2], dlam0=args[3],
+                   alpha=args[4])
+        got = graph(prob, cfg, ins)
         ref = proxddp._nonlinear_trial(prob, cfg, *args)
         for a, b in zip((*got[0], *got[1:]), (*ref[0], *ref[1:])):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-12)
+    assert graph.graph is not None and not graph.eager
+
+
+@pytest.mark.cuda
+def test_linear_trial_graph_matches_eager(cuda_device):
+    """The CUDA-graph replay of a linear line-search trial (the step, the
+    problem's evaluation with its K2 launches, multipliers, merit) equals
+    the eager trial on the UR10 throw, for inputs and step lengths that
+    change between replays; each replay adds the launches its capture
+    recorded."""
+    from types import SimpleNamespace
+
+    from aligator_tpu_torch.examples import ur10_ballistic
+    from aligator_tpu_torch.solvers import proxddp
+
+    B, N = 3, 6
+    prob = ur10_ballistic.create_ur10_ballistic_problem(N, 0.025, device=cuda_device)[0]
+    prob = dataclasses.replace(prob, x0=prob.x0.expand(B, -1).clone())
+    xs, us = ur10_ballistic.warm_start(prob)
+    rng = np.random.default_rng(2)
+    nx, ndx, nu, nc = 25, 24, 6, prob.nc
+
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape), device=cuda_device)
+
+    cfg = at.solvers.ProxDDPConfig(**ur10_ballistic.SOLVE_OPTIONS)
+    graph = proxddp._TrialGraph()
+    for i in range(3):
+        st = SimpleNamespace(xs=xs, us=us + 0.1 * t(B, N, nu), vs=t(B, N, nc),
+                             vs_term=t(B, prob.nc_term), lams=t(B, N + 1, ndx),
+                             prev_lams=t(B, N + 1, ndx), prev_vs=t(B, N, nc),
+                             prev_vs_term=t(B, prob.nc_term), mu=0.01 + 0.01 * t(B).abs())
+        steps = (0.01 * t(B, N + 1, ndx), t(B, N, nu), t(B, N, nc), t(B, prob.nc_term),
+                 t(B, N + 1, ndx))
+        alpha = torch.rand(B, device=cuda_device, dtype=torch.float64)
+        before = _build.LAUNCHES["spd_solve"]
+        got = graph(prob, cfg, proxddp._trial_inputs(cfg, st, {}, steps, alpha))
+        # the evaluation's dynamics: two K2 launches (the warm-up's too at
+        # the capture)
+        assert _build.LAUNCHES["spd_solve"] - before == (4 if i == 0 else 2)
+        ref = proxddp._linear_trial(prob, cfg, st, steps, alpha)
+        for a, b in zip((*got[0], *got[1:]), (*ref[0], *ref[1:])):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-12 * max(1.0, b.abs().max().item()))
+    assert graph.graph is not None and not graph.eager
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("explicit", [True, False])
+def test_sweep_graph_matches_eager(cuda_device, explicit):
+    """The CUDA-graph replay of the per-stage Riccati loop (K2) equals the
+    eager loop for knots that change between calls, with explicit and with
+    general E; every call counts K2 twice a stage, replayed or not."""
+    N, nx, nu, nc = 7, 14, 4, 3
+    graph = riccati.SweepGraph()
+    for i in range(3):
+        prob = lqr_problem.random_convex_problem(np.random.default_rng(40 + i), 6, N, nx, nu,
+                                                 nc, not explicit, torch.float64, cuda_device)
+        kn = prob.knots
+        mudyn, mueq = _mus(6, 41 + i, cuda_device)
+        term = riccati._terminal_solve(kn, mueq[:, None, None])
+        before = _build.LAUNCHES["spd_solve"]
+        got = graph(kn, term, mudyn, mueq, explicit)
+        assert _build.LAUNCHES["spd_solve"] - before == 2 * N
+        ref = riccati._sweep_loop(kn, term, mudyn, mueq, explicit, spd_solve.spd_solve)
+        for k in ref:
+            torch.testing.assert_close(got[k], ref[k], rtol=0, atol=0)
     assert graph.graph is not None and not graph.eager
 
 
@@ -979,3 +1048,174 @@ def test_free_fd_matches_plain(cuda_device, name, B):
                                    atol=1e-9 * max(1.0, ref.abs().max().item()))
     with pytest.raises(ValueError, match="values only"):
         free_fd.launch(m, q.requires_grad_(), v, tau)
+
+
+# ---------------------------------------------------------------- contact dynamics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [False, True])
+def test_spd_solve_diff_card_matches_autodiff(cuda_device, shared):
+    """The differentiable SPD solve on the card: its values, its
+    forward-mode tangents under jacfwd (the directions folded into one K2
+    launch) and its reverse mode (one more launch) against torch.func
+    through the plain Cholesky solve, fp64, to 1e-10 relative; per-system
+    A and one A shared by every system."""
+    from aligator_tpu_torch._linalg import chol_solve
+
+    g = torch.Generator(device=cuda_device).manual_seed(34)
+    K, n, r = 40, 12, 7
+    P = torch.randn((1 if shared else K, n, n), generator=g, device=cuda_device,
+                    dtype=torch.float64)
+    R = torch.randn((K, n, r), generator=g, device=cuda_device, dtype=torch.float64)
+    d = torch.randn((30, n, n), generator=g, device=cuda_device, dtype=torch.float64)
+
+    def f(solve):
+        def fn(z):
+            L = P + torch.einsum("i,ijk->jk", z, d)
+            return solve(L @ L.mT + n * torch.eye(n, dtype=L.dtype, device=L.device),
+                         R * (1 + z.sum()))
+        return fn
+
+    z = torch.zeros(30, dtype=torch.float64, device=cuda_device)
+    before = _build.LAUNCHES["spd_solve"]
+    J = torch.func.jacfwd(f(spd_solve.spd_solve_diff))(z)
+    assert _build.LAUNCHES["spd_solve"] - before == 2
+    J_ref = torch.func.jacfwd(f(chol_solve))(z)
+    torch.testing.assert_close(J, J_ref, rtol=0, atol=1e-10 * J_ref.abs().max().item())
+    grads = []
+    for solve in (spd_solve.spd_solve_diff, chol_solve):
+        Pg, Rg = P.clone().requires_grad_(), R.clone().requires_grad_()
+        A = Pg @ Pg.mT + n * torch.eye(n, dtype=P.dtype, device=P.device)
+        before = _build.LAUNCHES["spd_solve"]
+        grads.append(torch.autograd.grad(solve(A, Rg).sin().sum(), (Pg, Rg)))
+        if solve is spd_solve.spd_solve_diff:
+            assert _build.LAUNCHES["spd_solve"] - before == 2
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-10 * max(1.0, b.abs().max().item()))
+    with pytest.raises(ValueError, match="values only"):
+        spd_solve.launch(P.expand(K, n, n).clone().requires_grad_(), R)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ["humanoid", "quadruped"])
+def test_contact_residuals_card_match_cpu(cuda_device, robot):
+    """The contact force, friction or wrench cone, centre-of-mass and
+    gravity-compensation residuals and the loop constraint's
+    acc_derivatives, values and Jacobians on CUDA tensors against the CPU,
+    fp64, to 1e-9 relative."""
+    from aligator_tpu_torch.modelling.multibody import contact, residuals
+
+    rng = np.random.default_rng(35)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        if robot == "humanoid":
+            m = humanoid.make_humanoid(device=dev)
+            q0 = humanoid.half_sitting(m)
+            frames, dims = (m.frame_id("left_sole"), m.frame_id("right_sole")), (6, 6)
+        else:
+            m = quadruped.make_quadruped(device=dev)
+            q0 = quadruped.standing_configuration(m)
+            frames, dims = tuple(m.frame_id(f"foot{k}") for k in range(4)), (3,) * 4
+        nu = m.nv - 6
+        Bm = torch.zeros(m.nv, nu, dtype=torch.float64, device=dev)
+        Bm[6:] = torch.eye(nu, dtype=torch.float64, device=dev)
+        r = np.random.default_rng(35)
+        dq = torch.tensor(0.1 * r.standard_normal((5, m.nv)), device=dev)
+        x = torch.cat([m.configuration_space().integrate(q0[None], dq),
+                       torch.tensor(r.standard_normal((5, m.nv)), device=dev)], -1)
+        u = torch.tensor(r.standard_normal((5, nu)), device=dev)
+        one = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+        # the quadruped's 4 point feet make the Delassus matrix
+        # rank-deficient: its forces are conditioning-limited at μ = 1e-8
+        # (Cholesky orders part by ~1e-7), so it is compared at μ = 1e-5
+        common = dict(model=m, actuation=Bm, active=one([1.0] * len(frames)),
+                      contact_frames=frames, contact_dims=dims, contact_id=1,
+                      prox_mu=1e-5 if robot == "quadruped" else 1e-8)
+        fns = [contact.ContactForceResidual(f_ref=one(list(range(dims[1]))), **common),
+               residuals.CenterOfMassTranslationResidual(model=m, p_ref=one([0.0, 0.1, 0.3])),
+               residuals.CenterOfMassVelocityResidual(model=m, v_ref=one([0.1, 0.0, 0.0])),
+               residuals.GravityCompensationResidual(model=m, actuation=Bm)]
+        if dims[1] == 3:
+            fns.append(contact.MultibodyFrictionConeResidual(mu_friction=one(0.7), **common))
+        else:
+            fns.append(contact.MultibodyWrenchConeResidual(
+                mu_friction=one(0.7), half_length=one(0.1), half_width=one(0.05), **common))
+        sp = m.phase_space()
+        outs[dev] = [(f.value(sp, x, u), *f.jacobians(sp, x, u)) for f in fns]
+    del rng
+    for cpu, gpu in zip(outs["cpu"], outs[cuda_device]):
+        for c, g in zip(cpu, gpu):
+            torch.testing.assert_close(g.cpu(), c, rtol=0,
+                                       atol=1e-9 * max(1.0, c.abs().max().item()))
+
+
+def _contact_path(case, dev, x0_scale=1.0):
+    """A small instance of a contact path: the UR10 throw at N = 10 with
+    two targets (from its warm start) or the Solo jump at N = 8 with two
+    initial states, and its solver options."""
+    from aligator_tpu_torch.examples import solo_jump, ur10_ballistic
+
+    rng = np.random.default_rng(36)
+    if case == "ur10":
+        targets = np.asarray(ur10_ballistic.TARGET_POS) + rng.uniform(-0.1, 0.1, (2, 3))
+        prob = ur10_ballistic.create_ur10_ballistic_problem(10, 0.025, target_pos=targets,
+                                                            device=dev)[0]
+        prob = dataclasses.replace(prob, x0=prob.x0 * x0_scale)
+        init = dict(zip(("xs_init", "us_init"), ur10_ballistic.warm_start(prob)))
+        return prob, init, ur10_ballistic.SOLVE_OPTIONS
+    prob = solo_jump.create_solo_jump_problem(3, 2, 3, device=dev)[0]
+    x0 = prob.x0.expand(2, -1).clone()
+    x0[:, -8:] += torch.tensor(0.1 * rng.standard_normal((2, 8)), device=dev)
+    return dataclasses.replace(prob, x0=x0 * x0_scale), {}, solo_jump.SOLVE_OPTIONS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ur10", "solo"])
+def test_contact_path_card_matches_cpu(cuda_device, plain_versions_raise, case):
+    """The UR10 payload throw (loop constraint, linear rollout) and the Solo
+    jump (contact schedule, nonlinear rollout), 4 iterations of the
+    published options, on the card against the CPU, each output to 1e-9
+    relative or 100 times the CPU's one-ulp spread; the launch counts of
+    the route (chip_smoke.py's contact_paths), the plain versions raising,
+    every nonlinear trial a CUDA-graph replay."""
+    from aligator_tpu_torch.solvers import proxddp
+    from aligator_tpu_torch.solvers.proxddp import TrialGraphWarning
+
+    def solve(path):
+        prob, init, opts = path
+        return at.solvers.solve(prob, at.solvers.ProxDDPConfig(
+            **{**opts, "max_iters": 4}), **init)
+
+    cpu = solve(_contact_path(case, "cpu"))
+    spread = [solve(_contact_path(case, "cpu", s)) for s in (1.0 + 1e-15, 1.0 - 1e-15)]
+    path = _contact_path(case, cuda_device)  # the warm start's rollout launches too
+    prob = path[0]
+    plain_versions_raise()
+    before = _launches()
+    proxddp.NONLINEAR_TRIALS = proxddp.LINEAR_TRIALS = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", TrialGraphWarning)
+        gpu = solve(path)
+    torch.cuda.synchronize()
+    counts = {k: v - before[k] for k, v in _launches().items()}
+    for name in ("num_iters", "conv"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+    gaps = {}
+    for name in ("xs", "us", "lams", "prim_infeas", "dual_infeas"):
+        ref = getattr(cpu, name)
+        scale = max(1.0, ref.abs().max().item())
+        apart = max((getattr(r, name) - ref).abs().max().item() for r in spread) / scale
+        gap = (getattr(gpu, name).cpu() - ref).abs().max().item() / scale
+        gaps[name] = (gap, apart)
+    print(case, {k: f"{g:.2e} (spread {a:.2e})" for k, (g, a) in gaps.items()})
+    for name, (gap, apart) in gaps.items():
+        assert gap <= max(1e-9, 100 * apart), (name, gap, apart)
+    steps, iters, N = int(gpu.newton_steps.max()), int(gpu.num_iters.max()), prob.nsteps
+    assert steps > 0
+    if case == "ur10":  # the trials' dynamics, and the trial graph's warm-up
+        want = dict(k2=2 * N * steps + 6 * (iters + 1) + 2 * (proxddp.LINEAR_TRIALS + 1),
+                    k5=0)
+    else:
+        want = dict(k2=2 * N * steps + 2 * (iters + 1), k5=iters + 1)
+    assert counts == dict(want, k3=0, k4=steps, k1=0)

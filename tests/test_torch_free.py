@@ -1,14 +1,15 @@
 """The port's robot builders and free multibody dynamics against the JAX
 package, float64 on the CPU.
 
-The builders' leaves, the rigid-body algorithms (ABA, RNEA with external
-forces, the ABA derivatives, frame velocities and their Jacobians, the centre
-of mass), the three free-dynamics ODEs, the frame placement and velocity
-residuals and the rollouts are held against the JAX package's jitted,
-vmapped functions on the same numpy inputs. The solves (UR5 and FFSR
-reaches, double pendulum, acrobot, flexible double pendulum, UR10 midpoint
-rule) are held against ``tests/data/torch_free_ref.npz``, written by
-``tools/torch_free_fixture.py``, whose solves the ``slow`` test reruns live.
+The builders' leaves are held against the JAX package's models. The
+rigid-body algorithms (ABA, RNEA with external forces, the ABA derivatives,
+frame velocities and their Jacobians, the centre of mass), the three
+free-dynamics ODEs, the frame placement and velocity residuals, the
+rollouts and the solves (UR5 and FFSR reaches, double pendulum, acrobot,
+flexible double pendulum, UR10 midpoint rule) are held against
+``tests/data/torch_free_ref.npz``: the JAX package's jitted, vmapped
+functions and solves on the same numpy inputs, written by
+``tools/torch_free_fixture.py``, which the ``slow`` test reruns live.
 The kernels these paths launch on the card are checked by
 tests/test_torch_cuda.py.
 """
@@ -17,19 +18,13 @@ import importlib.util
 import pathlib
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from aligator_tpu.modelling import IntegratorSemiImplEuler as JSemiImplEuler
-from aligator_tpu.modelling.dynamics import multibody_free as jfree
-from aligator_tpu.modelling.multibody import derivatives as jder
 from aligator_tpu.modelling.multibody import model as jrbd
 from aligator_tpu.modelling.multibody import residuals as jres
 from aligator_tpu.modelling.multibody import robots as jrobots
-from aligator_tpu.utils.rollout import closed_loop_rollout as jclosed_loop_rollout
-from aligator_tpu.utils.rollout import rollout as jrollout
 
 import aligator_tpu_torch as at
 from aligator_tpu_torch import _build, convert
@@ -143,38 +138,18 @@ def test_with_frame_and_armature():
         convert.robot_model_from_numpy(leaves, device="cpu")
 
 
-def _jax_algorithms(name):
-    """The JAX model, its last frame and one jitted, vmapped function of
-    every algorithm checked."""
-    jm = getattr(jrobots, name)()
-    fid = len(jm.frame_names) - 1
-
-    def one(q, v, tau, fx):
-        # with the external forces: aba's value and derivatives
-        a, da_dq, da_dv, solve_M = jder.aba_derivatives(jm, q, v, tau, fx)
-        return dict(
-            aba=jrbd.aba(jm, q, v, tau), nle=jrbd.nonlinear_effects(jm, q, v),
-            rnea_ext=jrbd.rnea(jm, q, v, tau, fx),
-            a=a, da_dq=da_dq, da_dv=da_dv, da_dtau=solve_M(jnp.eye(jm.nv)),
-            fvel=jrbd.frame_velocity(jm, q, v, fid),
-            fvel_jac=jder.frame_velocity_jacobians(jm, q, v, fid),
-            com=jrbd.center_of_mass(jm, q))
-
-    return jm, fid, jax.jit(jax.vmap(one))
-
-
 @pytest.mark.parametrize("model", ["ur5", "ffsr", "double_pendulum", "free_sphere",
                                    "ur10_payload"])
 def test_algorithms_match_jax(model):
     """aba (with and without external forces), nonlinear_effects, rnea with
     external forces, aba_derivatives (with them; its RNEA derivative pass
-    included), frame_velocity and its Jacobians and center_of_mass, to
-    1e-10; aba_derivatives also against forward-mode autodiff of the port's
-    own aba."""
-    jm, fid, ref_fn = _jax_algorithms(MODELS[model])
+    included), frame_velocity and its Jacobians and center_of_mass against
+    the JAX package's jitted functions (the fixture), to 1e-10;
+    aba_derivatives also against forward-mode autodiff of the port's own
+    aba."""
+    jm, fid, (q, v, tau, fx) = _tool().algorithm_inputs(model)
     tm = convert.robot_model_from_numpy(_tool().model_leaves(jm), device="cpu")
-    q, v, tau, fx = _states(jm, 3, sorted(MODELS).index(model))
-    ref = ref_fn(q, v, tau, fx)
+    ref = _fixture(f"alg_{model}_")
     tq, tv, ttau, tfx = map(_t, (q, v, tau, fx))
     _close(rbd.aba(tm, tq, tv, ttau), ref["aba"], msg="aba")
     _close(rbd.aba(tm, tq, tv, ttau, tfx), ref["a"], msg="aba ext")
@@ -185,9 +160,8 @@ def test_algorithms_match_jax(model):
     for got, n in ((a, "a"), (da_dq, "da_dq"), (da_dv, "da_dv"), (solve_M(eye), "da_dtau")):
         _close(got, ref[n], msg=n)
     _close(rbd.frame_velocity(tm, tq, tv, fid), ref["fvel"], msg="frame velocity")
-    for got, r, n in zip(tder.frame_velocity_jacobians(tm, tq, tv, fid), ref["fvel_jac"],
-                         ("Jq", "Jv")):
-        _close(got, r, msg=n)
+    for got, n in zip(tder.frame_velocity_jacobians(tm, tq, tv, fid), ("Jq", "Jv")):
+        _close(got, ref[f"fvel_{n}"], msg=n)
     _close(rbd.center_of_mass(tm, tq), ref["com"], msg="com")
     # external forces enter RNEA through the linear map ext_generalized
     kin = rbd.kinematics(tm, tq, tv)
@@ -236,51 +210,27 @@ def test_ffsr_zero_gravity_momentum_conservation():
 
 
 def _odes(kind):
-    """(JAX ODE, port ODE, model) of each free-dynamics ODE."""
-    rng = np.random.default_rng(7)
-    if kind == "flexible":
-        from examples.flexible_double_pendulum import make_flexible_double_pendulum
-        jm = make_flexible_double_pendulum()
-        k, d, q_rest = rng.uniform(1, 50, 4), rng.uniform(0.05, 0.2, 4), 0.1 * rng.standard_normal(4)
-        B = np.zeros((4, 2))
-        B[0, 0] = B[2, 1] = 1.0
-        tm = convert.robot_model_from_numpy(_tool().model_leaves(jm), device="cpu")
-        return (jfree.MultibodyFlexibleFwdDynamics(
-                    model=jm, actuation=jnp.asarray(B), stiffness=jnp.asarray(k),
-                    damping=jnp.asarray(d), q_rest=jnp.asarray(q_rest)),
-                tfree.MultibodyFlexibleFwdDynamics(
-                    model=tm, actuation=_t(B), stiffness=_t(k), damping=_t(d),
-                    q_rest=_t(q_rest)), jm)
-    jm, tm = _pair("make_dual_arm_ffsr" if kind == "free" else "make_ur5")
-    B = np.eye(jm.nv, jm.nv - 6, -6) if kind == "free" else np.eye(jm.nv)
-    cls = "MultibodyFreeFwdDynamics" if kind == "free" else "MultibodyGravityCompensatedDynamics"
-    return (getattr(jfree, cls)(model=jm, actuation=jnp.asarray(B)),
-            getattr(tfree, cls)(model=tm, actuation=_t(B)), jm)
+    """(JAX ODE, port ODE, JAX model, x, u) of each free-dynamics ODE."""
+    jm, jode, pars, x, u = _tool().ode_inputs(kind)
+    tm = convert.robot_model_from_numpy(_tool().model_leaves(jm), device="cpu")
+    cls = {"free": "MultibodyFreeFwdDynamics",
+           "gravity_compensated": "MultibodyGravityCompensatedDynamics",
+           "flexible": "MultibodyFlexibleFwdDynamics"}[kind]
+    return jode, getattr(tfree, cls)(model=tm, **{k: _t(a) for k, a in pars.items()}), jm, x, u
 
 
 @pytest.mark.parametrize("kind", ["free", "gravity_compensated", "flexible"])
 def test_odes_match_jax(kind):
     """xdot of the three ODEs and acc_derivatives where the JAX ODE has
-    them (free on the FFSR, flexible), to 1e-10; the semi-implicit Euler
-    step, and its (A, B, E) assembled from acc_derivatives against the
-    port's own forward-mode autodiff of that step."""
-    jode, tode, jm = _odes(kind)
-    jspace = jm.phase_space()
+    them (free on the FFSR, flexible) against the JAX package's (the
+    fixture), to 1e-10; the semi-implicit Euler step, and its (A, B, E)
+    assembled from acc_derivatives against the port's own forward-mode
+    autodiff of that step."""
+    jode, tode, jm, x, u = _odes(kind)
     tspace = tode.model.phase_space()
-    q, v, _, _ = _states(jm, 3, 11)
-    x = np.concatenate([q, v], -1)
-    u = np.random.default_rng(12).standard_normal((3, jode.actuation.shape[-1]))
     has_acc = hasattr(jode, "acc_derivatives")
-    jdyn = JSemiImplEuler(ode=jode, timestep=jnp.asarray(0.01))
     tdyn = IntegratorSemiImplEuler(ode=tode, timestep=_t(0.01))
-
-    def one(x, u):
-        out = dict(xdot=jode.xdot(jspace, x, u), y=jdyn.forward(jspace, x, u))
-        if has_acc:
-            out["acc"] = jode.acc_derivatives(jspace, x, u)
-        return out
-
-    ref = jax.jit(jax.vmap(one))(x, u)
+    ref = _fixture(f"ode_{kind}_")
     tx, tu = _t(x), _t(u)
     _close(tode.xdot(tspace, tx, tu), ref["xdot"], msg="xdot")
     y = tdyn.forward(tspace, tx, tu)
@@ -289,11 +239,11 @@ def test_odes_match_jax(kind):
         generic = ExplicitDynamics.jacobians(tdyn, tspace, tx, tu, y)
         for got, r, n in zip(tdyn.jacobians(tspace, tx, tu, y), generic, "ABE"):
             _close(got, r, 1e-9, f"{n} vs autodiff")
-    assert has_acc == hasattr(tode, "acc_derivatives")
+    assert has_acc == hasattr(tode, "acc_derivatives") == ("a" in ref)
     if has_acc:
-        for got, r, n in zip(tode.acc_derivatives(tspace, tx, tu), ref["acc"],
-                             ("a", "da_dq", "da_dv", "da_du")):
-            _close(got, r, msg=n)
+        for got, n in zip(tode.acc_derivatives(tspace, tx, tu),
+                          ("a", "da_dq", "da_dv", "da_du")):
+            _close(got, ref[n], msg=n)
 
 
 def test_free_fd_takes_aba_on_the_cpu():
@@ -381,33 +331,22 @@ def test_free_fd_derivatives_match_autodiff(model):
 @pytest.mark.parametrize("model", ["ur5", "ffsr", "pendulum"])
 def test_residuals_match_jax(model):
     """FramePlacementResidual and FrameVelocityResidual values and
-    Jacobians, to 1e-10."""
-    jm, tm = _pair(MODELS[model])
-    fid = len(jm.frame_names) - 1
-    q, v, _, _ = _states(jm, 3, 21)
-    rng = np.random.default_rng(22)
-    R_ref = np.asarray(jrbd.frame_placement(jm, q[1], fid)[0])
-    p_ref, v_ref = rng.standard_normal(3), rng.standard_normal(6)
-    x = np.concatenate([q, v], -1)
-    u = rng.standard_normal((3, 2))
-    jspace, tspace = jm.phase_space(), tm.phase_space()
+    Jacobians against the JAX package's (the fixture), to 1e-10."""
+    jm, _, pars, x, u = _tool().residual_inputs(model)
+    tm = convert.robot_model_from_numpy(_tool().model_leaves(jm), device="cpu")
+    fid = pars["fid"]
+    tspace = tm.phase_space()
     pairs = {
-        "placement": (jres.FramePlacementResidual(model=jm, R_ref=jnp.asarray(R_ref),
-                                                  p_ref=jnp.asarray(p_ref), frame_id=fid),
-                      tres.FramePlacementResidual(model=tm, R_ref=_t(R_ref), p_ref=_t(p_ref),
-                                                  frame_id=fid)),
-        "velocity": (jres.FrameVelocityResidual(model=jm, v_ref=jnp.asarray(v_ref), frame_id=fid),
-                     tres.FrameVelocityResidual(model=tm, v_ref=_t(v_ref), frame_id=fid)),
+        "placement": tres.FramePlacementResidual(model=tm, R_ref=_t(pars["R_ref"]),
+                                                 p_ref=_t(pars["p_ref"]), frame_id=fid),
+        "velocity": tres.FrameVelocityResidual(model=tm, v_ref=_t(pars["v_ref"]), frame_id=fid),
     }
-    refs = jax.jit(jax.vmap(lambda x, u: {
-        name: (jr.value(jspace, x, u), jr.jacobians(jspace, x, u))
-        for name, (jr, _) in pairs.items()}))(x, u)
-    for name, (_, tr) in pairs.items():
-        ref = refs[name]
-        _close(tr.value(tspace, _t(x), _t(u)), ref[0], msg=f"{name} value")
+    for name, tr in pairs.items():
+        ref = _fixture(f"res_{model}_{name}_")
+        _close(tr.value(tspace, _t(x), _t(u)), ref["value"], msg=f"{name} value")
         assert tr.dim(tspace, 2) == 6
-        for got, r, n in zip(tr.jacobians(tspace, _t(x), _t(u)), ref[1], ("Jx", "Ju")):
-            _close(got, r, msg=f"{name} {n}")
+        for got, n in zip(tr.jacobians(tspace, _t(x), _t(u)), ("Jx", "Ju")):
+            _close(got, ref[n], msg=f"{name} {n}")
 
 
 def test_matrix_to_quat_matches_jax_on_every_branch():
@@ -426,24 +365,17 @@ def test_matrix_to_quat_matches_jax_on_every_branch():
 
 def test_rollouts_match_jax():
     """utils.rollout and closed_loop_rollout on the UR5's semi-implicit
-    Euler dynamics."""
+    Euler dynamics against the JAX package's (the fixture)."""
     jm, tm = _pair("make_ur5")
-    jdyn = JSemiImplEuler(ode=jfree.MultibodyFreeFwdDynamics(model=jm, actuation=jnp.eye(6)),
-                          timestep=jnp.asarray(0.05))
     tdyn = IntegratorSemiImplEuler(ode=tfree.MultibodyFreeFwdDynamics(
         model=tm, actuation=torch.eye(6, dtype=torch.float64)), timestep=_t(0.05))
-    rng = np.random.default_rng(24)
-    x0, us = 0.1 * rng.standard_normal((2, 12)), 0.01 * rng.standard_normal((2, 5, 6))
-    K, xs_ref = 0.01 * rng.standard_normal((2, 5, 6, 12)), 0.1 * rng.standard_normal((2, 6, 12))
-    kff = 0.01 * rng.standard_normal((2, 5, 6))
-    js, ts = jm.phase_space(), tm.phase_space()
-    ref = jax.jit(jax.vmap(lambda x0, us: jrollout(jdyn, js, x0, us)))(x0, us)
-    _close(trollout.rollout(tdyn, ts, _t(x0), _t(us)), ref, msg="rollout")
-    ref = jax.jit(jax.vmap(lambda *a: jclosed_loop_rollout(jdyn, js, *a)))(
-        x0, us, xs_ref, K, kff)
+    x0, us, xs_ref, K, kff = _tool().rollout_inputs()
+    ts = tm.phase_space()
+    ref = _fixture("rollout_")
+    _close(trollout.rollout(tdyn, ts, _t(x0), _t(us)), ref["xs"], msg="rollout")
     got = trollout.closed_loop_rollout(tdyn, ts, _t(x0), _t(us), _t(xs_ref), _t(K), _t(kff))
-    for g, r, n in zip(got, ref, ("xs", "us")):
-        _close(g, r, msg=f"closed loop {n}")
+    for g, n in zip(got, ("xs", "us")):
+        _close(g, ref[f"closed_{n}"], msg=f"closed loop {n}")
 
 
 # ------------------------------------------------------------------ solves

@@ -32,10 +32,17 @@ as numpy arrays, from which ``aligator_tpu_torch.convert`` builds the
 port's problem. ``tests/test_torch_free.py`` holds the port against the
 archive; a ``slow`` test reruns these solves live.
 
-Run from the repository root (a few minutes on a CPU, most of it the
-full-size solves)::
+* the jitted, vmapped references of the function tests (``alg_*`` the
+  rigid-body algorithms, ``ode_*`` the free-dynamics ODEs and semi-implicit
+  Euler, ``res_*`` the frame residuals, ``rollout_*`` the rollouts), at the
+  inputs that :func:`algorithm_inputs`, :func:`ode_inputs`,
+  :func:`residual_inputs` and :func:`rollout_inputs` draw.
 
-    python tools/torch_free_fixture.py [tests/data/torch_free_ref.npz]
+Run from the repository root (~21 minutes on a CPU, most of it the
+full-size solves; ``--only functions`` or ``--only solves`` recomputes one
+group and keeps the rest of the archive)::
+
+    python tools/torch_free_fixture.py [--only ...] [--out PATH]
 """
 
 import os
@@ -216,7 +223,200 @@ def jax_solve(case, nsteps, x0, max_iters=None, batched=False):
     return {k: np.asarray(getattr(res, k)) for k in RESULT_FIELDS}
 
 
-def references():
+# ---------------------------------------------------------------- functions
+#
+# the jitted, vmapped JAX references of tests/test_torch_free.py's function
+# tests: the rigid-body algorithms on six models, the free-dynamics ODEs and
+# semi-implicit Euler, the frame residuals and the rollouts, at the inputs
+# that the functions below draw from numpy seeds
+
+ALG_MODELS = {"ur5": "make_ur5", "ffsr": "make_dual_arm_ffsr",
+              "double_pendulum": "make_double_pendulum", "free_sphere": "make_free_sphere",
+              "ur10_payload": "make_ur10_with_payload", "pendulum": "make_pendulum"}
+
+
+def states(jm, B, seed):
+    """B random configurations (the neutral one moved by 0.5·N(0, 1) along
+    the tangent), velocities, torques and external forces, numpy."""
+    import jax
+
+    rng = np.random.default_rng(seed)
+    cs = jm.configuration_space()
+    dq = 0.5 * rng.standard_normal((B, jm.nv))
+    q = np.asarray(jax.vmap(lambda d: cs.integrate(jm.neutral(), d))(dq))
+    return (q, rng.standard_normal((B, jm.nv)), rng.standard_normal((B, jm.nv)),
+            rng.standard_normal((B, jm.njoints, 6)))
+
+
+def jax_model(model):
+    _jax()
+    from aligator_tpu.modelling.multibody import robots
+
+    return getattr(robots, ALG_MODELS[model])()
+
+
+def algorithm_inputs(model):
+    jm = jax_model(model)
+    return jm, len(jm.frame_names) - 1, states(jm, 3, sorted(ALG_MODELS).index(model))
+
+
+def algorithm_refs():
+    jax = _jax()
+    import jax.numpy as jnp
+
+    from aligator_tpu.modelling.multibody import derivatives as jder
+    from aligator_tpu.modelling.multibody import model as jrbd
+
+    out = {}
+    for model in ("ur5", "ffsr", "double_pendulum", "free_sphere", "ur10_payload"):
+        jm, fid, (q, v, tau, fx) = algorithm_inputs(model)
+
+        def one(q, v, tau, fx):
+            a, da_dq, da_dv, solve_M = jder.aba_derivatives(jm, q, v, tau, fx)
+            Jq, Jv = jder.frame_velocity_jacobians(jm, q, v, fid)
+            return dict(
+                aba=jrbd.aba(jm, q, v, tau), nle=jrbd.nonlinear_effects(jm, q, v),
+                rnea_ext=jrbd.rnea(jm, q, v, tau, fx),
+                a=a, da_dq=da_dq, da_dv=da_dv, da_dtau=solve_M(jnp.eye(jm.nv)),
+                fvel=jrbd.frame_velocity(jm, q, v, fid), fvel_Jq=Jq, fvel_Jv=Jv,
+                com=jrbd.center_of_mass(jm, q))
+
+        ref = jax.jit(jax.vmap(one))(q, v, tau, fx)
+        out.update({f"alg_{model}_{k}": np.asarray(x) for k, x in ref.items()})
+    return out
+
+
+def ode_inputs(kind):
+    """The JAX ODE of ``kind`` ('free' on the FFSR, 'gravity_compensated' on
+    the UR5, 'flexible'), its parameters (numpy) and its inputs x, u."""
+    _jax()
+    import jax.numpy as jnp
+
+    from aligator_tpu.modelling.dynamics import multibody_free as jfree
+
+    rng = np.random.default_rng(7)
+    if kind == "flexible":
+        from examples.flexible_double_pendulum import make_flexible_double_pendulum
+        jm = make_flexible_double_pendulum()
+        k, d, q_rest = rng.uniform(1, 50, 4), rng.uniform(0.05, 0.2, 4), \
+            0.1 * rng.standard_normal(4)
+        B = np.zeros((4, 2))
+        B[0, 0] = B[2, 1] = 1.0
+        pars = dict(actuation=B, stiffness=k, damping=d, q_rest=q_rest)
+        jode = jfree.MultibodyFlexibleFwdDynamics(model=jm, **{
+            n: jnp.asarray(a) for n, a in pars.items()})
+    else:
+        jm = jax_model("ffsr" if kind == "free" else "ur5")
+        B = np.eye(jm.nv, jm.nv - 6, -6) if kind == "free" else np.eye(jm.nv)
+        cls = ("MultibodyFreeFwdDynamics" if kind == "free"
+               else "MultibodyGravityCompensatedDynamics")
+        pars = dict(actuation=B)
+        jode = getattr(jfree, cls)(model=jm, actuation=jnp.asarray(B))
+    q, v, _, _ = states(jm, 3, 11)
+    x = np.concatenate([q, v], -1)
+    u = np.random.default_rng(12).standard_normal((3, B.shape[-1]))
+    return jm, jode, pars, x, u
+
+
+def ode_refs():
+    jax = _jax()
+    import jax.numpy as jnp
+
+    from aligator_tpu.modelling import IntegratorSemiImplEuler
+
+    out = {}
+    for kind in ("free", "gravity_compensated", "flexible"):
+        jm, jode, _, x, u = ode_inputs(kind)
+        space = jm.phase_space()
+        dyn = IntegratorSemiImplEuler(ode=jode, timestep=jnp.asarray(0.01))
+
+        def one(x, u):
+            r = dict(xdot=jode.xdot(space, x, u), y=dyn.forward(space, x, u))
+            if hasattr(jode, "acc_derivatives"):
+                r.update(zip(("a", "da_dq", "da_dv", "da_du"),
+                             jode.acc_derivatives(space, x, u)))
+            return r
+
+        ref = jax.jit(jax.vmap(one))(x, u)
+        out.update({f"ode_{kind}_{k}": np.asarray(a) for k, a in ref.items()})
+    return out
+
+
+def residual_inputs(model):
+    """The JAX residuals (placement and velocity) on the last frame of
+    ``model``, their parameters and inputs x, u."""
+    _jax()
+    import jax.numpy as jnp
+
+    from aligator_tpu.modelling.multibody import model as jrbd
+    from aligator_tpu.modelling.multibody import residuals as jres
+
+    jm = jax_model(model)
+    fid = len(jm.frame_names) - 1
+    q, v, _, _ = states(jm, 3, 21)
+    rng = np.random.default_rng(22)
+    pars = dict(R_ref=np.asarray(jrbd.frame_placement(jm, q[1], fid)[0]),
+                p_ref=rng.standard_normal(3), v_ref=rng.standard_normal(6), fid=fid)
+    fns = {"placement": jres.FramePlacementResidual(
+               model=jm, R_ref=jnp.asarray(pars["R_ref"]), p_ref=jnp.asarray(pars["p_ref"]),
+               frame_id=fid),
+           "velocity": jres.FrameVelocityResidual(model=jm, v_ref=jnp.asarray(pars["v_ref"]),
+                                                  frame_id=fid)}
+    x = np.concatenate([q, v], -1)
+    return jm, fns, pars, x, rng.standard_normal((3, 2))
+
+
+def residual_refs():
+    jax = _jax()
+    out = {}
+    for model in ("ur5", "ffsr", "pendulum"):
+        jm, fns, _, x, u = residual_inputs(model)
+        space = jm.phase_space()
+        ref = jax.jit(jax.vmap(lambda x, u: {
+            name: (f.value(space, x, u), *f.jacobians(space, x, u))
+            for name, f in fns.items()}))(x, u)
+        for name, (val, Jx, Ju) in ref.items():
+            out.update({f"res_{model}_{name}_value": np.asarray(val),
+                        f"res_{model}_{name}_Jx": np.asarray(Jx),
+                        f"res_{model}_{name}_Ju": np.asarray(Ju)})
+    return out
+
+
+def rollout_inputs():
+    rng = np.random.default_rng(24)
+    x0, us = 0.1 * rng.standard_normal((2, 12)), 0.01 * rng.standard_normal((2, 5, 6))
+    K, xs_ref = 0.01 * rng.standard_normal((2, 5, 6, 12)), 0.1 * rng.standard_normal((2, 6, 12))
+    kff = 0.01 * rng.standard_normal((2, 5, 6))
+    return x0, us, xs_ref, K, kff
+
+
+def rollout_refs():
+    jax = _jax()
+    import jax.numpy as jnp
+
+    from aligator_tpu.modelling import IntegratorSemiImplEuler
+    from aligator_tpu.modelling.dynamics import multibody_free as jfree
+    from aligator_tpu.utils.rollout import closed_loop_rollout, rollout
+
+    jm = jax_model("ur5")
+    dyn = IntegratorSemiImplEuler(ode=jfree.MultibodyFreeFwdDynamics(
+        model=jm, actuation=jnp.eye(6)), timestep=jnp.asarray(0.05))
+    js = jm.phase_space()
+    x0, us, xs_ref, K, kff = rollout_inputs()
+    xs = jax.jit(jax.vmap(lambda x0, us: rollout(dyn, js, x0, us)))(x0, us)
+    cl = jax.jit(jax.vmap(lambda *a: closed_loop_rollout(dyn, js, *a)))(x0, us, xs_ref, K, kff)
+    return {"rollout_xs": np.asarray(xs), "rollout_closed_xs": np.asarray(cl[0]),
+            "rollout_closed_us": np.asarray(cl[1])}
+
+
+def function_refs():
+    out = {}
+    for fn in (algorithm_refs, ode_refs, residual_refs, rollout_refs):
+        out.update(fn())
+    return out
+
+
+def solve_refs():
     out = {}
     for case, s in SMALL.items():
         x0 = x0s(case, s["batch"])
@@ -231,15 +431,37 @@ def references():
     return out
 
 
-def main(path=os.path.join(ROOT, "tests", "data", "torch_free_ref.npz")):
+GROUPS = {"functions": function_refs, "solves": solve_refs}
+
+
+def references(groups=tuple(GROUPS)):
+    out = {}
+    for g in groups:
+        out.update(GROUPS[g]())
+    return out
+
+
+def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", nargs="*", choices=sorted(GROUPS))
+    ap.add_argument("--out", dest="path",
+                    default=os.path.join(ROOT, "tests", "data", "torch_free_ref.npz"))
+    args = ap.parse_args()
     sys.path.insert(0, ROOT)
-    refs = references()
-    np.savez_compressed(path, **refs)
+    old = {}
+    if args.only and os.path.exists(args.path):
+        with np.load(args.path) as f:
+            old = {k: f[k] for k in f.files}
+    refs = references(args.only or tuple(GROUPS))
+    np.savez_compressed(args.path, **{**old, **refs})
     for case in FULL:
-        print(case, "JAX converged", int(refs[f"{case}_full_conv"].sum()), "of",
-              FULL_SCENARIOS, "iterations", refs[f"{case}_full_num_iters"].tolist())
-    print("wrote", path)
+        if f"{case}_full_conv" in refs:
+            print(case, "JAX converged", int(refs[f"{case}_full_conv"].sum()), "of",
+                  FULL_SCENARIOS, "iterations", refs[f"{case}_full_num_iters"].tolist())
+    print("wrote", args.path)
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:])
+    main()
