@@ -53,6 +53,11 @@ def lu_solve(M: Tensor, rhs: Tensor) -> Tensor:
     return X + torch.linalg.lu_solve(LU, piv, rhs - M @ X)
 
 
+def dot(a: Tensor, b: Tensor) -> Tensor:
+    """Inner product over the last dim, broadcast over leading dims."""
+    return (a * b).sum(-1)
+
+
 def mv(M: Tensor, x: Tensor) -> Tensor:
     """Batched matrix-vector product ``M @ x`` over leading dims."""
     return (M @ x[..., None])[..., 0]

@@ -18,13 +18,18 @@ from .examples.flexible_double_pendulum import flexible_pendulum_problem
 from .examples.inverse_lqr import lqr_template
 from .examples.linear_euler import linear_euler_problem
 from .examples.medium_dims import linear_problem
+from .examples.panda_reach import panda_reach_problem
 from .examples.partial_initial_condition import partial_initial_condition_problem
 from .examples.pendulum import swing_up_problem
+from .examples.quadrotor import quadrotor_problem
 from .examples.se2_car import se2_problem
 from .examples.solo_jump import legged_problem
+from .examples.talos_arms import talos_arms_problem
 from .examples.talos_walk import talos_walk_problem
 from .examples.theta_family import double_integrator_family
+from .examples.ur5_ballistic import ur5_ballistic_problem
 from .examples.ur5_reach import ur5_reach_problem
+from .examples.ur5_table import ur5_table_problem
 from .examples.ur10_ballistic import ur10_ballistic_problem
 from .examples.ur10_midpoint import ur10_midpoint_problem
 from .gar.lqr_problem import LQRKnots, LQRProblem
@@ -217,18 +222,98 @@ def ur5_reach_problem_from_numpy(params, nsteps: int = 40, tau_bound=80.0, devic
                              t("timestep"), nsteps, tau_bound=tau_bound)
 
 
-def ffsr_reach_problem_from_numpy(params, nsteps: int = 60, device="cuda"):
+def ffsr_reach_problem_from_numpy(params, nsteps: int = 60, with_collision: bool = False,
+                                  with_self_collision: bool = False, device="cuda"):
     """The dual-arm FFSR reach
-    (:func:`~.examples.dual_ffsr_reach.ffsr_reach_problem`) from the robot
-    model's leaves, ``x0``, the tool target poses ``R_targets (2, 3, 3)``
-    and ``p_targets (2, 3)`` (arm 1, arm 2), ``u_max (14,)`` and the scalar
-    ``timestep``."""
+    (:func:`~.examples.dual_ffsr_reach.ffsr_reach_problem`, with its
+    collision flags) from the robot model's leaves, ``x0``, the tool target
+    poses ``R_targets (2, 3, 3)`` and ``p_targets (2, 3)`` (arm 1, arm 2),
+    ``u_max (14,)`` and the scalar ``timestep``."""
     from .examples.dual_ffsr_reach import TOOLS
 
     t = _loader(params, device)
     targets = {n: (t("R_targets")[k], t("p_targets")[k]) for k, n in enumerate(TOOLS)}
     return ffsr_reach_problem(robot_model_from_numpy(params, device=device), t("x0"),
-                              targets, t("u_max"), t("timestep"), nsteps)
+                              targets, t("u_max"), t("timestep"), nsteps,
+                              with_collision=with_collision,
+                              with_self_collision=with_self_collision)
+
+
+TABLE_FIELDS = ("normal", "plane_offset", "offset", "radius", "axis", "half_len", "margin")
+BOX_FIELDS = ("box_center", "box_rot", "half_extents", "offset", "radius", "margin")
+
+
+def ur5_table_problem_from_numpy(params, nsteps: int = 30, device="cuda"):
+    """The UR5 table reach (:func:`~.examples.ur5_table.ur5_table_problem`)
+    from the robot model's leaves, ``x0``, ``p_target``, the weights
+    ``w_frame``, ``w_u``, ``w_v``, ``w_term``, the scalars ``timestep`` and
+    ``tau_bound``, the table keep-out's fields as ``table_<field>``
+    (:data:`TABLE_FIELDS`) and, where the box is there, its fields
+    (:data:`BOX_FIELDS`) under the keys ``box_center``, ``box_rot``,
+    ``box_half_extents``, ``box_offset``, ``box_radius``, ``box_margin``."""
+    t = _loader(params, device)
+
+    def fields(prefix, names):
+        return {n: t(prefix + n.removeprefix(prefix)) for n in names}
+
+    box = fields("box_", BOX_FIELDS) if "box_center" in params else None
+    return ur5_table_problem(
+        robot_model_from_numpy(params, device=device), t("x0"), t("p_target"), t("w_frame"),
+        t("w_u"), t("w_v"), t("w_term"), t("timestep"), nsteps, t("tau_bound"),
+        fields("table_", TABLE_FIELDS), box)
+
+
+def ur5_ballistic_problem_from_numpy(params, nsteps: int = 40, device="cuda"):
+    """The UR5 throw (:func:`~.examples.ur5_ballistic.ur5_ballistic_problem`)
+    from the robot model's leaves, ``x0``, ``target_xy``, the weights
+    ``w_x``, ``w_u``, ``w_term`` (scaled as the stages use them) and the
+    scalars ``tau_bound``, ``g`` (the landing's gravity), ``z_ground``,
+    ``timestep``."""
+    t = _loader(params, device)
+    return ur5_ballistic_problem(
+        robot_model_from_numpy(params, device=device), t("x0"), t("target_xy"), t("w_x"),
+        t("w_u"), t("w_term"), t("tau_bound"), t("g"), t("z_ground"), t("timestep"),
+        nsteps)
+
+
+def panda_reach_problem_from_numpy(params, nsteps: int = 50, device="cuda"):
+    """The Panda reach (:func:`~.examples.panda_reach.panda_reach_problem`)
+    from the robot model's leaves, ``x0``, ``R_target``, ``p_target``, the
+    weights ``w_pose``, ``w_u``, ``w_term_pose``, ``w_term_vel``,
+    ``effort``, the scalar ``timestep`` and, with the post, ``post_a``,
+    ``post_b`` and the scalar ``post_radius``."""
+    t = _loader(params, device)
+    post = ((t("post_a"), t("post_b"), t("post_radius")) if "post_a" in params else None)
+    return panda_reach_problem(
+        robot_model_from_numpy(params, device=device), t("x0"), t("R_target"), t("p_target"),
+        t("w_pose"), t("w_u"), t("w_term_pose"), t("w_term_vel"), t("effort"), t("timestep"),
+        nsteps, post=post)
+
+
+def quadrotor_problem_from_numpy(params, nsteps: int = 60, term_cstr: bool = False,
+                                 device="cuda"):
+    """The quadrotor flight (:func:`~.examples.quadrotor.quadrotor_problem`)
+    from the robot model's leaves, ``actuation (6, 4)``, ``x0``,
+    ``x_target``, ``u_hover``, the weights ``w_x``, ``w_u``, ``w_term``,
+    the columns' centres ``columns (k, 2)``, the scalar ``column_radius``,
+    ``u_max`` and the scalar ``timestep``."""
+    t = _loader(params, device)
+    return quadrotor_problem(
+        robot_model_from_numpy(params, device=device), t("actuation"), t("x0"),
+        t("x_target"), t("u_hover"), t("w_x"), t("w_u"), t("w_term"), t("columns"),
+        t("column_radius"), t("u_max"), t("timestep"), nsteps, term_cstr=term_cstr)
+
+
+def talos_arms_problem_from_numpy(params, nsteps: int = 80, device="cuda"):
+    """The upper-body reach (:func:`~.examples.talos_arms.talos_arms_problem`)
+    from the robot model's leaves, ``x0``, ``x_ref``, ``p_target``, the
+    weights ``w_x``, ``w_u``, ``w_frame``, ``w_term_x``, ``w_term_frame``,
+    the scalar ``timestep`` and, with the torque bounds, ``effort``."""
+    t = _loader(params, device)
+    return talos_arms_problem(
+        robot_model_from_numpy(params, device=device), t("x0"), t("x_ref"), t("p_target"),
+        t("w_x"), t("w_u"), t("w_frame"), t("w_term_x"), t("w_term_frame"), t("timestep"),
+        nsteps, effort=t("effort") if "effort" in params else None)
 
 
 def flexible_pendulum_problem_from_numpy(params, nsteps: int = 120, u_bound=12.0,

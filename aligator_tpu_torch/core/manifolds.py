@@ -34,6 +34,15 @@ def batched_jacfwd(fn, n: int, *args: Tensor) -> Tensor:
     return jac.reshape(lead + jac.shape[1:])
 
 
+def unit_vector(n: int, k: int, dtype=None, device=None) -> Tensor:
+    """The n-vector with a one at k, filled on ``device``: a tensor built
+    from a Python list would be copied from the host, which a CUDA graph's
+    capture (a line-search trial that evaluates a neutral point) refuses."""
+    e = torch.zeros(n, dtype=dtype, device=device)
+    e.narrow(0, k, 1).fill_(1.0)  # a scalar argument, where e[k] = 1.0 copies one
+    return e
+
+
 class Manifold:
     """Abstract manifold. Subclasses define nx/ndx/neutral/integrate/difference."""
 

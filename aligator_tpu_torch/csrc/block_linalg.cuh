@@ -92,50 +92,108 @@ __device__ __forceinline__ void load4(const double* p, double (&o)[4]) {
   o[0] = v.x; o[1] = v.y; o[2] = u.x; o[3] = u.y;
 }
 
-// The same solve with [W | Y] in registers, four pivots at a time: each
-// thread holds one tile of kGjB x C words for the whole solve (C = 8, or 4
-// for a small system, which then spreads over more threads). Step kb
-// eliminates the block K = [4 kb, 4 kb + 4): every row i outside K takes
-// x_i -= x_i[K] A_KK^{-1} R_K, where R_K are the rows K and A_KK their
-// pivot block. Before it, the threads holding R_K, the columns K and A_KK
-// publish R_K, the multipliers x[:, K] and A_KK^{-1} (a 4 x 4 Gauss-Jordan
-// in registers, its pivots checked: one not > 0, or NaN, sets *bad = 1,
-// the condition under which the Cholesky factorization of W fails) into
-// `buf`, double-buffered: one barrier a step. Rows K are not scaled in
-// their step: they hold A_KK X_K until the end, where each thread applies
-// its block's A_KK^{-1} once (later steps subtract the same products from
-// them, the multipliers being their own words). Dimensions past n are
-// padded with the identity. The tiles are read with load(i, j), the element
-// (i, j) of [W | Y] for i < n, j < n + r, and X is written with store(i, c,
-// x_ic) once `bad` is final; gj_tiles and gj_buf_words give the threads
-// and the words of `buf` a system needs, gj_in_registers whether it fits.
-constexpr int kGjB = 4;
+// The same solve with [W | Y] in registers by block Cholesky, four pivots
+// at a time: each thread holds one tile of kTile x C words for the whole
+// solve (C = 8, or 4 for a small system, which then spreads over more
+// threads); the reg_* helpers below size the tiles and the scratch. Forward
+// step kb takes the block K = [4 kb, 4 kb + 4): the threads holding rows
+// K, the columns K and the pivot block A_KK publish the rows R_K, the
+// multipliers x[:, K] and the factor F_K of A_KK (chol4; a pivot not > 0,
+// or NaN, sets *bad = 1, the condition under which the Cholesky
+// factorization of W fails) into `buf`, double-buffered, one barrier a
+// step; every row i below K then takes x_i -= (F_K^{-1} x_i[K]')'
+// (F_K^{-1} R_K), the symmetric (Cholesky) form of the Schur-complement
+// update. After the last step each thread scales its rows by its block's
+// F^{-1}: [W | Y] is then [L' | L^{-1} Y] for W = L L'. The block back
+// substitution takes nb steps: in step K the threads of rows K solve F_K'
+// X_K = (their Y columns) and publish X_K, and the rows above take x_i[Y]
+// -= x_i[K] X_K, one barrier a step. Dimensions past n are padded with the
+// identity. The tiles are read with load(i, j), the element (i, j) of [W |
+// Y] for i < n, j < n + r, and X is written with store(i, c, x_ic) once
+// `bad` is final; reg_tiles and reg_buf_words give the threads and the words
+// of `buf` a system needs, fits_registers whether it fits.
+//
+// Stability: the update in the symmetric form is backward stable as a
+// Cholesky solve is. Block LU with the same pivot factors, which forms
+// A_KK^{-1} R_K and multiplies it by the unscaled x_i[K], is not: its
+// backward error grows with the square root of W's condition (15x a
+// Cholesky solve's on a reduced KKT matrix of condition ~1e5 in float32,
+// 68x on a system of condition 1e10 in float64), and block Gauss-Jordan
+// with explicit 4 x 4 pivot-block inverses failed outright there.
+constexpr int kTile = 4;
 
 template <int C>
-__host__ __device__ inline int gj_tiles(int n, int r) {
-  return (n + kGjB - 1) / kGjB * ((n + r + C - 1) / C);
+__host__ __device__ inline int reg_tiles(int n, int r) {
+  return (n + kTile - 1) / kTile * ((n + r + C - 1) / C);
 }
 
 template <int C>
-__host__ __device__ inline int gj_buf_words(int n, int r) {
-  const int wp = (n + r + C - 1) / C * C, np = (n + kGjB - 1) / kGjB * kGjB;
-  return 2 * (kGjB * wp + np * kGjB + kGjB * kGjB) + np * kGjB;
+__host__ __device__ inline int reg_buf_words(int n, int r) {
+  const int wp = (n + r + C - 1) / C * C, np = (n + kTile - 1) / kTile * kTile;
+  return 2 * (kTile * wp + np * kTile + kTile * kTile) + np * kTile;
 }
 
 template <int C>
-__device__ __forceinline__ bool gj_in_registers(int n, int r, int buf_words) {
-  return gj_tiles<C>(n, r) <= static_cast<int>(blockDim.x) &&
-         gj_buf_words<C>(n, r) <= buf_words;
+__device__ __forceinline__ bool fits_registers(int n, int r, int buf_words) {
+  return reg_tiles<C>(n, r) <= static_cast<int>(blockDim.x) &&
+         reg_buf_words<C>(n, r) <= buf_words;
+}
+
+// The 4 x 4 Cholesky factor of a pivot block, lower triangle read, the
+// reciprocals of its diagonal on the diagonal (f[u][q], q <= u); a pivot
+// not > 0 (or NaN) sets *bad = 1.
+template <typename S>
+__device__ __forceinline__ void chol4(const S (&a)[kTile][kTile], S (&f)[kTile][kTile], int* bad) {
+#pragma unroll
+  for (int j = 0; j < kTile; ++j) {
+    S d = a[j][j];
+#pragma unroll
+    for (int q = 0; q < j; ++q) d -= f[j][q] * f[j][q];
+    if (!(d > S(0))) *bad = 1;
+    const S rl = S(1) / sqrt(d);
+    f[j][j] = rl;
+#pragma unroll
+    for (int i = j + 1; i < kTile; ++i) {
+      S s = a[i][j];
+#pragma unroll
+      for (int q = 0; q < j; ++q) s -= f[i][q] * f[j][q];
+      f[i][j] = s * rl;
+    }
+#pragma unroll
+    for (int q = j + 1; q < kTile; ++q) f[j][q] = S(0);
+  }
+}
+
+// x <- F^{-1} x for a factor of chol4 (forward substitution)
+template <typename S>
+__device__ __forceinline__ void chol4_fwd(const S (&f)[kTile][kTile], S (&x)[kTile]) {
+#pragma unroll
+  for (int a = 0; a < kTile; ++a) {
+#pragma unroll
+    for (int q = 0; q < a; ++q) x[a] -= f[a][q] * x[q];
+    x[a] *= f[a][a];
+  }
+}
+
+// x <- F'^{-1} x for a factor of chol4 (back substitution)
+template <typename S>
+__device__ __forceinline__ void chol4_bwd(const S (&f)[kTile][kTile], S (&x)[kTile]) {
+#pragma unroll
+  for (int a = kTile - 1; a >= 0; --a) {
+#pragma unroll
+    for (int q = a + 1; q < kTile; ++q) x[a] -= f[q][a] * x[q];
+    x[a] *= f[a][a];
+  }
 }
 
 template <int C, typename S, typename Load, typename Store>
-__device__ void gauss_jordan_regs(int n, int r, S* buf, int* bad, Load load, Store store) {
-  constexpr int B = kGjB;
+__device__ void block_cholesky_regs(int n, int r, S* buf, int* bad, Load load, Store store) {
+  constexpr int B = kTile;
   static_assert(C == B || C == 2 * B, "a pivot block sits at column 0 or B of a tile");
   const int w = n + r, wp = (w + C - 1) / C * C, nb = (n + B - 1) / B, np = nb * B;
   const int tcn = wp / C, tiles = nb * tcn;
-  const int words = B * wp + np * B + B * B;  // one buffer: R_K, x[:, K], A_KK^{-1}
-  S* const saved = buf + 2 * words;           // every block's A_KK^{-1}
+  const int words = B * wp + np * B + B * B;  // one buffer: R_K, x[:, K], F_K
+  S* const saved = buf + 2 * words;           // every block's factor F_K
   const bool has = static_cast<int>(threadIdx.x) < tiles;
   const int ti = has ? threadIdx.x / tcn : nb, tj = has ? threadIdx.x % tcn : 0;
   const int i0 = ti * B, j0 = tj * C;
@@ -148,11 +206,22 @@ __device__ void gauss_jordan_regs(int n, int r, S* buf, int* bad, Load load, Sto
       x[u][v] = i < n && j < w ? load(i, j) : S(0);
     }
 
+  // the columns K of this thread's rows, for the threads of tile column k / C
+  auto publish_multipliers = [&](S* L, int k) {
+    const int v0 = k % C;
+#pragma unroll
+    for (int u = 0; u < B; ++u)
+#pragma unroll
+      for (int q = 0; q < B; ++q)
+        L[(i0 + u) * B + q] = C == B || v0 == 0 ? x[u][q] : x[u][(C - B) + q];
+  };
+
+  // forward step kb: R_K, the multipliers and the factor of A_KK
   auto publish = [&](int kb) {
     S* R = buf + (kb & 1) * words;
     S* L = R + B * wp;
-    S* Ai = L + np * B;
-    const int k = kb * B, v0 = k % C;  // K's columns sit at v0 .. v0 + 3 of tile column k / C
+    S* F = L + np * B;
+    const int k = kb * B, v0 = k % C;
     if (has && i0 == k) {
 #pragma unroll
       for (int u = 0; u < B; ++u)
@@ -160,54 +229,101 @@ __device__ void gauss_jordan_regs(int n, int r, S* buf, int* bad, Load load, Sto
         for (int v = 0; v < C; ++v) R[u * wp + j0 + v] = x[u][v];
     }
     if (has && tj == k / C) {
-      S blk[B][B];
+      publish_multipliers(L, k);
+      if (i0 == k) {  // F_K, A_KK padded with the identity past n
+        S a[B][B], f[B][B];
 #pragma unroll
-      for (int u = 0; u < B; ++u)
+        for (int u = 0; u < B; ++u)
 #pragma unroll
-        for (int q = 0; q < B; ++q) blk[u][q] = C == B || v0 == 0 ? x[u][q] : x[u][(C - B) + q];
-#pragma unroll
-      for (int u = 0; u < B; ++u)
-#pragma unroll
-        for (int q = 0; q < B; ++q) L[(i0 + u) * B + q] = blk[u][q];
-      if (i0 == k) {  // A_KK^{-1}, padded with the identity past n
-        S e[B][B];
+          for (int q = 0; q < B; ++q)
+            a[u][q] = k + u >= n || k + q >= n ? (u == q ? S(1) : S(0))
+                      : (C == B || v0 == 0 ? x[u][q] : x[u][(C - B) + q]);
+        chol4(a, f, bad);
 #pragma unroll
         for (int u = 0; u < B; ++u)
 #pragma unroll
           for (int q = 0; q < B; ++q) {
-            if (k + u >= n || k + q >= n) blk[u][q] = u == q ? S(1) : S(0);
-            e[u][q] = u == q ? S(1) : S(0);
-          }
-#pragma unroll
-        for (int pv = 0; pv < B; ++pv) {
-          const S piv = blk[pv][pv];
-          if (!(piv > S(0))) *bad = 1;
-          const S rp = S(1) / piv;
-#pragma unroll
-          for (int q = 0; q < B; ++q) {
-            blk[pv][q] *= rp;
-            e[pv][q] *= rp;
-          }
-#pragma unroll
-          for (int u = 0; u < B; ++u) {
-            if (u != pv) {
-              const S f = blk[u][pv];
-#pragma unroll
-              for (int q = 0; q < B; ++q) {
-                blk[u][q] -= f * blk[pv][q];
-                e[u][q] -= f * e[pv][q];
-              }
-            }
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < B; ++u)
-#pragma unroll
-          for (int q = 0; q < B; ++q) {
-            Ai[u * B + q] = e[u][q];
-            saved[kb * B * B + u * B + q] = e[u][q];
+            F[u * B + q] = f[u][q];
+            saved[kb * B * B + u * B + q] = f[u][q];
           }
       }
+    }
+  };
+
+  // back step kb: the rows K (scaled) solve F_K' X_K = their columns of Y
+  // and publish X_K, zero in the columns of W, with the multipliers of the
+  // rows above
+  auto publish_back = [&](int kb, int parity) {
+    S* R = buf + parity * words;
+    S* L = R + B * wp;
+    const int k = kb * B;
+    if (has && i0 == k) {
+      S f[B][B];
+#pragma unroll
+      for (int u = 0; u < B; ++u) load4(saved + kb * B * B + u * B, f[u]);
+#pragma unroll
+      for (int v = 0; v < C; ++v) {
+        S col[B];
+#pragma unroll
+        for (int u = 0; u < B; ++u) col[u] = x[u][v];
+        chol4_bwd(f, col);
+        const bool in_y = j0 + v >= n;
+#pragma unroll
+        for (int u = 0; u < B; ++u) {
+          if (in_y) x[u][v] = col[u];
+          R[u * wp + j0 + v] = in_y ? col[u] : S(0);
+        }
+      }
+    }
+    if (has && tj == k / C) publish_multipliers(L, k);
+  };
+
+  // x[u][:] -= sum_a l[u][a] p[a][:] for the published rows p of this
+  // step; in the forward steps (F given) l[u] <- F^{-1} l[u] and each
+  // column of p <- F^{-1} p first
+  auto update = [&](const S* R, const S* L, const S* F) {
+    S l[B][B], f[B][B];
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      load4(L + (i0 + u) * B, l[u]);
+      if (F != nullptr) load4(F + u * B, f[u]);
+    }
+    if (F != nullptr) {
+#pragma unroll
+      for (int u = 0; u < B; ++u) chol4_fwd(f, l[u]);
+    }
+#pragma unroll
+    for (int v4 = 0; v4 < C; v4 += 4) {
+      S rk[B][4];
+#pragma unroll
+      for (int q = 0; q < B; ++q) load4(R + q * wp + j0 + v4, rk[q]);
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        S pk[B];
+#pragma unroll
+        for (int a = 0; a < B; ++a) pk[a] = rk[a][v];
+        if (F != nullptr) chol4_fwd(f, pk);
+#pragma unroll
+        for (int u = 0; u < B; ++u)
+#pragma unroll
+          for (int a = 0; a < B; ++a) x[u][v4 + v] -= l[u][a] * pk[a];
+      }
+    }
+  };
+
+  // this thread's rows <- F^{-1} rows, F its row block's factor
+  auto scale_rows = [&]() {
+    S f[B][B];
+#pragma unroll
+    for (int u = 0; u < B; ++u) load4(saved + ti * B * B + u * B, f[u]);
+#pragma unroll
+    for (int v = 0; v < C; ++v) {
+      S col[B];
+#pragma unroll
+      for (int u = 0; u < B; ++u) col[u] = x[u][v];
+      chol4_fwd(f, col);
+#pragma unroll
+      for (int u = 0; u < B; ++u) x[u][v] = col[u];
     }
   };
 
@@ -215,63 +331,38 @@ __device__ void gauss_jordan_regs(int n, int r, S* buf, int* bad, Load load, Sto
   __syncthreads();
   for (int kb = 0; kb < nb; ++kb) {
     const S* R = buf + (kb & 1) * words;
-    const S* L = R + B * wp;
-    const S* Ai = L + np * B;
-    if (has && i0 != kb * B) {
-      S l[B][B], ai[B][B];
-#pragma unroll
-      for (int u = 0; u < B; ++u) {
-        load4(L + (i0 + u) * B, l[u]);
-        load4(Ai + u * B, ai[u]);
-      }
-#pragma unroll
-      for (int v4 = 0; v4 < C; v4 += 4) {
-        S rk[B][4];
-#pragma unroll
-        for (int q = 0; q < B; ++q) load4(R + q * wp + j0 + v4, rk[q]);
-#pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          S pk[B];  // A_KK^{-1} R_K, one column
-#pragma unroll
-          for (int a = 0; a < B; ++a) {
-            S s = S(0);
-#pragma unroll
-            for (int q = 0; q < B; ++q) s += ai[a][q] * rk[q][v];
-            pk[a] = s;
-          }
-#pragma unroll
-          for (int u = 0; u < B; ++u)
-#pragma unroll
-            for (int a = 0; a < B; ++a) x[u][v4 + v] -= l[u][a] * pk[a];
-        }
-      }
+    if (has && i0 > kb * B) update(R, R + B * wp, R + B * wp + np * B);
+    if (kb + 1 < nb) {
+      publish(kb + 1);
+    } else {
+      if (has) scale_rows();
+      publish_back(nb - 1, nb & 1);
     }
-    if (kb + 1 < nb) publish(kb + 1);
     __syncthreads();
   }
-  if (has) {  // rows K hold A_KK X_K
-    S ai[B][B];
+  for (int s = 0; s < nb; ++s) {
+    const int kb = nb - 1 - s, parity = (nb + s) & 1;
+    const S* R = buf + parity * words;
+    if (has && i0 < kb * B) update(R, R + B * wp, nullptr);
+    if (kb > 0) publish_back(kb - 1, parity ^ 1);
+    __syncthreads();
+  }
+  if (has) {
 #pragma unroll
-    for (int u = 0; u < B; ++u) load4(saved + ti * B * B + u * B, ai[u]);
+    for (int u = 0; u < B; ++u)
 #pragma unroll
-    for (int v = 0; v < C; ++v) {
-      const int j = j0 + v;
-#pragma unroll
-      for (int a = 0; a < B; ++a) {
-        S s = S(0);
-#pragma unroll
-        for (int q = 0; q < B; ++q) s += ai[a][q] * x[q][v];
-        if (i0 + a < n && j >= n && j < w) store(i0 + a, j - n, s);
+      for (int v = 0; v < C; ++v) {
+        const int i = i0 + u, j = j0 + v;
+        if (i < n && j >= n && j < w) store(i, j - n, x[u][v]);
       }
-    }
   }
 }
 
 // The same on M = [W | Y] in shared memory (leading dimension ld), in place.
 template <int C, typename S>
-__device__ __forceinline__ void gauss_jordan_regs(S* M, int n, int r, int ld, S* buf,
-                                                  int* bad) {
-  gauss_jordan_regs<C>(
+__device__ __forceinline__ void block_cholesky_regs(S* M, int n, int r, int ld, S* buf,
+                                                    int* bad) {
+  block_cholesky_regs<C>(
       n, r, buf, bad, [M, ld](int i, int j) { return M[i * ld + j]; },
       [M, n, ld](int i, int c, S x) { M[i * ld + n + c] = x; });
 }

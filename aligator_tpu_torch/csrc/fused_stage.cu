@@ -19,8 +19,9 @@
 // Pc is, after the stage (the TPU sweep did it in XLA between kernel
 // calls), and that symmetrized Pc is the stored Pmat. Explicit dynamics
 // (E = -I) only. Sums run in another order than the plain version's, and
-// the systems are solved by Gauss-Jordan elimination, not by a Cholesky
-// factorization and two substitutions.
+// the systems are solved by a block Cholesky elimination of [W | Y] (or,
+// for the large ones, by Gauss-Jordan), not by a Cholesky factorization
+// and two separate substitutions.
 //
 // Bound on an H100 at the humanoid shape (nx = 36, nu = 12, nc = 12, batch
 // 1024, N = 100, fp32): 3.77 GB (1.12 ms at 3.35 TB/s) and 75.2 GFLOP
@@ -36,11 +37,11 @@
 // backward in ONE launch, with the carry (P, p) in shared memory. A stage:
 //   1. [I + mu_dyn P | P | p + P f] (W mirrored from its lower triangle)
 //      and D'[D | d | C]/mu_eq, one product;
-//   2. the Schur system solved in place by gauss_jordan_regs;
+//   2. the Schur system solved in place by block_cholesky_regs;
 //   3. [A B]'[Vxx | vx], one product;
 //   4. X2 [A | B] (Qhat, Shat) and B'V [B | A] (the reduced KKT, mirrored,
 //      and its right-hand sides) in one pass;
-//   5. the KKT solved by gauss_jordan_regs;
+//   5. the KKT solved by block_cholesky_regs;
 //   6. [D; B][kff | K] (Zc and the panel B[kff | K]) and Qhat + Shat K;
 //   7. Vxx [B[kff | K] | A] (lff, L, yff, Afb) and the + C'Z term;
 //   8. the symmetrized carry; the next stage's A, f, B, C, D, d copied in
@@ -49,19 +50,21 @@
 // the two-operand product of step 7) with independent accumulators, its
 // operands addressed by 32-bit shared-memory offsets that step by their
 // stride; the products of a step share the threads out.
-// gauss_jordan_regs (csrc/block_linalg.cuh, shared with K2) keeps [W | Y]
-// in registers, a 4x8 tile a thread (4x4 for the KKT, so that it spreads
-// over 39 threads), and eliminates four pivots a step: ~2.2k cycles a step
-// for a block alone, 9 steps for the Schur system, 3 for the KKT, one
-// barrier each. A system whose tiles
+// block_cholesky_regs (csrc/block_linalg.cuh, K2's register route) keeps
+// [W | Y] in registers, a 4x8 tile a thread (4x4 for the KKT, so that it
+// spreads over 39 threads), and eliminates four pivots a step: 9 forward
+// and 9 back-substitution steps for the Schur system, 3 and 3 for the KKT,
+// one barrier each. (Block Gauss-Jordan with explicit 4 x 4 pivot-block
+// inverses, half the steps, gave non-finite gains on nearly singular
+// reduced KKT systems in fp32; see block_linalg.cuh.) A system whose tiles
 // outnumber the threads (nx > 36) or whose scratch does not fit takes
-// gauss_jordan, the same elimination in shared memory, one pivot and one
-// barrier a step. Shared memory: 3 n(n+1) + n^2 + n + max(nu, nc)(n+1) +
+// gauss_jordan, a scalar Gauss-Jordan elimination in shared memory, one
+// pivot and one barrier a step. Shared memory: 3 n(n+1) + n^2 + n + max(nu, nc)(n+1) +
 // 2 n nu + nu^2 + nu(n+1) + nc(n + nu + 1) words, 31.3 KB at the humanoid
 // shape in fp32; at most 128 registers a thread, 4 blocks an SM, so the
 // 1024 scenarios run in two waves (fewer registers spill and measured
 // slower). Measured (NVIDIA H100 80GB HBM3, 700 W, fp32, B=1024, N=100):
-// 12.5 ms, 11x the bound; a block alone ~40 us a stage. Q, S, R, q and r
+// 14.4 ms, 13x the bound (12.3 ms on the block Gauss-Jordan it replaced). Q, S, R, q and r
 // are read from L2 where used; knots are read in place from the
 // batch-major (B, T, rows, cols) tensors (a transpose is an index). fp64
 // needs twice the shared memory (opt-in above 48 KB). A failed solve makes
@@ -110,9 +113,9 @@
 
 namespace {
 
+using aligator::block_cholesky_regs;
 using aligator::gauss_jordan;
-using aligator::gauss_jordan_regs;
-using aligator::gj_in_registers;
+using aligator::fits_registers;
 
 constexpr int kStageThreads = 128;
 // at most 128 registers a thread: 4 blocks of 128 threads an SM (fewer
@@ -388,7 +391,7 @@ sweep_kernel(const int T, const int N, const int n, const int m, const int c,
     __syncthreads();
 
     // 2. [Vxx | vx] = W^{-1}[P | p + P f] (RC is free until step 3)
-    if (gj_in_registers<8>(n, n1, n * n1)) gauss_jordan_regs<8>(AG, n, n1, la, RC, &bad);
+    if (fits_registers<8>(n, n1, n * n1)) block_cholesky_regs<8>(AG, n, n1, la, RC, &bad);
     else gauss_jordan(AG, n, n1, la, &bad);
     __syncthreads();
 
@@ -445,8 +448,8 @@ sweep_kernel(const int T, const int N, const int n, const int m, const int c,
     __syncthreads();
 
     // 5. [kff | K] = -W^{-1}[...] (X2 in RC is consumed)
-    if (gj_in_registers<4>(m, n1, n * n1)) gauss_jordan_regs<4>(KK, m, n1, lk, RC, &bad);
-    else if (gj_in_registers<8>(m, n1, n * n1)) gauss_jordan_regs<8>(KK, m, n1, lk, RC, &bad);
+    if (fits_registers<4>(m, n1, n * n1)) block_cholesky_regs<4>(KK, m, n1, lk, RC, &bad);
+    else if (fits_registers<8>(m, n1, n * n1)) block_cholesky_regs<8>(KK, m, n1, lk, RC, &bad);
     else gauss_jordan(KK, m, n1, lk, &bad);
     __syncthreads();
     const bool ok = !bad;

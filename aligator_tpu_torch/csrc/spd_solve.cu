@@ -17,13 +17,14 @@
 // 3n of them, each a few shared-memory operations and a block barrier.
 //
 // Design: the TPU kernel put 128 systems on the vector lanes; here each
-// system gets one block, which solves [W | Y] = [A | R] by Gauss-Jordan
+// system gets one block, which solves [W | Y] = [A | R] by block Cholesky
 // elimination with the tiles in registers, four pivots a step
-// (aligator::gauss_jordan_regs, the elimination K3 uses): n/4 steps of one
-// barrier each. A thread loads its tile straight from device memory,
-// mirroring W from A's lower triangle, and writes its rows of X at the end;
-// shared memory holds only the published pivot rows, multipliers and 4 x 4
-// pivot-block inverses (gj_buf_words, 6.7 KB at n = 56, r = 57 in fp32).
+// (aligator::block_cholesky_regs, which K3 shares): n/4 forward steps and
+// n/4 back-substitution steps of one barrier each. A thread loads its tile
+// straight from device memory, mirroring W from A's lower triangle, and
+// writes its rows of X at the end; shared memory holds only the published
+// pivot rows, multipliers and 4 x 4 pivot-block Cholesky factors
+// (reg_buf_words, 6.7 KB at n = 56, r = 57 in fp32).
 // Tiles are 4 x 4 where the system then fits 256 threads, else 4 x 8; the
 // block has as many warps as the tiles need. With fewer systems than SMs
 // (the walk's per-stage loop at batch 16) the columns of Y are split over
@@ -44,16 +45,16 @@
 // width in the same launch, each eliminating W again, as the column split
 // does.
 //
-// Accuracy: block Gauss-Jordan with explicit 4 x 4 pivot-block inverses is
-// not backward stable; on nearly singular SPD systems its error in X grew
-// to ~1e-6 relative in float64 where a Cholesky solve's stays ~1e-12 (the
-// Solo jump's Delassus matrix, four redundant point feet at mu = 1e-8),
-// which the trajectory solve then magnified. In float64 the register
-// route therefore refines its solution once in the same launch (a second
-// elimination of [W | R - W X], the residual formed from A's lower
-// triangle and the block's X): twice the arithmetic, one launch. float32
-// keeps one elimination. The shared-memory route eliminates one pivot a
-// step, with no block inverse.
+// Accuracy: the register route's block Cholesky elimination updates in the
+// symmetric form and is backward stable as a Cholesky solve is, so it
+// needs no refinement step. The eliminations it replaced were not: block
+// Gauss-Jordan with explicit 4 x 4 pivot-block inverses lost ~1e-6
+// relative in float64 on the Solo jump's Delassus matrix (four redundant
+// point feet at mu = 1e-8) and 18x and 138x a Cholesky solve's backward
+// error in float32 at condition 1e5 (see block_linalg.cuh). The
+// shared-memory route eliminates one pivot a step by Gauss-Jordan, with no
+// block inverse, and stays within a few times the Cholesky solve's
+// backward error.
 //
 // C interface (one function per scalar type): returns -1 for n out of
 // range (1 <= n <= 64) or an empty system, otherwise cudaGetLastError()
@@ -70,10 +71,6 @@ namespace {
 constexpr int kThreads = 256;  // most threads a block
 constexpr int kMaxN = 64;
 constexpr int kMaxR = 128;  // columns of Y a block at most
-// float64 systems on the register route take one step of iterative
-// refinement in the same launch (spd_solve_kernel_regs)
-template <typename S>
-constexpr bool kRefine = sizeof(S) == 8;
 
 // [W | Y] in registers, C columns a tile; block (m, s) solves system m for
 // the columns s rs .. s rs + rs - 1 of Y
@@ -95,31 +92,12 @@ spd_solve_kernel_regs(const int n, const int r, const int rs, const S* __restric
   const S nan = aligator::qnan<S>();
   const int* failed = &bad;  // final when X is stored
   const int cols = min(rs, r - c0);
-  auto a = [=](int i, int j) -> S { return i >= j ? Am[i * n + j] : Am[j * n + i]; };
-  aligator::gauss_jordan_regs<C>(
+  aligator::block_cholesky_regs<C>(
       n, cols, buf, &bad,
-      [=](int i, int j) -> S { return j >= n ? Rm[i * r + j - n] : a(i, j); },
+      [=](int i, int j) -> S {
+        return j >= n ? Rm[i * r + j - n] : i >= j ? Am[i * n + j] : Am[j * n + i];
+      },
       [=](int i, int c, S x) { Xm[i * r + c] = *failed ? nan : x; });
-  if constexpr (kRefine<S>) {
-    // one step of iterative refinement, X += solve(A, R - A X): the
-    // explicit 4 x 4 pivot-block inverses lose up to cond(A_KK) eps, which
-    // on a nearly singular system (a Delassus matrix of redundant contacts
-    // at mu = 1e-8, a Riccati Schur system) reached 1e-6 relative in X.
-    // The barrier makes this block's X visible to all its threads; each
-    // thread loads every residual it needs before the first barrier of the
-    // second elimination and stores after its last one.
-    __syncthreads();
-    aligator::gauss_jordan_regs<C>(
-        n, cols, buf, &bad,
-        [=](int i, int j) -> S {
-          if (j < n) return a(i, j);
-          const int c = j - n;
-          S res = Rm[i * r + c];
-          for (int k = 0; k < n; ++k) res -= a(i, k) * Xm[k * r + c];
-          return res;
-        },
-        [=](int i, int c, S x) { Xm[i * r + c] = *failed ? nan : Xm[i * r + c] + x; });
-  }
 }
 
 // [W | Y] in shared memory (W mirrored from A's lower triangle),
@@ -159,8 +137,8 @@ spd_solve_kernel_smem(const int n, const int r, const int rs, const S* __restric
 template <int C, typename S>
 int launch_regs(int M, int n, int r, int rs, const S* A, const S* R, S* X,
                 cudaStream_t stream) {
-  const int threads = (aligator::gj_tiles<C>(n, rs) + 31) / 32 * 32;
-  const size_t smem = sizeof(S) * static_cast<size_t>(aligator::gj_buf_words<C>(n, rs));
+  const int threads = (aligator::reg_tiles<C>(n, rs) + 31) / 32 * 32;
+  const size_t smem = sizeof(S) * static_cast<size_t>(aligator::reg_buf_words<C>(n, rs));
   const cudaError_t e = aligator::opt_in_shared(spd_solve_kernel_regs<C, S>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(M, (r + rs - 1) / rs);
@@ -177,7 +155,7 @@ int column_split(int M, int n, int r) {
     return r;
   for (int s = 2; s <= r && M * s <= sms; ++s) {
     const int rs = (r + s - 1) / s;
-    if (aligator::gj_tiles<4>(n, rs) <= kThreads) return rs;
+    if (aligator::reg_tiles<4>(n, rs) <= kThreads) return rs;
   }
   return r;
 }
@@ -189,11 +167,11 @@ int launch(int M, int n, int r, const S* A, const S* R, S* X,
   // a block takes at most kMaxR columns of Y: wider right-hand sides are
   // split over the fewest blocks of equal width rw, in the same launch
   const int groups = (r + kMaxR - 1) / kMaxR, rw = (r + groups - 1) / groups;
-  if (aligator::gj_tiles<4>(n, rw) <= kThreads)
+  if (aligator::reg_tiles<4>(n, rw) <= kThreads)
     return launch_regs<4>(M, n, r, rw, A, R, X, stream);
   const int rs = column_split(M * groups, n, rw);
   if (rs < rw) return launch_regs<4>(M, n, r, rs, A, R, X, stream);
-  if (aligator::gj_tiles<8>(n, rw) <= kThreads)
+  if (aligator::reg_tiles<8>(n, rw) <= kThreads)
     return launch_regs<8>(M, n, r, rw, A, R, X, stream);
   const size_t smem = sizeof(S) * static_cast<size_t>(n * (n + rw));
   const cudaError_t e = aligator::opt_in_shared(spd_solve_kernel_smem<S>, smem);

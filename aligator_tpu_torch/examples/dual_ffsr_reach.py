@@ -1,15 +1,19 @@
 """Dual-arm free-floating space robot (FFSR) reach.
 
 Port of the nominal-model branch of ``examples/dual_ffsr_reach.py``
-(``use_mjcf=False``, ``with_collision=False``): a free-flyer satellite bus
+(``use_mjcf=False``): a free-flyer satellite bus
 with two 7-DOF Panda-kinematics arms (:func:`make_dual_arm_ffsr`) in zero
 gravity reaches displaced world-frame poses with both tool frames under
 torque bounds, the base unactuated (14 arm torques), semi-implicit Euler
 with dt = 0.05, N = 60. The published configuration solves it with
 ``ProxDDPConfig(tol=1e-4, mu_init=1e-2, max_iters=120, rollout="nonlinear",
 ls_strategy="armijo")``. Its LQ subproblems (ndx = 40, general E) take the
-per-stage loop on K2 and the forward substitution K4. The MJCF model and
-the collision constraints are not ported.
+per-stage loop on K2 and the forward substitution K4. ``with_collision``
+keeps arm 1's tool out of a vertical capsule ahead of its target
+(:class:`~..modelling.multibody.extra_residuals.FrameCollisionResidual`),
+``with_self_collision`` keeps capsules on the two tools apart
+(:class:`~..modelling.multibody.extra_residuals.LinkCollisionResidual`).
+The MJCF model is not ported.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from .._device import resolve
 from ..modelling import IntegratorSemiImplEuler
 from ..modelling.dynamics.multibody_free import MultibodyFreeFwdDynamics
 from ..modelling.multibody import model as rbd
+from ..modelling.multibody.extra_residuals import FrameCollisionResidual, LinkCollisionResidual
 from ..modelling.multibody.residuals import FramePlacementResidual, FrameVelocityResidual
 from ..modelling.multibody.robots import FFSR_Q_ARM1, FFSR_Q_ARM2, make_dual_arm_ffsr
 
@@ -53,11 +58,16 @@ def reach_targets(model: rbd.RobotModel) -> dict:
 
 def ffsr_reach_problem(model: rbd.RobotModel, x0: Tensor, targets: dict, u_max: Tensor,
                        timestep: Tensor, nsteps: int, w_pose=5.0, w_u=1e-3,
-                       w_term_pose=200.0, w_term_vel=20.0) -> core.TrajOptProblem:
+                       w_term_pose=200.0, w_term_vel=20.0, with_collision: bool = False,
+                       with_self_collision: bool = False) -> core.TrajOptProblem:
     """The reach from its leaves: initial states ``x0 (B, 41)``, tool poses
     ``targets {tool: (R (3, 3), p (3,))}``, torque bounds ``u_max (14,)``;
     stage cost dt·(Σ ½ w_pose‖log₆(M_ref⁻¹ M_tool)‖² + ½ w_u‖u‖²), terminal
-    cost Σ ½ w_term_pose‖log₆‖² + ½ w_term_vel‖v_tool‖² (LOCAL velocities)."""
+    cost Σ ½ w_term_pose‖log₆‖² + ½ w_term_vel‖v_tool‖² (LOCAL velocities).
+    ``with_collision``: arm 1's tool at least 0.15 from the segment from its
+    target + (0.3, 0, −0.5) one metre up; ``with_self_collision``: capsules
+    (radius 0.06, half-length 0.12 along each tool's z) on the two tools
+    0.02 apart."""
     nv = model.nv
     nu = nv - 6
     dt, dev = x0.dtype, x0.device
@@ -79,13 +89,30 @@ def ffsr_reach_problem(model: rbd.RobotModel, x0: Tensor, targets: dict, u_max: 
           for n in TOOLS),
         *(core.QuadraticResidualCost(residual=vel[n], weights=w_term_vel * w6)
           for n in TOOLS))
-    constraints = ((core.ControlErrorResidual(target=u_max.new_zeros(nu)),
-                    core.BoxConstraint(lower=-u_max, upper=u_max)),)
-    stage = core.make_stage(rcost, dyn, space, nu, constraints)
+    constraints = [(core.ControlErrorResidual(target=u_max.new_zeros(nu)),
+                    core.BoxConstraint(lower=-u_max, upper=u_max))]
+
+    def t(v):
+        return torch.tensor(v, dtype=dt, device=dev)
+
+    if with_collision:
+        seg_a = targets[TOOLS[0]][1] + t((0.3, 0.0, -0.5))
+        constraints.append((FrameCollisionResidual(
+            model=model, seg_a=seg_a, seg_b=seg_a + t((0.0, 0.0, 1.0)), radius=t(0.15),
+            frame_id=model.frame_id(TOOLS[0])), core.NegativeOrthant()))
+    if with_self_collision:
+        z = t((0.0, 0.0, 1.0))
+        constraints.append((LinkCollisionResidual(
+            model=model, axis1=z, half_len1=t(0.12), radius1=t(0.06), axis2=z,
+            half_len2=t(0.12), radius2=t(0.06), offset1=t((0.0, 0.0, 0.0)),
+            offset2=t((0.0, 0.0, 0.0)), margin=t(0.02), frame_id1=model.frame_id(TOOLS[0]),
+            frame_id2=model.frame_id(TOOLS[1])), core.NegativeOrthant()))
+    stage = core.make_stage(rcost, dyn, space, nu, tuple(constraints))
     return core.make_problem(x0, stage, nsteps, term_cost)
 
 
 def create_ffsr_problem(nsteps: int = 60, timestep: float = 0.05, dtype=torch.float64,
+                        with_collision: bool = False, with_self_collision: bool = False,
                         device="cuda") -> core.TrajOptProblem:
     """The published reach, one scenario at the nominal posture at rest;
     replace ``x0`` by a ``(B, 41)`` batch to solve B scenarios."""
@@ -95,7 +122,8 @@ def create_ffsr_problem(nsteps: int = 60, timestep: float = 0.05, dtype=torch.fl
     return ffsr_reach_problem(
         model, x0[None], reach_targets(model),
         torch.tensor(U_MAX, dtype=dtype, device=dev),
-        torch.tensor(timestep, dtype=dtype, device=dev), nsteps)
+        torch.tensor(timestep, dtype=dtype, device=dev), nsteps,
+        with_collision=with_collision, with_self_collision=with_self_collision)
 
 
 if __name__ == "__main__":

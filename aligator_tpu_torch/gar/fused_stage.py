@@ -183,6 +183,58 @@ def stage(knot: dict, P: Tensor, p: Tensor, mudyn: Tensor,
     return {k: v[:, 0] for k, v in out.items()}
 
 
+def stage_backward_errors(kn: LQRKnots, P: Tensor, p: Tensor, mudyn: Tensor,
+                          mueq: Tensor, out: dict) -> dict:
+    """The normwise backward errors of the two solves of each stage of a
+    sweep's result ``out`` (:func:`sweep` or :func:`sweep_plain` on these
+    arguments), in float64: ``{"schur": (B, N), "kkt": (B, N)}``.
+
+    Stage t is fed the value function the same sweep carried into it
+    (``out["Pmat"/"pvec"]`` at t + 1, ``P``/``p`` at the last stage). Its
+    Schur solve W = I + μ_dyn P against Y = [P | p + P f] is read through
+    the gains it feeds, [L | lff] = W⁻¹ Y [[A + B K, B kff], [0, 1]]; its
+    reduced KKT solve Ŵ = R̂ + DᵀD/μ_eq against −[r̂ + Dᵀd/μ_eq | Ŝᵀ +
+    DᵀC/μ_eq] through [kff | K], with R̂, Ŝ, r̂ formed from the exact Schur
+    solution. Each is max|M X − Y| / (max|M| max|X| + max|Y|), the Schur
+    one with max|Y| max|[[A + B K, B kff], [0, 1]]| in place of max|Y|
+    (the rounding of the product that forms L from W⁻¹ Y)."""
+    N, nx = kn.horizon, P.shape[-1]
+
+    def d(t):
+        return t.double()
+
+    Q, S, R, q, r, A, Bm, f, C, D, dv = (d(getattr(kn, k)[:, :N]) for k in STAGE_FIELDS)
+    Pn = torch.cat([d(out["Pmat"][:, 1:N]), d(P)[:, None]], 1)
+    pn = torch.cat([d(out["pvec"][:, 1:N]), d(p)[:, None]], 1)
+    md = d(mudyn).expand(P.shape[0])[:, None, None, None]
+    me = d(mueq).expand(P.shape[0])[:, None, None, None]
+    eye = torch.eye(nx, dtype=torch.float64, device=P.device)
+
+    def nrm(t):
+        return t.abs().flatten(-2).amax(-1)
+
+    def eta(M, X, Y, y_scale):
+        return nrm(M @ X - Y) / (nrm(M) * nrm(X) + y_scale)
+
+    Ws = eye + md * Pn
+    Y = torch.cat([Pn, (pn + mv(Pn, f))[..., None]], -1)
+    sol = chol_solve(Ws, Y)
+    Vxx, vx = sol[..., :nx], sol[..., nx]
+    K, kff = d(out["K"][:, :N]), d(out["kff"][:, :N])
+    U = torch.cat([kff[..., None], K], -1)
+    W = R + Bm.mT @ Vxx @ Bm + (D.mT @ D) / me
+    rhs = torch.cat([(r + mv(Bm.mT, vx) + mv(D.mT, dv) / me[..., 0])[..., None],
+                     S.mT + Bm.mT @ Vxx @ A + (D.mT @ C) / me], -1)
+    closed = torch.zeros(U.shape[:2] + (nx + 1, nx + 1), dtype=torch.float64,
+                         device=P.device)
+    closed[..., :nx, :nx] = A + Bm @ K
+    closed[..., :nx, nx] = mv(Bm, kff)
+    closed[..., nx, nx] = 1.0
+    Lm = torch.cat([d(out["L"][:, :N]), d(out["lff"][:, :N])[..., None]], -1)
+    return {"schur": eta(Ws, Lm, Y @ closed, nrm(Y) * nrm(closed)),
+            "kkt": eta(W, U, -rhs, nrm(rhs))}
+
+
 def kernel_info(kernel: str, dtype, Bsz: int, T: int, nx: int, nu: int,
                 nc: int, device="cuda") -> dict:
     """How a launch of ``kernel`` ("sweep": K3, "forward": K4) at these

@@ -151,12 +151,22 @@ def batch_param(mu, problem: LQRProblem) -> Tensor:
 
 def random_convex_problem(rng: np.random.Generator, B: int, N: int, nx: int,
                           nu: int, nc: int, general_E: bool = False,
-                          dtype=torch.float64, device="cuda") -> LQRProblem:
+                          dtype=torch.float64, device="cuda",
+                          null_controls: int = 0) -> LQRProblem:
     """B random well-posed LQ problems with jointly convex stage costs (test
     utility): each ``[[Q, S], [S', R]]`` is one Wishart draw plus 0.1·I on R,
     the law of ``aligator_tpu.gar.random_convex_problem`` drawn with a numpy
     generator. ``E = -I``, or ``-I + 0.1·noise`` with ``general_E``; the
-    terminal knot has ``R = I`` and zero ``S, r, D`` and dynamics."""
+    terminal knot has ``R = I`` and zero ``S, r, D`` and dynamics. With
+    ``null_controls = k`` k columns of B and D, spread evenly over the
+    controls, are zero: k controls that neither the dynamics nor the
+    constraints see, so that the reduced KKT matrix R̂ + DᵀD/μ has k
+    eigenvalues of order R's beside ones of order 1/μ, nearly singular at
+    small μ. The controls are then put in a random orthogonal basis of each
+    knot (B, D, S ← ·U, R ← UᵀRU, r ← Uᵀr; drawn after every other draw), so
+    that those directions mix into every block of pivots rather than lie
+    along coordinate axes, where a diagonal scaling would hide them from the
+    elimination."""
     T, n = N + 1, nx + nu
     root = rng.standard_normal((B, T, n, n + 2))
     joint = root @ root.swapaxes(-1, -2) / (n + 2)
@@ -174,9 +184,23 @@ def random_convex_problem(rng: np.random.Generator, B: int, N: int, nx: int,
     )
     if general_E:
         a["E"] += 0.1 * rng.standard_normal((B, T, nx, nx))
+    if null_controls:
+        idx = np.round(np.linspace(0, nu - 1, null_controls)).astype(int)
+        a["B"][..., idx] = 0.0
+        a["D"][..., idx] = 0.0
     a["R"][:, N] = np.eye(nu)
     for k in ("S", "r", "D", "A", "B", "E", "f"):
         a[k][:, N] = 0.0
+    g0 = rng.standard_normal((B, nx))
+    if null_controls:
+        # the controls in a random orthogonal basis of each knot (u = U v)
+        U = np.linalg.qr(rng.standard_normal((B, T, nu, nu)))[0]
+        Ut = U.swapaxes(-1, -2)
+        for k in ("B", "D", "S"):
+            a[k] = a[k] @ U
+        a["R"] = Ut @ a["R"] @ U
+        a["R"] = 0.5 * (a["R"] + a["R"].swapaxes(-1, -2))
+        a["r"] = (Ut @ a["r"][..., None])[..., 0]
     dev = resolve(device)
 
     def t(x):
@@ -184,7 +208,7 @@ def random_convex_problem(rng: np.random.Generator, B: int, N: int, nx: int,
 
     knots = LQRKnots(**{k: t(v) for k, v in a.items()})
     G0 = t(np.zeros((B, nx, nx)) + np.eye(nx))
-    return LQRProblem(knots=knots, G0=G0, g0=t(rng.standard_normal((B, nx))))
+    return LQRProblem(knots=knots, G0=G0, g0=t(g0))
 
 
 def _num_rows(problem: LQRProblem) -> int:

@@ -8,10 +8,9 @@ n)`` and ``R (..., n, r)``:
 * CPU tensors take :func:`spd_solve_plain` (torch Cholesky);
 * CUDA tensors take the kernel of ``csrc/spd_solve.cu`` (one thread block
   per system and group of at most 128 right-hand sides), for ``n <= MAX_N``
-  and any ``r`` in float32 or float64; anything else raises. In float64
-  the kernel refines its solution once within the launch: its block
-  Gauss-Jordan elimination alone lost up to ~1e-6 relative on nearly
-  singular systems (the Delassus matrix of redundant contacts).
+  and any ``r`` in float32 or float64; anything else raises. The kernel
+  eliminates by block Cholesky, backward stable on nearly singular systems
+  (the Delassus matrix of redundant contacts) as a Cholesky solve is.
 
 A system whose factorization fails (A not positive definite) gives NaN in
 its own solution only. The callers are the Schur and reduced-KKT solves of

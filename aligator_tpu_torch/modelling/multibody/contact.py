@@ -366,8 +366,10 @@ class MultibodyConstraintFwdDynamics(ODE):
 class _ContactForceBase(StageFunction):
     """The contact force of contact ``contact_id`` (world contacts, kd = 0,
     as the JAX package's ``_contact_force``), recovered from the
-    constrained-dynamics KKT solve; the Jacobians are the generic
-    forward-mode ones of :class:`~...core.functions.StageFunction`."""
+    constrained-dynamics KKT solve. ``active`` is ``(ncont,)``, or ``(N,
+    ncont)`` for a schedule that varies over the N stages; the Jacobians are
+    forward-mode ones that keep the ``(B, N, ·)`` lead of the inputs, so that
+    such a schedule meets its stages."""
 
     def _force(self, x, u):
         nq = self.model.nq
@@ -378,6 +380,21 @@ class _ContactForceBase(StageFunction):
             self.contact_frames, active, prox_mu=self.prox_mu, contact_dims=dims)
         off = contact_offsets(dims)[self.contact_id]
         return forces[..., off:off + dims[self.contact_id]]
+
+    def jacobians(self, space, x, u):
+        # one tangent z = (dx, du) shared by every sample: each sample's
+        # force depends on its own copy only, so the Jacobian of the batch
+        # is each sample's, and the inputs keep their (B, N, ·) lead
+        lead = torch.broadcast_shapes(x.shape[:-1], u.shape[:-1])
+        x, u = x.expand(lead + x.shape[-1:]), u.expand(lead + u.shape[-1:])
+        ndx, nu = space.ndx, u.shape[-1]
+
+        def f(z):
+            dx, du = z[:ndx].expand(lead + (ndx,)), z[ndx:].expand(lead + (nu,))
+            return self.value(space, space.integrate(x, dx), u + du)
+
+        J = torch.func.jacfwd(f)(x.new_zeros(ndx + nu))
+        return J[..., :ndx], J[..., ndx:]
 
 
 @dataclass

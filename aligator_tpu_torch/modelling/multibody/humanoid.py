@@ -7,7 +7,8 @@ Joint order: free-flyer pelvis, left leg (hip yaw z, hip roll x, hip pitch
 y, knee y, ankle pitch y, ankle roll x), right leg (same), torso (yaw z,
 pitch y), left arm (shoulder pitch y, shoulder roll x, shoulder yaw z,
 elbow y), right arm (same). Operational frames: left_sole / right_sole
-(flat feet), left_gripper / right_gripper.
+(flat feet), left_gripper / right_gripper. :func:`make_humanoid_upper_body`
+is its fixed-base upper body (torso and both arms, nv = 10).
 """
 
 from __future__ import annotations
@@ -82,6 +83,49 @@ def make_humanoid(pelvis_mass=15.0, hip_y_off=0.085, thigh_len=0.38,
                            placement_p=(0.0, 0.0, -forearm_len)))
 
     return make_model(joints, frames, dtype=dtype, device=device)
+
+
+def make_humanoid_upper_body(torso_height=0.2, shoulder_y_off=0.1575,
+                             shoulder_height=0.157, upper_arm_len=0.27,
+                             forearm_len=0.25, dtype=torch.float64,
+                             device="cuda") -> RobotModel:
+    """Fixed-base upper body: torso (yaw, pitch) and two 4-dof arms (nv =
+    10, fully actuated), the arms of :func:`make_humanoid` with the pelvis
+    welded to the world; frames left_gripper / right_gripper (float64, on
+    the card unless ``device="cpu"`` is asked for)."""
+    device = resolve(device)
+    zero = (0.0, 0.0, 0.0)
+    joints = [dict(type=REVOLUTE, parent=-1, axis=Z, placement_p=(0.0, 0.0, torso_height),
+                   mass=3.0, com=zero, inertia=_box_inertia(3.0, 0.15, 0.2, 0.1))]
+    frames = []
+
+    def add(parent, axis, placement, mass, com, inertia):
+        joints.append(dict(type=REVOLUTE, parent=parent, axis=axis,
+                           placement_p=placement, mass=mass, com=com,
+                           inertia=inertia))
+        return len(joints) - 1
+
+    torso_pitch = add(0, Y, zero, 17.0, (0.0, 0.0, 0.15),
+                      _box_inertia(17.0, 0.25, 0.3, 0.35))
+    for side, sy in (("left", +1.0), ("right", -1.0)):
+        sh_pitch = add(torso_pitch, Y, (0.0, sy * shoulder_y_off, shoulder_height),
+                       2.0, zero, _box_inertia(2.0, 0.1, 0.1, 0.1))
+        sh_roll = add(sh_pitch, X, zero, 2.2, (0.0, 0.0, -upper_arm_len / 2),
+                      _box_inertia(2.2, 0.08, 0.08, upper_arm_len))
+        sh_yaw = add(sh_roll, Z, (0.0, 0.0, -upper_arm_len), 1.5, zero,
+                     _box_inertia(1.5, 0.07, 0.07, 0.07))
+        elbow = add(sh_yaw, Y, zero, 2.3, (0.0, 0.0, -forearm_len / 2),
+                    _box_inertia(2.3, 0.06, 0.06, forearm_len))
+        frames.append(dict(name=f"{side}_gripper", parent=elbow,
+                           placement_p=(0.0, 0.0, -forearm_len)))
+    return make_model(joints, frames, dtype=dtype, device=device)
+
+
+def upper_body_effort_limits(dtype=torch.float64, device="cuda") -> Tensor:
+    """Torque limits of :func:`make_humanoid_upper_body` (torso, then the
+    two arms), on the card unless ``device="cpu"`` is asked for."""
+    arm = [44.0, 44.0, 30.0, 30.0]
+    return torch.tensor([78.0, 78.0] + arm + arm, dtype=dtype, device=resolve(device))
 
 
 def half_sitting(model: RobotModel, hip_pitch=-0.411, knee=0.859,

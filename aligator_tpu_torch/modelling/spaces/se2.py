@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
-from ...core.manifolds import Manifold
+from ...core.manifolds import Manifold, unit_vector
 
 _EPS = 1e-6
 
@@ -47,7 +47,7 @@ class SO2(Manifold):
     ndx = 1
 
     def neutral(self, dtype=None, device=None):
-        return torch.tensor([1.0, 0.0], dtype=dtype, device=device)
+        return unit_vector(2, 0, dtype, device)
 
     def integrate(self, x, v):
         c, s = x[..., 0:1], x[..., 1:2]
@@ -74,7 +74,7 @@ class SE2(Manifold):
     ndx = 3
 
     def neutral(self, dtype=None, device=None):
-        return torch.tensor([0.0, 0.0, 1.0, 0.0], dtype=dtype, device=device)
+        return unit_vector(4, 2, dtype, device)
 
     def integrate(self, x, v):
         c, s = x[..., 2:3], x[..., 3:4]

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
-from ...core.manifolds import Manifold
+from ...core.manifolds import Manifold, unit_vector
 
 _EPS = 1e-8
 
@@ -210,7 +210,7 @@ class SO3(Manifold):
     ndx = 3
 
     def neutral(self, dtype=None, device=None):
-        return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
+        return unit_vector(4, 3, dtype, device)
 
     def integrate(self, x, v):
         return quat_mul(x, exp3_quat(v))
@@ -232,8 +232,7 @@ class SE3(Manifold):
     ndx = 6
 
     def neutral(self, dtype=None, device=None):
-        return torch.tensor([0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0], dtype=dtype,
-                            device=device)
+        return unit_vector(7, 6, dtype, device)
 
     def integrate(self, x, tangent):
         p0, q0 = x[..., :3], x[..., 3:]

@@ -9,7 +9,8 @@ any failed check raises and the script exits non-zero:
    process per library (K1 one per shape of ``fused_riccati.DOMAIN_SAMPLES``),
    in parallel, with ptxas's registers and spills for each; the two K1
    shapes that take nvcc one to two minutes build in a background thread
-   while the phases run, and are checked after the Talos walk; a worker
+   while the phases run, and are checked after the θ sensitivities
+   (phase 10); a worker
    process (CPU only) meanwhile solves the free-dynamics and contact paths'
    CPU references (phases 11 and 12);
 3. kernels: each kernel (K1 fused Riccati, K2 SPD solve, K3 fused backward
@@ -33,7 +34,11 @@ any failed check raises and the script exits non-zero:
    free-dynamics kernel
    (``csrc/free_fd.cu``, the forward dynamics of ``model.aba``) on every
    robot builder against its plain version and timed at the three paths'
-   shapes;
+   shapes; the stability of K2 in fp32 (condition 1e5, both routes) and of
+   K3 on nearly singular KKT systems in a rotated control basis (fp32 at μ
+   = 1e-4 and 1e-5, fp64 at 1e-8), each held to 10 times the backward
+   error of the plain Cholesky solves (and K3 in fp32 to 10 times the
+   plain sweep's gap to fp64);
 4. the SE(2)-car path: batched ProxDDP (N=50, batch 32768, fp32, the
    ``bench.py`` configuration) on the card, with the plain versions patched
    to raise and the kernels' launch counts read around it, the converged
@@ -52,8 +57,7 @@ any failed check raises and the script exits non-zero:
    CPU in fp64 and checked, and 2 scenarios solved on the card in fp32 step
    by step against the JAX package's fp32 solve of them (a committed
    reference: which Newton steps are rejected, infeasibilities per step);
-7. K1 at the two shapes built in the background, against its plain
-   version (fp64); the parallel-in-time LQ solvers, with the plain
+7. the parallel-in-time LQ solvers, with the plain
    versions patched to raise and launch counts checked against the route:
    (a) the latency of one LQ
    solve (N = 2048, nx = 4, nu = 2, nc = 0, fp32, mu = 1e-3; the
@@ -95,7 +99,8 @@ any failed check raises and the script exits non-zero:
    active box |u| <= 0.12, at 4096 random θ: ``th_grad`` and ``th_hess``
    against the CPU's on the first 512, 4 scenarios against central finite
    differences of converged values, K2's launches in the θ backward, ms a
-   harvest and a breakdown of one;
+   harvest and a breakdown of one; then K1 at the two shapes built in the
+   background, against its plain version (fp64);
 11. the free multibody dynamics (``examples/ur5_reach.py``, N = 40, batch
    1024; ``examples/dual_ffsr_reach.py``, the dual-arm free-floating space
    robot, N = 60, batch 256; ``examples/acrobot.py``, N = 120, batch 1024;
@@ -117,7 +122,8 @@ any failed check raises and the script exits non-zero:
 12. the contact paths (float64, the published options): the UR10 payload
    throw (``examples/ur10_ballistic.py``: the arm and a free-flying payload,
    a 6D grasp as a loop constraint with position references, released at
-   40% of the horizon; N = 80, dt = 0.025, 400 iterations, linear rollout,
+   40% of the horizon; N = 80, dt = 0.025, linear rollout, its 400
+   iterations cut to 320 for the script's time,
    filter line search, from its warm start) at 64 targets, and the Solo
    jump (``examples/solo_jump.py``: 4 point feet under a stance, flight,
    landing schedule, N = 28, 60 iterations, ``rollout='nonlinear'``) at
@@ -125,13 +131,26 @@ any failed check raises and the script exits non-zero:
    launch counts checked against the route (the throw: K2 for the per-stage
    loop, the loop constraint's KKT and its implicit tangents, and the
    trials' dynamics, K4; the jump: K5, K2, K4): solves/s, frac_converged,
-   the iterations, a device-time breakdown of one iteration, the first 4
-   scenarios' converged count held to the JAX package's less one
-   (``tests/data/torch_contact_ref.npz``) and those 4 against the CPU over 4
+   the iterations, a device-time breakdown of one iteration, the first
+   scenarios' converged count (4 throws, 64 jumps) held to the JAX
+   package's less one (``tests/data/torch_contact_ref.npz``) and the first
+   4 of each against the CPU over 4
    iterations as in phase 11; the throw's payload landing error (held to
    1e-3 on the converged first 4) and torque-box violation, the jump's peak
    base height;
-13. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
+13. the UR5 table reach (``examples/ur5_table.py``: the end effector's
+   capsule above a table plane and its sphere clear of a box on the table,
+   N = 30, dt = 0.05, |τ| <= 80, ``ProxDDPConfig(tol=1e-4, mu_init=1e-2,
+   max_iters=100)``, linear rollout) at 1024 perturbed starts, float64,
+   with the plain versions patched to raise and the launch counts checked
+   against the route (K2 twice a stage and K4 once a Newton step, the
+   free-dynamics kernel once a trial and once a derivative evaluation):
+   solves/s, frac_converged, the first 16 scenarios' converged count held
+   to the JAX package's less one (``tests/data/torch_collision_ref.npz``),
+   those 16 against the CPU over 4 iterations as in phase 11, the end
+   effector's lowest height held to the table's on the converged
+   trajectories and the final end-effector error;
+14. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -161,8 +180,8 @@ BATCH = 32768
 NSTEPS = 50
 SEED = 0
 # K1 domain samples whose nvcc runs take minutes (done 77 and 138 s after
-# the build's start, every other library within 17 s, on an H100 machine in
-# PR 9): built in the background, checked after the Talos walk
+# the build's start, every other library within 17 s, on an H100 machine):
+# built in the background, checked after the θ sensitivities
 K1_SLOW_SHAPES = ((8, 8, 16, False), (8, 8, 32, True))
 # max|kernel - plain| / max(1, max|plain|), float32: the plain version's own
 # float32 error against float64 reaches 1e-4 on the multipliers at
@@ -301,15 +320,34 @@ FREE_FD_FP32_TOL = 1e-2
 # iterations, linear rollout, filter line search, from its warm start) at
 # B = 64 targets, the Solo jump (examples/solo_jump.py, stance, flight,
 # landing = 10, 8, 10, 60 iterations, nonlinear rollout) at B = 256 initial
-# states; the first 4 of each against the JAX package's converged count
-# (tests/data/torch_contact_ref.npz, tools/torch_contact_fixture.py) and,
-# over CART_CPU_ITERS iterations, against the CPU as the free paths are
+# states; the first 4 throws and 64 jumps against the JAX package's
+# converged count (the jumps part beyond ~10 iterations: over 16 the count
+# moved by one with 1e-14 changes in K2's solutions;
+# tests/data/torch_contact_ref.npz,
+# tools/torch_contact_fixture.py) and the first 4 of each, over
+# CART_CPU_ITERS iterations, against the CPU as the free paths are
 UR10_BATCH, UR10_NSTEPS, UR10_DT = 64, 80, 0.025
 SOLO_BATCH, SOLO_PHASES = 256, (10, 8, 10)
 CONTACT_REF = "tests/data/torch_contact_ref.npz"
 CONTACT_CPU_SCENARIOS = 4
 UR10_LANDING_TOL = 1e-3  # tests/test_ballistic.py's bound
+# the throw's budget cut 400 -> 320 for the script's time limit (with the
+# UR5 table phase after it); its first 4 are then held to the JAX package's
+# count of those that converged within the cut budget (scenario 0 at 302),
+# less one
+CONTACT_MAX_ITERS = {"ur10": 320}
 CONTACT_PROFILE_ITERS = 1
+# phase 13, the UR5 table reach (examples/ur5_table.py: N = 30, dt = 0.05,
+# |tau| <= 80, the table plane and the box; ProxDDPConfig(tol=1e-4,
+# mu_init=1e-2, max_iters=100), linear rollout) at B = 1024 perturbed starts,
+# float64; the first 16 against the JAX package's converged count
+# (tests/data/torch_collision_ref.npz, tools/torch_collision_fixture.py) and,
+# over CART_CPU_ITERS iterations, against the CPU as the free paths are
+TABLE_BATCH, TABLE_NSTEPS = 1024, 30
+TABLE_REF = "tests/data/torch_collision_ref.npz"
+TABLE_CPU_SCENARIOS = 16
+TABLE_Q0 = (0.0, -1.2, 1.6, 0.0, 0.0, 0.0)  # examples/ur5_table.py's start
+TABLE_PROFILE_ITERS = 2
 INV_DEMOS = (16, 4096)
 INV_STEPS = 100  # cut from 300 (the published fit) for the free-dynamics phase
 INV_TIMED_STEPS = 10
@@ -828,6 +866,7 @@ def k2_phase():
 
     spd_solve_diff_check(sp)
     spd_solve_conditioning_check(sp)
+    fp32_cond = spd_solve_fp32_conditioning_check(sp)
 
     # the kernel line: one stage of the LQR-56 loop, both solves
     pair = [by_shape[f"M={LQR_BATCH} n={n} r=57"] for n in (56, 22)]
@@ -842,7 +881,7 @@ def k2_phase():
         max_abs_err=max(v["max_abs_err"] for v in by_shape.values()),
         ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=bms, bound_by=by,
         library_ms=tot["library_ms"],
-    ), dict(wrapper_call_ms=tot["call_ms"], by_shape=by_shape)
+    ), dict(wrapper_call_ms=tot["call_ms"], by_shape=by_shape, fp32_conditioning=fp32_cond)
 
 
 def spd_solve_conditioning_check(sp):
@@ -850,16 +889,10 @@ def spd_solve_conditioning_check(sp):
     from 1 down to 1e-10, the conditioning of a Delassus matrix of
     redundant contacts at μ = 1e-8), at the Solo's Delassus shape (n = 12,
     r = 42): its backward error max |A X − R| / (max |A| max |X|) beside
-    the plain Cholesky solve's, held to 1e-12 (one elimination without the
-    kernel's refinement step is not backward stable there)."""
-    g = _gen(SEED + 92)
+    the plain Cholesky solve's, held to 1e-12 (block Gauss-Jordan reached
+    ~1e-6 relative in X there, a block LU elimination 4.7e-14)."""
     M, n, r = 4096, 12, 42
-    Q = torch.linalg.qr(torch.randn((M, n, n), generator=g, device="cuda",
-                                    dtype=torch.float64))[0]
-    lam = torch.logspace(0, -10, n, device="cuda", dtype=torch.float64)
-    A = (Q * lam) @ Q.mT
-    A = 0.5 * (A + A.mT)
-    R = torch.randn((M, n, r), generator=g, device="cuda", dtype=torch.float64)
+    A, R = conditioned_spd(M, n, r, 1e-10, SEED + 92)
 
     def backward_err(X):
         res = (A @ X - R).abs().flatten(1).amax(1)
@@ -872,6 +905,121 @@ def spd_solve_conditioning_check(sp):
           f"kernel {e:.2e}, plain (Cholesky) {ep:.2e} (tol 1e-12); forward gap "
           f"{rel_err(X, Xp):.2e}")
     check(e <= 1e-12, f"spd_solve on nearly singular systems: backward error {e}")
+
+
+def conditioned_spd(M, n, r, lam_min, seed):
+    """SPD systems with eigenvalues log-spaced from 1 down to ``lam_min``
+    (condition 1 / lam_min) in random orthogonal bases, and right-hand
+    sides, float64, drawn on the card."""
+    g = _gen(seed)
+    Q = torch.linalg.qr(torch.randn((M, n, n), generator=g, device="cuda",
+                                    dtype=torch.float64))[0]
+    lam = torch.logspace(0, math.log10(lam_min), n, device="cuda", dtype=torch.float64)
+    A = (Q * lam) @ Q.mT
+    R = torch.randn((M, n, r), generator=g, device="cuda", dtype=torch.float64)
+    return 0.5 * (A + A.mT), R
+
+
+def spd_backward_errors(A, X, R):
+    """Per system, in float64: max|A X − R| / (max|A| max|X| + max|R|)."""
+    A, X, R = A.double(), X.double(), R.double()
+
+    def nrm(t):
+        return t.abs().flatten(1).amax(1)
+
+    return nrm(A @ X - R) / (nrm(A) * nrm(X) + nrm(R))
+
+
+# K2 in fp32 on nearly singular systems (condition 1e5): (M, n, r) of the
+# LQR-56 per-stage loop (n = 56 on 4 x 8 register tiles, n = 22 on 4 x 4),
+# the Delassus shape on the register route and the shared-memory route
+K2_FP32_COND_SHAPES = ((256, 56, 57), (256, 22, 57), (4096, 12, 42), (256, 64, 65))
+STABILITY_FACTOR = 10  # the kernels' backward error or gap against the plain version's
+
+
+def spd_solve_fp32_conditioning_check(sp):
+    """K2 in fp32 on systems of condition 1e5 (eigenvalues log-spaced from
+    1 down to 1e-5) at K2_FP32_COND_SHAPES: the largest backward error of
+    its solutions beside the plain Cholesky solve's on the same systems,
+    held to STABILITY_FACTOR times it."""
+    out = {}
+    for i, (M, n, r) in enumerate(K2_FP32_COND_SHAPES):
+        A, R = conditioned_spd(M, n, r, 1e-5, SEED + 94 + i)
+        A, R = A.float(), R.float()
+        X, Xp = sp.spd_solve(A, R), sp.spd_solve_plain(A, R)
+        check(bool(torch.isfinite(X).all()) and bool(torch.isfinite(Xp).all()),
+              f"spd_solve fp32 ({M}, {n}, {r}) at condition 1e5: a failed factorization")
+        e = spd_backward_errors(A, X, R).max().item()
+        ep = spd_backward_errors(A, Xp, R).max().item()
+        print(f"[kernel] spd_solve fp32 M={M} n={n} r={r}, condition 1e5: backward error "
+              f"kernel {e:.2e}, plain (Cholesky) {ep:.2e} (ratio {e / ep:.2f}, tol "
+              f"{STABILITY_FACTOR}x)")
+        out[f"{M}x{n}x{r}"] = dict(kernel=e, plain=ep)
+        check(e <= STABILITY_FACTOR * ep,
+              f"spd_solve fp32 ({M}, {n}, {r}): backward error {e} against {ep}")
+    return out
+
+
+# K3 at small mu: the humanoid shape, 4 of its 12 controls seen by neither
+# the dynamics nor the constraints, the controls in a random orthogonal
+# basis (its reduced KKT matrix has eigenvalues of order 1/mu beside ones of
+# order 1, condition ~4e5 and ~4e6 in fp32, ~4e9 in fp64, the near-null
+# directions mixed into every pivot block; at mu = 1e-6 the fp32 system,
+# condition ~4e7, is past what fp32 factors: the plain Cholesky fails on
+# nearly every scenario. The Schur matrix I + mu P has every eigenvalue >= 1
+# and stays well conditioned)
+K3_COND_CASES = ((torch.float32, 1e-4), (torch.float32, 1e-5), (torch.float64, 1e-8))
+K3_COND_DIMS = (256, 16, 36, 12, 12)  # B, N, nx, nu, nc
+
+
+def k3_conditioning_check(fs):
+    """K3 on nearly singular reduced KKT systems (K3_COND_CASES), mu_dyn =
+    mu_eq = mu: the largest backward errors of each stage's Schur and KKT
+    solves (:func:`fused_stage.stage_backward_errors`) beside the plain
+    sweep's (Cholesky) in the same precision, held to STABILITY_FACTOR
+    times them; in fp32 also the gap of its factors to the fp64 plain
+    sweep beside the fp32 plain sweep's gap, held likewise."""
+    from aligator_tpu_torch.gar import lqr_problem
+
+    B, N, nx, nu, nc = K3_COND_DIMS
+    out = {}
+    for dtype, mu in K3_COND_CASES:
+        kn = lqr_problem.random_convex_problem(
+            np.random.default_rng(SEED + 97), B, N, nx, nu, nc, dtype=dtype,
+            device="cuda", null_controls=4).knots
+        P, p = kn.Q[:, N].contiguous(), kn.q[:, N].contiguous()
+        m = torch.full((B,), mu, dtype=dtype, device="cuda")
+        got = fs.sweep(kn, P, p, m, m)
+        ref = fs.sweep_plain(kn, P, p, m, m)
+        eb = fs.stage_backward_errors(kn, P, p, m, m, got)
+        ebp = fs.stage_backward_errors(kn, P, p, m, m, ref)
+        check(all(bool(torch.isfinite(v).all()) for v in (*got.values(), *ref.values())),
+              f"fused_stage sweep {dtype} mu={mu:g}: non-finite factors")
+        tag = "fp32" if dtype == torch.float32 else "fp64"
+        row = {k: dict(kernel=eb[k].max().item(), plain=ebp[k].max().item())
+               for k in ("schur", "kkt")}
+        line = ", ".join(f"{k} kernel {v['kernel']:.2e} plain {v['plain']:.2e}"
+                         for k, v in row.items())
+        if dtype == torch.float32:
+            ref64 = fs.sweep_plain(kn.map(torch.Tensor.double), P.double(), p.double(),
+                                   m.double(), m.double())
+            row["gap"] = dict(
+                kernel=max(rel_err(got[k].double(), ref64[k]) for k in fs.FACTOR_FIELDS),
+                plain=max(rel_err(ref[k].double(), ref64[k]) for k in fs.FACTOR_FIELDS))
+            line += (f"; gap to the fp64 plain sweep kernel {row['gap']['kernel']:.2e} "
+                     f"plain {row['gap']['plain']:.2e}")
+        else:
+            row["gap"] = dict(kernel=max(rel_err(got[k], ref[k]) for k in fs.FACTOR_FIELDS),
+                              plain=0.0)
+            line += f"; gap to the plain sweep {row['gap']['kernel']:.2e}"
+        print(f"[kernel] fused_stage sweep {tag} mu={mu:g} (B,N,nx,nu,nc)={K3_COND_DIMS}, "
+              f"4 null controls: backward error {line} (tol {STABILITY_FACTOR}x)")
+        out[f"{tag}_mu{mu:g}"] = row
+    for case, row in out.items():
+        for k in ("schur", "kkt") + (("gap",) if case.startswith("fp32") else ()):
+            check(row[k]["kernel"] <= STABILITY_FACTOR * row[k]["plain"],
+                  f"fused_stage sweep {case} {k}: {row[k]}")
+    return out
 
 
 def spd_solve_diff_check(sp):
@@ -948,6 +1096,8 @@ def k3_phase():
         err = max(rel_err(one[k], ref[k][:, N - 1]) for k in fs.FACTOR_FIELDS)
         check(err <= FP64_TOL, f"fused_stage stage fp64 {err}")
 
+    conditioning = k3_conditioning_check(fs)
+
     B, N, nx, nu, nc = HUMANOID_BATCH, MEDIUM_NSTEPS, 36, 12, 12
     kn, P, p, md, me = convex_knots(B, N, nx, nu, nc, torch.float32, SEED + 20)
     got = fs.sweep(kn, P, p, md, me)
@@ -1005,7 +1155,7 @@ def k3_phase():
         source="aligator_tpu_torch/csrc/fused_stage.cu",
         replaces="aligator_tpu/gar/pallas_stage.py:140", max_abs_err=max_abs,
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
-    ), dict(occupancy=info, by_batch=by_batch)
+    ), dict(occupancy=info, by_batch=by_batch, conditioning=conditioning)
 
 
 def random_gains(B, T, nx, nu, nc, dtype, seed):
@@ -2570,12 +2720,14 @@ CPU_REF_FIELDS = ("history", "history_xs", "history_us", "xs", "us", "num_iters"
 
 def free_cpu_refs(conn):
     """Worker process, CPU only: each free path's first FREE_CPU_SCENARIOS
-    scenarios and each contact path's first CONTACT_CPU_SCENARIOS solved for
-    CART_CPU_ITERS iterations with the published options from x0 and from
+    scenarios, each contact path's first CONTACT_CPU_SCENARIOS and the UR5
+    table reach's first TABLE_CPU_SCENARIOS solved for CART_CPU_ITERS
+    iterations with the published options from x0 and from
     x0·(1 ± FREE_SPREAD_EPS); sends ``("ok",
     {case: [fields of each solve as numpy arrays]})`` or ``("error",
     traceback)``."""
     import aligator_tpu_torch as at
+    from aligator_tpu_torch.examples import ur5_table
 
     try:
         torch.set_num_threads(2)
@@ -2585,6 +2737,8 @@ def free_cpu_refs(conn):
                 for case, (create, opts, _) in free_paths().items()]
         jobs += [(case, p["opts"], lambda s, p=p: p["make"]("cpu", CONTACT_CPU_SCENARIOS, s),
                   p["init"]) for case, p in contact_paths().items()]
+        jobs += [("ur5_table", ur5_table.SOLVE_OPTIONS,
+                  lambda s: table_problem("cpu", TABLE_CPU_SCENARIOS, s), None)]
         for case, opts, make, init in jobs:
             cfg = at.solvers.ProxDDPConfig(**{**opts, "max_iters": CART_CPU_ITERS},
                                            record_history=True, record_history_trajs=True)
@@ -2739,9 +2893,10 @@ def contact_paths():
 def contact_phase(cpu_refs):
     """The UR10 payload throw and the Solo jump (:func:`contact_paths`) at
     the published size and options, float64: solves/s, frac_converged, the
-    iterations, launch counts, a profiled iteration, the first 4 scenarios'
-    converged count held to the JAX package's less one and those 4 against
-    the CPU (``cpu_refs``) for CART_CPU_ITERS iterations; the throw's
+    iterations, launch counts, a profiled iteration, the first scenarios'
+    converged count (4 throws, 64 jumps) held to the JAX package's less one
+    and the first 4 against the CPU (``cpu_refs``) for CART_CPU_ITERS
+    iterations; the throw's
     payload landing error (held to UR10_LANDING_TOL on the converged first
     4) and torque-box violation, the jump's peak base height."""
     import aligator_tpu_torch as at
@@ -2754,22 +2909,28 @@ def contact_phase(cpu_refs):
     for case, p in contact_paths().items():
         t_case = time.perf_counter()
         n_ref = CONTACT_CPU_SCENARIOS
+        # the floor's scenarios: the first 4 throws, the first 64 jumps
+        n_jax = len(ref[f"{case}_full_conv"])
         if case == "solo":
-            x0 = p["make"]("cpu", n_ref).x0.numpy()
+            x0 = p["make"]("cpu", n_jax).x0.numpy()
             check(np.array_equal(x0, ref["solo_full_x0s"]),
                   "solo: the initial states are not the JAX reference's")
+        budget = CONTACT_MAX_ITERS.get(case, p["opts"]["max_iters"])
         counts[case], out[case] = nonlinear_run(
-            case, p["make"], at.solvers.ProxDDPConfig(**p["opts"]), p["batch"], p["want"],
+            case, p["make"], at.solvers.ProxDDPConfig(**{**p["opts"], "max_iters": budget}),
+            p["batch"], p["want"],
             n_ref, profile=True, cpu_refs=cpu_refs.get()[case],
             profile_iters=CONTACT_PROFILE_ITERS, init=p["init"], witness=False, keep=True)
         res = out[case].pop("result")
-        jax_n = int(ref[f"{case}_full_conv"].sum())
-        card_n = int(out[case]["conv"][:n_ref].sum())
-        print(f"[{case}] converged on the first {n_ref}: card {card_n}, JAX {jax_n} "
+        jax_n = int((ref[f"{case}_full_conv"]
+                     & (ref[f"{case}_full_num_iters"] <= budget)).sum())
+        card_n = int(out[case]["conv"][:n_jax].sum())
+        print(f"[{case}] converged on the first {n_jax} within {budget} iterations: card "
+              f"{card_n}, JAX {jax_n} "
               f"(floor {jax_n - 1}); JAX's iterations "
               f"{ref[f'{case}_full_num_iters'].tolist()}, the card's "
-              f"{out[case]['num_iters'][:n_ref].tolist()}")
-        check(card_n >= jax_n - 1, f"{case}: {card_n} of {n_ref} converged, JAX {jax_n}")
+              f"{out[case]['num_iters'][:n_jax].tolist()}")
+        check(card_n >= jax_n - 1, f"{case}: {card_n} of {n_jax} converged, JAX {jax_n}")
         conv = out[case]["conv"]
         if case == "ur10":
             targets = torch.tensor(ur10_targets(UR10_BATCH), device="cuda")
@@ -2790,14 +2951,127 @@ def contact_phase(cpu_refs):
         else:
             peak = res.xs[..., 2].amax(1)
             print(f"[solo] base peak height: median {float(peak.median()):.4f} m over the "
-                  f"batch (start {float(res.xs[0, 0, 2]):.4f} m; JAX's first {n_ref} "
+                  f"batch (start {float(res.xs[0, 0, 2]):.4f} m; JAX's first {n_jax} "
                   f"{ref['solo_full_peak'].tolist()}, the card's "
-                  f"{peak[:n_ref].tolist()})")
+                  f"{peak[:n_jax].tolist()})")
             out[case].update(peak_median=float(peak.median()))
         out[case].update(first_converged=card_n, jax_first_converged=jax_n)
         del out[case]["conv"], out[case]["num_iters"], res
         print(f"[{case}] the path's checks and measurements took "
               f"{time.perf_counter() - t_case:.1f} s")
+    return counts, out
+
+
+# ---------------------------------------------------------------- phase 13
+
+
+def table_x0s(batch):
+    """The UR5 table reach's initial states (``tools/torch_collision_fixture.py``'s
+    ``table_x0s``): the elbow-up start + 0.1·N(0, 1) on q, at rest."""
+    rng = np.random.default_rng(SEED + 18)
+    x = np.zeros((batch, 12))
+    x[:, :6] = np.asarray(TABLE_Q0) + 0.1 * rng.standard_normal((batch, 6))
+    return x
+
+
+def table_problem(dev, n, scale=1.0):
+    """The published table reach on ``dev`` with the first ``n`` initial
+    states of the card batch, multiplied by ``scale``."""
+    from aligator_tpu_torch.examples import ur5_table
+
+    prob = ur5_table.create_ur5_table_problem(nsteps=TABLE_NSTEPS, device=dev)
+    x0 = table_x0s(TABLE_BATCH)[:n] * scale
+    return dataclasses.replace(prob, x0=torch.tensor(x0, device=dev))
+
+
+def table_launches(steps, trials, n, iters):
+    """The table reach's launches: K2 twice a stage and K4 once a Newton
+    step (the per-stage loop); the free-dynamics kernel once for all stages
+    of each line-search trial (linear rollout: the dynamics residual), of
+    the warm-up before the trial's CUDA graph is captured and of each
+    derivative evaluation (each iteration and the final refresh)."""
+    return {k: 0 for k in KERNEL_NAMES} | dict(
+        spd_solve=2 * n * steps, fused_stage_forward=steps,
+        free_fd=(trials + 1) + (iters + 1))
+
+
+def table_phase(cpu_refs):
+    """The UR5 table reach at the published size and options, float64, B =
+    TABLE_BATCH: solves/s, frac_converged, the iterations, launch counts, a
+    breakdown of a solve cut to TABLE_PROFILE_ITERS iterations,
+    the first 16 scenarios' converged count held to the JAX package's less
+    one and those 16 against the CPU (``cpu_refs``) for CART_CPU_ITERS
+    iterations; the table and box keep-outs' residuals on the converged
+    trajectories held to the solver's tolerance (and over all, printed),
+    the end effector's lowest height, and the final end-effector error."""
+    import aligator_tpu_torch as at
+    from aligator_tpu_torch.examples import ur5_table
+    from aligator_tpu_torch.modelling.multibody import geometry as geo
+    from aligator_tpu_torch.modelling.multibody import model as rbd
+    from aligator_tpu_torch.modelling.multibody.robots import make_ur5
+
+    ref = np.load(TABLE_REF)
+    n_jax = len(ref["table_full_conv"])
+    check(np.array_equal(table_x0s(TABLE_BATCH)[:n_jax], ref["table_full_x0s"]),
+          "ur5 table: the initial states are not the JAX reference's")
+    cfg = at.solvers.ProxDDPConfig(**ur5_table.SOLVE_OPTIONS)
+    counts, out = nonlinear_run(
+        "ur5_table", lambda dev, n: table_problem(dev, n), cfg, TABLE_BATCH, table_launches,
+        TABLE_CPU_SCENARIOS, profile=True, profile_iters=TABLE_PROFILE_ITERS,
+        cpu_refs=cpu_refs.get()["ur5_table"], keep=True)
+    res = out.pop("result")
+    jax_n = int(ref["table_full_conv"].sum())
+    card_n = int(out["conv"][:n_jax].sum())
+    print(f"[ur5_table] converged on the first {n_jax}: card {card_n}, JAX {jax_n} "
+          f"(floor {jax_n - 1}); JAX's iterations {ref['table_full_num_iters'].tolist()}, "
+          f"the card's {out['num_iters'][:n_jax].tolist()}")
+    check(card_n >= jax_n - 1, f"ur5 table: {card_n} of {n_jax} converged, JAX {jax_n}")
+    model = make_ur5(device="cuda")
+    conv = out["conv"]
+    # the problem's own keep-outs on the stages' states, r <= 0 where kept:
+    # a converged solve keeps each to the tolerance; an unconverged one may
+    # not (the JAX package's solve of scenario 6 dips to 0.134 m in its 100
+    # iterations)
+    ee = model.frame_id("ee")
+    space = model.phase_space()
+    xs, us = res.xs[:, :TABLE_NSTEPS], res.us
+    keep_outs = {
+        "table": geo.FrameHalfspaceResidual(model=model, frame_id=ee,
+                                            **ur5_table.table_leaves(device="cuda")),
+        "box": geo.FrameBoxResidual(model=model, frame_id=ee,
+                                    **ur5_table.box_leaves(device="cuda"))}
+    viol = {k: f.value(space, xs, us)[..., 0].amax(-1).cpu() for k, f in keep_outs.items()}
+    viol_conv = {k: float(v[conv].max()) if bool(conv.any()) else float("nan")
+                 for k, v in viol.items()}
+    heights = ur5_table.ee_heights(model, res.xs).amin(-1).cpu()
+    lowest_all = float(heights.min())
+    jax_dips = int(((ref["table_full_min_height"] < ur5_table.TABLE_HEIGHT)
+                    & ~ref["table_full_conv"]).sum())
+    _, p_f = rbd.frame_placement(model, res.xs[:, -1, :model.nq], ee)
+    err = (p_f - torch.tensor(ur5_table.P_TARGET, dtype=p_f.dtype, device=p_f.device)
+           ).norm(dim=-1).cpu()
+    err_conv = float(err[conv].max()) if bool(conv.any()) else float("nan")
+    print(f"[ur5_table] the keep-outs' largest residual over the converged "
+          f"trajectories: table {viol_conv['table']:.3e}, box {viol_conv['box']:.3e} "
+          f"(tol {cfg.tol:g}); over all: table {float(viol['table'].max()):.3e}, box "
+          f"{float(viol['box'].max()):.3e}")
+    print(f"[ur5_table] the end effector's lowest height: {lowest_all:.5f} m over all, "
+          f"{int((heights < ur5_table.TABLE_HEIGHT).sum())} of {len(heights)} below the "
+          f"table, {int((heights[conv] < ur5_table.TABLE_HEIGHT).sum())} of them converged "
+          f"(median of the minima {float(heights.median()):.5f} m; the table at "
+          f"{ur5_table.TABLE_HEIGHT} m; JAX's first {n_jax} "
+          f"{ref['table_full_min_height'].round(5).tolist()}, {jax_dips} unconverged "
+          f"below it); the final end-effector error: median {float(err.median()):.3e} m, "
+          f"largest {float(err.max()):.3e} m, largest over the converged {err_conv:.3e} m")
+    check(bool(conv.any()) and max(viol_conv.values()) <= cfg.tol,
+          f"ur5 table: a converged trajectory violates a keep-out: {viol_conv}")
+    out.update(first_converged=card_n, jax_first_converged=jax_n,
+               keep_out_residual_conv=viol_conv,
+               keep_out_residual_all={k: float(v.max()) for k, v in viol.items()},
+               lowest_height_all=lowest_all,
+               final_ee_err_median=float(err.median()), final_ee_err_max=float(err.max()),
+               final_ee_err_conv_max=err_conv)
+    del out["conv"], out["num_iters"], res
     return counts, out
 
 
@@ -2834,21 +3108,24 @@ def main():
         se2_counts, result = timed("se2", slice_phase)
         medium_counts, medium = timed("medium", medium_phases)
         talos_counts, talos = timed("talos", talos_phases)
-        timed("K1 slow shapes", lambda: k1_slow_phase(late))
         pit_counts, pit = timed("parallel-in-time", lambda: parallel_in_time_phases(
             medium["humanoid"]["solves_per_sec"], smi))
         cart_counts, cart = timed("cartpole", cartpole_phases)
         inv_counts, inv = timed("inverse-lqr", lambda: inverse_lqr_phase(smi))
         sens_counts, sens = timed("sensitivity", lambda: sensitivity_phase(smi))
+        # late, so that the background builds (one to two minutes of nvcc
+        # each beside the CPU reference worker) have ended
+        timed("K1 slow shapes", lambda: k1_slow_phase(late))
         free_counts, free = timed("free-dynamics", lambda: free_phase(cpu_refs))
         contact_counts, contacts = timed("contact", lambda: contact_phase(cpu_refs))
+        table_counts, table = timed("ur5-table", lambda: table_phase(cpu_refs))
     finally:
         cpu_refs.stop()
         late.thread.join()
     # each kernel's launches: the sum over the paths' counted runs
     runs = [se2_counts, *medium_counts.values(), *talos_counts.values(), *pit_counts,
             *cart_counts.values(), inv_counts, *sens_counts, *free_counts.values(),
-            *contact_counts.values()]
+            *contact_counts.values(), table_counts]
     for k in (k1, k2, k3, k4, k5, k6):
         k["launches"] = sum(c[k["name"]] for c in runs)
     print(json.dumps({"slice": result, "fused_riccati": k1_times,
@@ -2858,7 +3135,8 @@ def main():
                       "cartpole_launches": cart_counts, "inverse_lqr": inv,
                       "sensitivity": sens, "free_dynamics": free,
                       "free_dynamics_launches": free_counts, "contact": contacts,
-                      "contact_launches": contact_counts,
+                      "contact_launches": contact_counts, "ur5_table": table,
+                      "ur5_table_launches": table_counts,
                       "spd_solve": k2_extra, "fused_stage_sweep": k3_extra,
                       "fused_stage_forward": k4_shapes,
                       "fd_rows": k5_extra, "free_fd": k6_extra, "phase_s": phase_s,

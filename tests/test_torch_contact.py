@@ -333,6 +333,36 @@ def test_residuals_match_jax(name):
             _close(g, ref[f"{k}_{n}"], TOL_DERIV, f"{k} {n}")
 
 
+@pytest.mark.parametrize("name", ["quadruped", "humanoid"])
+def test_stage_varying_activity_matches_jax(name):
+    """ContactForceResidual and the friction (3D) or wrench (6D) cone with
+    an ``(N, ncont)`` schedule of two stages that differ, on ``(B, N, ·)``
+    inputs: values and both Jacobians against the JAX package's stacked
+    stages (one row of the schedule a stage), to 1e-9."""
+    tm, frames, dims, _, _ = _model(name)
+    ref = _fixture(f"sched_{name}_")
+    nu = tm.nv - 6
+    Bm = torch.zeros(tm.nv, nu, dtype=torch.float64)
+    Bm[6:] = torch.eye(nu, dtype=torch.float64)
+    common = dict(model=tm, actuation=Bm, active=_t(ref["active"]), contact_frames=frames,
+                  contact_dims=dims, contact_id=1, prox_mu=TOOL.PROX[name])
+    mu = torch.tensor(0.7, dtype=torch.float64)
+    fns = {"force": contact.ContactForceResidual(
+        f_ref=torch.arange(dims[1], dtype=torch.float64), **common)}
+    if dims[1] == 3:
+        fns["cone"] = contact.MultibodyFrictionConeResidual(mu_friction=mu, **common)
+    else:
+        fns["cone"] = contact.MultibodyWrenchConeResidual(
+            mu_friction=mu, half_length=torch.tensor(0.1, dtype=torch.float64),
+            half_width=torch.tensor(0.05, dtype=torch.float64), **common)
+    sp = tm.phase_space()
+    x, u = _t(ref["x"]), _t(ref["u"])
+    for k, fn in fns.items():
+        _close(fn.value(sp, x, u), ref[f"{k}_value"], 1e-9, f"{k} value")
+        for g, n in zip(fn.jacobians(sp, x, u), ("Jx", "Ju")):
+            _close(g, ref[f"{k}_{n}"], 1e-9, f"{k} {n}")
+
+
 # ---------------------------------------------------------------- problems
 
 
@@ -465,10 +495,11 @@ def test_solves_match_jax(case):
 
 @pytest.mark.parametrize("case", ["ur10", "solo"])
 def test_full_size_jax_reference_is_recorded(case):
-    """The chip script's floor: the JAX package's conv on the first 4
-    scenarios at the published size, for the scenarios the tool draws."""
+    """The chip script's floor: the JAX package's conv on the first
+    scenarios at the published size (4 throws, 64 jumps), for the
+    scenarios the tool draws."""
     ref = _fixture(f"{case}_full_")
-    n = TOOL.FULL_SCENARIOS
+    n = TOOL.FULL_SCENARIOS[case]
     if case == "ur10":
         np.testing.assert_array_equal(ref["targets"], TOOL.ur10_targets(n))
         assert (ref["landing_err"][ref["conv"]] < 1e-3).all()

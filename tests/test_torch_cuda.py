@@ -284,6 +284,50 @@ def test_spd_solve_wide_right_hand_sides_at_small_batches(cuda_device, dtype, M,
     assert _rel(X[:M - 1], ref[:M - 1]) <= TOL[dtype]
 
 
+def _backward_errors(A, X, R):
+    """Per system, in float64: max|A X − R| / (max|A| max|X| + max|R|)."""
+    A, X, R = A.double(), X.double(), R.double()
+
+    def nrm(t):
+        return t.abs().flatten(1).amax(1)
+
+    return nrm(A @ X - R) / (nrm(A) * nrm(X) + nrm(R))
+
+
+# K2 in fp32 at condition 1e5: the LQR-56 loop's shapes (4 x 8 and 4 x 4
+# register tiles), the Delassus shape (register route) and the shared-memory
+# route; its backward error within 10x the plain Cholesky solve's
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,n,r", [(256, 56, 57), (256, 22, 57), (4096, 12, 42),
+                                   (256, 64, 65)])
+def test_spd_solve_fp32_is_backward_stable_on_nearly_singular_systems(cuda_device, M, n, r):
+    _check_backward_stable(cuda_device, M, n, r, torch.float32, 5)
+
+
+# K2 in fp64 at condition 1e10 (a Delassus matrix of redundant contacts at
+# mu = 1e-8), which it solves with no refinement step: the Solo's Delassus
+# shape and the FFSR loop's Schur shape
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,n,r", [(4096, 12, 42), (256, 40, 41)])
+def test_spd_solve_fp64_is_backward_stable_on_nearly_singular_systems(cuda_device, M, n, r):
+    _check_backward_stable(cuda_device, M, n, r, torch.float64, 10)
+
+
+def _check_backward_stable(cuda_device, M, n, r, dtype, digits):
+    """Systems with eigenvalues log-spaced from 1 down to 10^-digits in
+    random orthogonal bases: the kernel's backward error within 10x the
+    plain Cholesky solve's."""
+    rng = np.random.default_rng(n + r)
+    Q = np.linalg.qr(rng.standard_normal((M, n, n)))[0]
+    A = (Q * np.logspace(0, -digits, n)) @ Q.swapaxes(-1, -2)
+    A = torch.tensor(0.5 * (A + A.swapaxes(-1, -2)), dtype=dtype, device=cuda_device)
+    R = torch.tensor(rng.standard_normal((M, n, r)), dtype=dtype, device=cuda_device)
+    X, Xp = spd_solve.spd_solve(A, R), spd_solve.spd_solve_plain(A, R)
+    assert torch.isfinite(X).all() and torch.isfinite(Xp).all()
+    e, ep = _backward_errors(A, X, R).max().item(), _backward_errors(A, Xp, R).max().item()
+    assert e <= 10 * ep, (e, ep)
+
+
 def _sweep_inputs(rng, B, N, nx, nu, nc, dtype, device):
     kn = lqr_problem.random_convex_problem(rng, B, N, nx, nu, nc, dtype=dtype,
                                            device=device).knots
@@ -307,6 +351,39 @@ def _sweep_inputs(rng, B, N, nx, nu, nc, dtype, device):
                                   (3, 36, 12, 12, 1025)])
 def test_fused_sweep_matches_plain(cuda_device, dtype, dims):
     _check_sweep(cuda_device, dtype, dims)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,mu", [(torch.float32, 1e-4), (torch.float32, 1e-5),
+                                      (torch.float64, 1e-8)])
+def test_fused_sweep_is_stable_on_nearly_singular_kkt_systems(cuda_device, dtype, mu):
+    """K3 at the humanoid shape with 4 of 12 controls seen by neither the
+    dynamics nor the constraints, the controls in a random orthogonal basis
+    (a reduced KKT matrix of condition ~4e5, 4e6, 4e9 whose near-null
+    directions mix into every pivot block; at mu = 1e-6 in fp32 the plain
+    Cholesky itself fails): each stage's Schur and KKT
+    backward errors within 10x the plain sweep's (Cholesky), and in fp32
+    its gap to the fp64 plain sweep within 10x the fp32 plain sweep's."""
+    B, N, nx, nu, nc = 256, 16, 36, 12, 12
+    kn = lqr_problem.random_convex_problem(np.random.default_rng(5), B, N, nx, nu, nc,
+                                           dtype=dtype, device=cuda_device,
+                                           null_controls=4).knots
+    P, p = kn.Q[:, N].contiguous(), kn.q[:, N].contiguous()
+    m = torch.full((B,), mu, dtype=dtype, device=cuda_device)
+    got = fused_stage.sweep(kn, P, p, m, m)
+    ref = fused_stage.sweep_plain(kn, P, p, m, m)
+    for k in fused_stage.FACTOR_FIELDS:
+        assert torch.isfinite(got[k]).all() and torch.isfinite(ref[k]).all(), k
+    eb = fused_stage.stage_backward_errors(kn, P, p, m, m, got)
+    ebp = fused_stage.stage_backward_errors(kn, P, p, m, m, ref)
+    for k in ("schur", "kkt"):
+        assert eb[k].max() <= 10 * ebp[k].max(), (k, eb[k].max(), ebp[k].max())
+    if dtype == torch.float32:
+        ref64 = fused_stage.sweep_plain(kn.map(torch.Tensor.double), P.double(), p.double(),
+                                        m.double(), m.double())
+        gap = max(_rel(got[k].double(), ref64[k]) for k in fused_stage.FACTOR_FIELDS)
+        gap_p = max(_rel(ref[k].double(), ref64[k]) for k in fused_stage.FACTOR_FIELDS)
+        assert gap <= 10 * gap_p, (gap, gap_p)
 
 
 @pytest.mark.cuda
@@ -1219,3 +1296,114 @@ def test_contact_path_card_matches_cpu(cuda_device, plain_versions_raise, case):
     else:
         want = dict(k2=2 * N * steps + 2 * (iters + 1), k5=iters + 1)
     assert counts == dict(want, k3=0, k4=steps, k1=0)
+
+
+# (module, builder, keyword arguments, N, the coordinates of x0 perturbed
+# and by how much)
+COLLISION_EXAMPLES = {
+    "ur5_table": ("ur5_table", "create_ur5_table_problem", {}, 10, slice(0, 6), 0.1),
+    "ur5_ballistic": ("ur5_ballistic", "create_ballistic_problem", {}, 10, slice(0, 6), 0.1),
+    "panda": ("panda_reach", "create_panda_problem", {}, 10, slice(0, 7), 0.05),
+    "quadrotor": ("quadrotor", "create_quadrotor_problem", {}, 10, slice(0, 3), 0.05),
+    "quadrotor_term": ("quadrotor", "create_quadrotor_problem", dict(term_cstr=True), 10,
+                       slice(0, 3), 0.05),
+    "talos_arms": ("talos_arms", "create_talos_arms_problem", {}, 10, slice(0, 10), 0.05),
+    "ffsr_collision": ("dual_ffsr_reach", "create_ffsr_problem",
+                       dict(with_collision=True, with_self_collision=True), 8,
+                       slice(7, 21), 0.05),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(COLLISION_EXAMPLES))
+def test_collision_example_card_matches_cpu(cuda_device, plain_versions_raise, case):
+    """The examples of the collision and extra residuals (the UR5 table
+    reach, the UR5 throw, the Panda reach past its post, the quadrotor
+    without and with its terminal constraint, the upper-body reach, the
+    FFSR reach with both collision flags) with their published options, 4
+    perturbed scenarios, 4 iterations, on the card against the CPU, as
+    test_free_reach_card_matches_cpu holds the reaches: each output to 1e-9
+    or to 100 times the distance of CPU solves from initial states one ulp
+    away; K2 twice a stage and K4 once a Newton step; the free-dynamics
+    kernel once for all stages of each linear trial (the table's linear
+    rollout) or once a stage of each nonlinear rollout, and once a
+    derivative evaluation; every trial a CUDA-graph replay."""
+    import importlib
+
+    from aligator_tpu_torch.solvers import proxddp
+    from aligator_tpu_torch.solvers.proxddp import TrialGraphWarning
+
+    mod, fn, kw, N, coords, scale = COLLISION_EXAMPLES[case]
+    ex = importlib.import_module(f"aligator_tpu_torch.examples.{mod}")
+    create = getattr(ex, fn)
+    rng = np.random.default_rng(33)
+    x0 = create(nsteps=N, device="cpu", **kw).x0.expand(4, -1).clone()
+    x0[:, coords] += torch.tensor(scale * rng.standard_normal((4, coords.stop - coords.start)))
+    cfg = at.solvers.ProxDDPConfig(**{**ex.SOLVE_OPTIONS, "max_iters": 4})
+
+    def make(dev):
+        return dataclasses.replace(create(nsteps=N, device=dev, **kw), x0=x0.to(dev))
+
+    cpu = at.solvers.solve(make("cpu"), cfg)
+    spread = [at.solvers.solve(dataclasses.replace(make("cpu"), x0=x0 * s), cfg)
+              for s in (1.0 + 1e-15, 1.0 - 1e-15)]
+    plain_versions_raise()
+    before = _launches()
+    fd_before = _build.LAUNCHES["free_fd"]
+    trials_before = proxddp.NONLINEAR_TRIALS + proxddp.LINEAR_TRIALS
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", TrialGraphWarning)
+        gpu = at.solvers.solve(make(cuda_device), cfg)
+    torch.cuda.synchronize()
+    counts = {k: v - before[k] for k, v in _launches().items()}
+    for name in ("num_iters", "conv"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+    for name in ("xs", "us", "lams", "prim_infeas", "dual_infeas"):
+        ref = getattr(cpu, name)
+        scale = max(1.0, ref.abs().max().item())
+        apart = max((getattr(r, name) - ref).abs().max().item() for r in spread) / scale
+        gap = (getattr(gpu, name).cpu() - ref).abs().max().item() / scale
+        assert gap <= max(1e-9, 100 * apart), (name, gap, apart)
+    steps = int(gpu.newton_steps.max())
+    assert steps > 0
+    assert counts == dict(k2=2 * N * steps, k3=0, k4=steps, k1=0, k5=0)
+    trials = proxddp.NONLINEAR_TRIALS + proxddp.LINEAR_TRIALS - trials_before
+    iters = int(gpu.num_iters.max())
+    per_trial = 1 if cfg.rollout == "linear" else N
+    assert _build.LAUNCHES["free_fd"] - fd_before == per_trial * (trials + 1) + iters + 1
+
+
+@pytest.mark.cuda
+def test_convex_distance_is_captured_in_a_cuda_graph(cuda_device):
+    """convex_distance's 24 steps and the residuals on it read nothing back
+    to the host: a CUDA graph captures the hull-against-box residual, and
+    its replay on new states gives the eager values."""
+    from aligator_tpu_torch.modelling.multibody import geometry as geo
+    from aligator_tpu_torch.modelling.multibody import robots
+
+    model = robots.make_ur5(device=cuda_device)
+    rng = np.random.default_rng(3)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float64), device=cuda_device)
+
+    fn = geo.FrameConvexHullObstacleResidual(
+        model=model, local_verts=t(0.05 * rng.standard_normal((6, 3))),
+        obs_center=t([0.4, 0.0, 0.1]), obs_rot=torch.eye(3, dtype=torch.float64,
+                                                          device=cuda_device),
+        obs_half_extents=t([0.1, 0.15, 0.2]), margin=t(0.01), frame_id=model.frame_id("ee"))
+    sp = model.phase_space()
+    x = t(0.5 * rng.standard_normal((64, 12)))
+    u = torch.zeros((64, 6), dtype=torch.float64, device=cuda_device)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn.value(sp, x, u)  # warm-up on a side stream, as capture asks
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn.value(sp, x, u)
+    x.copy_(t(0.5 * rng.standard_normal((64, 12))))
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, fn.value(sp, x, u), rtol=0, atol=1e-12)

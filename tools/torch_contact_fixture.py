@@ -16,14 +16,17 @@ Every reference is the JAX package's, float64 on the CPU, jitted:
   and on the quadruped with a foot listed twice (rank-deficient);
 * ``res_*``: the contact force, friction and wrench cone, centre-of-mass
   and gravity-compensation residuals, values and Jacobians;
+* ``sched_*``: the contact force and cone residuals with an activity that
+  varies over two stages (:func:`sched_refs`);
 * ``prob_<case>_*``: ``compute_derivatives`` of each example's problem
   (``examples/ur10_ballistic.py``, ``solo_jump.py``, ``solo_bend.py``,
   ``biped_walk.py``, cut to a few stages) along a seeded trajectory;
 * ``<case>_*`` for the small solves (UR10 throw N = 10, Solo jump N = 8, 2
   scenarios each, 4 iterations, ``lax.map``ped);
-* ``<case>_full_*`` for ``chip_smoke.py``'s contact phase: the first 4
-  scenarios of its batches at the published size (UR10 N = 80, 400
-  iterations; Solo jump N = 28, 60 iterations), ``lax.map``ped (one
+* ``<case>_full_*`` for ``chip_smoke.py``'s contact phase: the first
+  scenarios of its batches (4 throws, 64 jumps) at the published size
+  (UR10 N = 80, 400 iterations; Solo jump N = 28, 60 iterations),
+  ``lax.map``ped (one
   scenario a solve, as the JAX package's own tests solve the throw; under
   ``vmap`` its solve of the same 4 throws takes other steps and converges
   none in 400 iterations): ``conv``, ``num_iters``, infeasibilities and
@@ -38,8 +41,8 @@ seeds; ``chip_smoke.py`` draws its batches with the same functions.
 ``slow`` test reruns it live.
 
 Run from the repository root (``--only KEY...`` recomputes those groups,
-``kin fdrows rnea res prob small full``, and keeps the rest of the
-archive)::
+``kin fdrows rnea res sched prob small full``, and keeps the rest of the
+archive; ``full_ur10`` and ``full_solo`` are the two halves of ``full``)::
 
     python tools/torch_contact_fixture.py [--only ...] [--out PATH]
 """
@@ -57,7 +60,7 @@ SEED_OFFSET = {"ur10": 15, "solo": 16, "states": 17}
 SMALL = {"ur10": dict(nsteps=10, batch=2, max_iters=4),
          "solo": dict(nsteps=(3, 2, 3), batch=2, max_iters=4)}
 FULL = {"ur10": 80, "solo": (10, 8, 10)}
-FULL_SCENARIOS = 4
+FULL_SCENARIOS = {"ur10": 4, "solo": 64}
 PROB_SIZES = {"ur10": 10, "solo_jump": (3, 2, 3), "solo_bend": 6, "biped": (2, 2)}
 SOLVE_OPTIONS = {
     "ur10": dict(tol=1e-4, dual_tol=1e-3, mu_init=1e-2, max_iters=400, rollout="linear",
@@ -320,6 +323,51 @@ def res_refs():
     return out
 
 
+def sched_refs():
+    """The contact force and the friction (3D) or wrench (6D) cone of
+    contact 1 with a stage-varying activity: two stages, the second with
+    every other contact off, at 3 × 2 states (the JAX package's stacked
+    stages, one row of the schedule a stage)."""
+    jax = _jax()
+    import jax.numpy as jnp
+
+    from aligator_tpu.modelling.multibody import contact as jc
+
+    out = {}
+    for name in ("quadruped", "humanoid"):
+        m, frames, dims, _ = jax_models()[name]
+        s = states(name, m, B=6)
+        nu = m.nv - 6
+        x = np.concatenate([s["q"], s["v"]], -1).reshape(3, 2, -1)
+        u = s["tau"][:, :nu].reshape(3, 2, nu)
+        sched = np.ones((2, len(frames)))
+        sched[1, ::2] = 0.0
+        Bm = jnp.asarray(np.eye(m.nv, nu, -6))
+        sp = m.phase_space()
+        out.update({f"sched_{name}_x": x, f"sched_{name}_u": u, f"sched_{name}_active": sched})
+        for t in range(2):
+            common = dict(model=m, actuation=Bm, active=jnp.asarray(sched[t]),
+                          contact_frames=frames, contact_dims=dims, contact_id=1,
+                          prox_mu=PROX[name])
+            fns = {"force": jc.ContactForceResidual(f_ref=jnp.arange(dims[1], dtype=float),
+                                                    **common)}
+            if dims[1] == 3:
+                fns["cone"] = jc.MultibodyFrictionConeResidual(mu_friction=jnp.asarray(0.7),
+                                                               **common)
+            else:
+                fns["cone"] = jc.MultibodyWrenchConeResidual(
+                    mu_friction=jnp.asarray(0.7), half_length=jnp.asarray(0.1),
+                    half_width=jnp.asarray(0.05), **common)
+            ref = jax.jit(jax.vmap(lambda x, u: {
+                k: (f.value(sp, x, u), *f.jacobians(sp, x, u)) for k, f in fns.items()}))(
+                    x[:, t], u[:, t])
+            for k, vals in ref.items():
+                for field, v in zip(("value", "Jx", "Ju"), vals):
+                    key = f"sched_{name}_{k}_{field}"
+                    out.setdefault(key, np.zeros((3, 2) + v.shape[1:]))[:, t] = np.asarray(v)
+    return out
+
+
 def jax_problem(case, size, target_pos=TARGET_POS):
     """The JAX package's problem of ``case`` (one scenario) at ``size``."""
     _jax()
@@ -451,28 +499,36 @@ def small_refs():
     return out
 
 
-def full_refs():
-    out = {}
-    t = ur10_targets(FULL_SCENARIOS)
+def full_ur10_refs():
+    t = ur10_targets(FULL_SCENARIOS["ur10"])
     res = jax_solve("ur10", FULL["ur10"], targets=t)
     land = np.abs(res["xs"][:, -1, 6:9] - t).max(-1)
-    out.update(ur10_full_targets=t, ur10_full_conv=res["conv"],
-               ur10_full_num_iters=res["num_iters"], ur10_full_landing_err=land,
-               ur10_full_prim_infeas=res["prim_infeas"],
-               ur10_full_dual_infeas=res["dual_infeas"])
-    x0 = solo_x0s(FULL_SCENARIOS, solo_x0(FULL["solo"]))
+    return dict(ur10_full_targets=t, ur10_full_conv=res["conv"],
+                ur10_full_num_iters=res["num_iters"], ur10_full_landing_err=land,
+                ur10_full_prim_infeas=res["prim_infeas"],
+                ur10_full_dual_infeas=res["dual_infeas"])
+
+
+def full_solo_refs():
+    x0 = solo_x0s(FULL_SCENARIOS["solo"], solo_x0(FULL["solo"]))
     res = jax_solve("solo", FULL["solo"], x0s=x0)
-    out.update(solo_full_x0s=x0, solo_full_conv=res["conv"],
-               solo_full_num_iters=res["num_iters"],
-               solo_full_peak=res["xs"][:, :, 2].max(-1))
-    return out
+    return dict(solo_full_x0s=x0, solo_full_conv=res["conv"],
+                solo_full_num_iters=res["num_iters"],
+                solo_full_peak=res["xs"][:, :, 2].max(-1))
+
+
+def full_refs():
+    return {**full_ur10_refs(), **full_solo_refs()}
 
 
 GROUPS = {"kin": kin_refs, "fdrows": fdrows_refs, "rnea": rnea_refs, "res": res_refs,
-          "prob": prob_refs, "small": small_refs, "full": full_refs}
+          "sched": sched_refs,
+          "prob": prob_refs, "small": small_refs, "full": full_refs,
+          "full_ur10": full_ur10_refs, "full_solo": full_solo_refs}
+ALL = ("kin", "fdrows", "rnea", "res", "sched", "prob", "small", "full")
 
 
-def references(groups=tuple(GROUPS)):
+def references(groups=ALL):
     out = {}
     for g in groups:
         out.update(GROUPS[g]())
@@ -489,12 +545,14 @@ def main():
     if args.only and os.path.exists(args.path):
         with np.load(args.path) as f:
             old = {k: f[k] for k in f.files}
-    refs = references(args.only or tuple(GROUPS))
+    refs = references(args.only or ALL)
     np.savez_compressed(args.path, **{**old, **refs})
-    if "ur10_full_conv" in refs:
-        for case in ("ur10", "solo"):
+    for case in ("ur10", "solo"):
+        if f"{case}_full_conv" in refs:
             print(case, "JAX converged", int(refs[f"{case}_full_conv"].sum()), "of",
-                  FULL_SCENARIOS, "iterations", refs[f"{case}_full_num_iters"].tolist())
+                  FULL_SCENARIOS[case], "iterations",
+                  refs[f"{case}_full_num_iters"].tolist())
+    if "ur10_full_landing_err" in refs:
         print("ur10 landing errors", refs["ur10_full_landing_err"].tolist())
     print("wrote", args.path)
 

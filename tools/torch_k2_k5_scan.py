@@ -49,7 +49,7 @@ K2_SPLIT = (r"  const int rs = column_split\(M, n, r\);\n"
 K2_VARIANTS = {
     "no_split": [(K2_SPLIT, "")],
     "tiles4x8": [(K2_SPLIT, ""),
-                 (r"  if \(aligator::gj_tiles<4>\(n, r\) <= kThreads\)\n"
+                 (r"  if \(aligator::reg_tiles<4>\(n, r\) <= kThreads\)\n"
                   r"    return launch_regs<4>\(M, n, r, r, A, R, X, stream\);\n", "")],
     "cap128": [(r"__launch_bounds__\(kThreads\)\nspd_solve_kernel_regs",
                 "__launch_bounds__(kThreads, 2)\nspd_solve_kernel_regs")],
