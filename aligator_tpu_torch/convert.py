@@ -13,6 +13,8 @@ import torch
 
 from ._device import resolve
 from .examples.cartpole import cartpole_problem
+from .examples.centroidal_locomotion import centroidal_problem
+from .examples.continuous_centroidal import continuous_problem
 from .examples.dual_ffsr_reach import ffsr_reach_problem
 from .examples.flexible_double_pendulum import flexible_pendulum_problem
 from .examples.inverse_lqr import lqr_template
@@ -24,6 +26,7 @@ from .examples.pendulum import swing_up_problem
 from .examples.quadrotor import quadrotor_problem
 from .examples.se2_car import se2_problem
 from .examples.solo_jump import legged_problem
+from .examples.solo_kinodynamics import kinodynamics_problem
 from .examples.talos_arms import talos_arms_problem
 from .examples.talos_walk import talos_walk_problem
 from .examples.theta_family import double_integrator_family
@@ -32,6 +35,7 @@ from .examples.ur5_reach import ur5_reach_problem
 from .examples.ur5_table import ur5_table_problem
 from .examples.ur10_ballistic import ur10_ballistic_problem
 from .examples.ur10_midpoint import ur10_midpoint_problem
+from .examples.wheeled_inverted_pendulum import wip_problem
 from .gar.lqr_problem import LQRKnots, LQRProblem
 from .modelling.multibody import model as rbd
 
@@ -371,3 +375,47 @@ def legged_problem_from_numpy(params, nsteps: int, device="cuda"):
         t("active"), t("targets"), t("w_x"), t("w_u"), t("term_target"), t("w_term"),
         t("timestep"), nsteps, tuple(int(f) for f in params["contact_frames"]),
         kd=float(params["kd"]), prox_mu=float(params["prox_mu"]))
+
+
+def wip_problem_from_numpy(params, nsteps: int = 100, device="cuda"):
+    """The wheeled inverted pendulum
+    (:func:`~.examples.wheeled_inverted_pendulum.wip_problem`) from its
+    leaves: ``x0 (B, 4)``, the ODE's ``mass_cart``, ``mass_pole``,
+    ``length``, ``wheel_radius``, ``gravity``, and ``timestep``,
+    ``x_target``, ``w_x``, ``w_u``, ``w_term``, ``u_bound``."""
+    t = _loader(params, device)
+    ode = {k: t(k) for k in ("mass_cart", "mass_pole", "length", "wheel_radius", "gravity")}
+    return wip_problem(t("x0"), ode, t("timestep"), t("x_target"), t("w_x"), t("w_u"),
+                       t("w_term"), t("u_bound"), nsteps)
+
+
+def centroidal_problem_from_numpy(params, device="cuda"):
+    """Centroidal locomotion (:func:`~.examples.centroidal_locomotion.
+    centroidal_problem`) from ``x0 (B, 9)``, the schedule ``active (N,
+    nk)`` and ``points (N, nk, 3)`` (the JAX package's stacked leaves),
+    ``mass``, ``gravity``, ``timestep``, ``com_final``, ``mu``."""
+    t = _loader(params, device)
+    return centroidal_problem(t("x0"), t("active"), t("points"), t("mass"), t("gravity"),
+                              t("timestep"), t("com_final"), t("mu"))
+
+
+def kinodynamics_problem_from_numpy(params, device="cuda"):
+    """The Solo kinodynamics gait (:func:`~.examples.solo_kinodynamics.
+    kinodynamics_problem`) from ``x0 (B, 25)``, the schedule ``active``,
+    ``points``, ``q_ref (T, nj)``, ``q_nom``, ``mass``, ``gravity``,
+    ``timestep``, ``com_final``, ``mu``."""
+    t = _loader(params, device)
+    return kinodynamics_problem(t("x0"), t("active"), t("points"), t("q_ref"), t("q_nom"),
+                                t("mass"), t("gravity"), t("timestep"), t("com_final"),
+                                t("mu"))
+
+
+def continuous_centroidal_problem_from_numpy(params, device="cuda"):
+    """The continuous-centroidal gait (:func:`~.examples.continuous_centroidal.
+    continuous_problem`) from ``x0 (B, 21)``, the schedule ``active``,
+    ``points``, ``w_force (T, nu)``, the gates ``g_first``, ``g_last``,
+    ``mass``, ``gravity``, ``timestep``, ``com_final``, ``mu``."""
+    t = _loader(params, device)
+    return continuous_problem(t("x0"), t("active"), t("points"), t("w_force"), t("g_first"),
+                              t("g_last"), t("mass"), t("gravity"), t("timestep"),
+                              t("com_final"), t("mu"))

@@ -68,6 +68,9 @@ class ConstantCost(Cost):
     """ℓ = c."""
 
     c: Tensor
+    # the leaves that may vary over the stages, with their per-stage ndim
+    # (utils.mpc.cycle_problem rotates them)
+    STAGE_PARAMS = {"c": 0}
 
     def value(self, space, x, u):
         lead = torch.broadcast_shapes(x.shape[:-1], u.shape[:-1])
@@ -94,6 +97,7 @@ class QuadraticCost(Cost):
     q: Tensor
     r: Tensor
     c: Tensor
+    STAGE_PARAMS = {"Q": 2, "R": 2, "N": 2, "q": 1, "r": 1, "c": 0}
 
     @staticmethod
     def create(Q, R, N=None, q=None, r=None, c=0.0):
@@ -138,6 +142,7 @@ class QuadraticResidualCost(Cost):
     residual: StageFunction
     weights: Tensor  # (nr, nr), or (N, nr, nr) varying over the stages
     gauss_newton: bool = True
+    STAGE_PARAMS = {"weights": 2}
 
     def value(self, space, x, u):
         r = self.residual.value(space, x, u)

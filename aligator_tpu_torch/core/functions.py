@@ -65,6 +65,9 @@ class StateErrorResidual(StageFunction):
     """r(x) = x ⊖ target."""
 
     target: Tensor
+    # the leaves that may vary over the stages, with their per-stage ndim
+    # (utils.mpc.cycle_problem rotates them)
+    STAGE_PARAMS = {"target": 1}
 
     def dim(self, space, nu):
         return space.ndx
@@ -180,6 +183,7 @@ class GatedFunction(StageFunction):
 
     func: StageFunction
     gate: Tensor | float = 1.0
+    STAGE_PARAMS = {"gate": 0}
 
     def dim(self, space, nu):
         return self.func.dim(space, nu)

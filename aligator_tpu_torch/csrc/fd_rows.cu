@@ -54,10 +54,17 @@
 // (H100 80GB HBM3, 700 W, tools/torch_k2_k5_scan.py, before the loads went
 // asynchronous and the entries got their lists).
 //
+// An instance whose working set exceeds a block's shared memory (a chain
+// of ~40 dofs or more: the pairs and slots grow as nv^2) takes the same
+// code with the working set in a slice of a global workspace, which the
+// wrapper allocates; it then loads with plain copies. Up to kMaxContacts
+// contacts; nv, nb and nc have no cap.
+//
 // The contact configuration (body, dim 3 or 6 and offset of each contact,
 // kd, kp) is a runtime table, so one build serves every robot. C interface
 // (one function per scalar type): returns -1 for dimensions it does not
-// take, otherwise cudaGetLastError() after the launch.
+// take or a missing workspace, otherwise cudaGetLastError() after the
+// launch.
 
 #include <cuda_runtime.h>
 
@@ -70,9 +77,8 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMinBlocks = 4;  // at most 128 registers a thread
-constexpr int kMaxContacts = 8;
-constexpr int kMaxDim = 64;  // nv, nb and nc
-constexpr size_t kMaxSmem = 232448;
+constexpr int kMaxContacts = 16;
+constexpr size_t kMaxSmem = 232448;  // a block's opt-in shared memory on an H100
 
 struct Table {
   int ncont;
@@ -246,23 +252,29 @@ __device__ void slot_derivs(const S* sm, const int* __restrict__ ix, const Layou
   }
 }
 
-template <typename S>
+// kGlobal: the instance's working set (Layout) in its slice of the global
+// workspace `work` rather than in shared memory
+template <typename S, bool kGlobal>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 fd_rows_kernel(const int nv, const int nb, const int nc, const Table tab,
-               const In<S> in, const int* __restrict__ ix, const Out<S> out) {
+               const In<S> in, const int* __restrict__ ix, const Out<S> out, S* work) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  S* sm = reinterpret_cast<S*>(smem_raw);
   const int ncont = tab.ncont, npair = tab.npair, nslot = tab.nslot;
   const Layout L(nv, nb, nc, ncont, npair, nslot);
   const Index I(nv, nb, tab);
   const size_t m = blockIdx.x;
+  S* sm = kGlobal ? work + m * L.total : reinterpret_cast<S*>(smem_raw);
   const int tid = threadIdx.x, nt = blockDim.x;
   const S kd = static_cast<S>(tab.kd), kp = static_cast<S>(tab.kp);
 
   // ---- 1. the instance's inputs (cp.async: every copy in flight at once)
-#define LOAD(dst, src, n)             \
-  for (int i = tid; i < (n); i += nt) \
-    aligator::cp_async_small<sizeof(S)>(sm + (dst) + i, (src) + m * (n) + i)
+#define LOAD(dst, src, n)                                                      \
+  for (int i = tid; i < (n); i += nt) {                                        \
+    if (kGlobal)                                                               \
+      sm[(dst) + i] = (src)[m * (n) + i];                                      \
+    else                                                                       \
+      aligator::cp_async_small<sizeof(S)>(sm + (dst) + i, (src) + m * (n) + i); \
+  }
   LOAD(L.S_, in.S_, nv * 6);
   LOAD(L.v, in.v, nv);
   LOAD(L.Vpar, in.Vpar, nv * 6);
@@ -469,10 +481,10 @@ fd_rows_kernel(const int nv, const int nb, const int nc, const Table tab,
   }
 }
 
-template <typename S>
-int launch(int K, int nv, int nb, const int* table, const double* gains, const In<S>& in,
-           const int* ix, const Out<S>& out, cudaStream_t stream) {
-  Table tab{};
+// the contact table from the host arrays; false for what the kernel does
+// not take
+bool read_table(int nv, int nb, const int* table, const double* gains, Table& tab, int& nc) {
+  tab = Table{};
   tab.ncont = table[0];
   const int* lens = table + 1 + 2 * kMaxContacts;
   tab.npair = lens[0];
@@ -480,29 +492,53 @@ int launch(int K, int nv, int nb, const int* table, const double* gains, const I
   tab.nrel = lens[2];
   tab.nsp = lens[3];
   tab.neb = lens[4];
-  if (K < 1 || nv < 1 || nv > kMaxDim || nb < 1 || nb > kMaxDim) return -1;
+  if (nv < 1 || nb < 1) return false;
   if (tab.npair < 1 || tab.npair > nv * nv || tab.nslot < 1 || tab.nslot > nb * nv ||
       tab.nrel < 1 || tab.nrel > nv * nv || tab.nsp < 0 || tab.neb < 0)
-    return -1;
-  if (tab.ncont < 1 || tab.ncont > kMaxContacts) return -1;
-  int nc = 0;
+    return false;
+  if (tab.ncont < 1 || tab.ncont > kMaxContacts) return false;
+  nc = 0;
   for (int c = 0; c < tab.ncont; ++c) {
     tab.body[c] = table[1 + c];
     tab.dim[c] = table[1 + kMaxContacts + c];
     tab.off[c] = nc;
-    if (tab.body[c] < 0 || tab.body[c] >= nb) return -1;
-    if (tab.dim[c] != 3 && tab.dim[c] != 6) return -1;
+    if (tab.body[c] < 0 || tab.body[c] >= nb) return false;
+    if (tab.dim[c] != 3 && tab.dim[c] != 6) return false;
     nc += tab.dim[c];
   }
-  if (nc > kMaxDim) return -1;
   tab.kd = gains[0];
   tab.kp = gains[1];
+  return true;
+}
+
+// words of the global workspace an instance: 0 where its working set
+// fits shared memory, -1 for what the kernel does not take
+long long workspace_words(int nv, int nb, const int* table, size_t elem) {
+  Table tab;
+  int nc = 0;
+  const double gains[2] = {0, 0};
+  if (!read_table(nv, nb, table, gains, tab, nc)) return -1;
+  const Layout L(nv, nb, nc, tab.ncont, tab.npair, tab.nslot);
+  return elem * static_cast<size_t>(L.total) > kMaxSmem ? L.total : 0;
+}
+
+template <typename S>
+int launch(int K, int nv, int nb, const int* table, const double* gains, const In<S>& in,
+           const int* ix, const Out<S>& out, S* work, cudaStream_t stream) {
+  Table tab;
+  int nc = 0;
+  if (K < 1 || !read_table(nv, nb, table, gains, tab, nc)) return -1;
   const Layout L(nv, nb, nc, tab.ncont, tab.npair, tab.nslot);
   const size_t smem = sizeof(S) * static_cast<size_t>(L.total);
-  if (smem > kMaxSmem) return -1;
-  const cudaError_t e = aligator::opt_in_shared(fd_rows_kernel<S>, smem);
+  if (smem > kMaxSmem) {
+    if (work == nullptr) return -1;
+    fd_rows_kernel<S, true><<<K, kThreads, 0, stream>>>(nv, nb, nc, tab, in, ix, out, work);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const cudaError_t e = aligator::opt_in_shared(fd_rows_kernel<S, false>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  fd_rows_kernel<S><<<K, kThreads, smem, stream>>>(nv, nb, nc, tab, in, ix, out);
+  fd_rows_kernel<S, false><<<K, kThreads, smem, stream>>>(nv, nb, nc, tab, in, ix, out,
+                                                          nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -511,10 +547,10 @@ int entry(int K, int nv, int nb, const int* table, const double* gains, const S*
           const S* v, const S* Vb, const S* Vpar, const S* Vdof, const S* Ca,
           const S* Capar, const S* Accb, const S* h, const S* y, const S* I6, const S* lam,
           const S* pc, const S* act, const int* ix, S* ra1q, S* ra1v, S* r2q, S* r2v,
-          cudaStream_t stream) {
+          S* work, cudaStream_t stream) {
   const In<S> in{S_, v, Vb, Vpar, Vdof, Ca, Capar, Accb, h, y, I6, lam, pc, act};
   const Out<S> out{ra1q, ra1v, r2q, r2v};
-  return launch<S>(K, nv, nb, table, gains, in, ix, out, stream);
+  return launch<S>(K, nv, nb, table, gains, in, ix, out, work, stream);
 }
 
 }  // namespace
@@ -526,17 +562,22 @@ int entry(int K, int nv, int nb, const int* table, const double* gains, const S*
 // (K,nv,6), Ca (K,nb,6), Capar (K,nv,6), Accb, h, y (K,nb,6), I6
 // (K,nb,6,6), lam (K,nc), pc (K,ncont,3), act (K,ncont); the index lists
 // (int32 on the device, laid out as Index says); the outputs ra1q, ra1v
-// (K,nv,nv), r2q, r2v (K,nc,nv).
+// (K,nv,nv), r2q, r2v (K,nc,nv); the workspace, K times
+// fd_rows_workspace(nv, nb, table, sizeof(S)) words (null where that is 0).
 #define FD_ROWS_ENTRY(NAME, T)                                                       \
   extern "C" int NAME(int K, int nv, int nb, const int* table, const double* gains,  \
                       const T* S_, const T* v, const T* Vb, const T* Vpar,           \
                       const T* Vdof, const T* Ca, const T* Capar, const T* Accb,     \
                       const T* h, const T* y, const T* I6, const T* lam, const T* pc, \
                       const T* act, const int* ix, T* ra1q, T* ra1v, T* r2q, T* r2v, \
-                      cudaStream_t stream) {                                         \
+                      T* work, cudaStream_t stream) {                                \
     return entry<T>(K, nv, nb, table, gains, S_, v, Vb, Vpar, Vdof, Ca, Capar, Accb, \
-                    h, y, I6, lam, pc, act, ix, ra1q, ra1v, r2q, r2v, stream);       \
+                    h, y, I6, lam, pc, act, ix, ra1q, ra1v, r2q, r2v, work, stream); \
   }
+
+extern "C" long long fd_rows_workspace(int nv, int nb, const int* table, int elem) {
+  return workspace_words(nv, nb, table, static_cast<size_t>(elem));
+}
 
 FD_ROWS_ENTRY(fd_rows_f32, float)
 FD_ROWS_ENTRY(fd_rows_f64, double)

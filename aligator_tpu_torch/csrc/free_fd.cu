@@ -39,9 +39,16 @@
 //          com (nj x 3) | inertia (nj x 9) | gravity (3)], R0 the joint
 //         placements' rotations (row major).
 //
-// C interface (one function per scalar type): returns -1 for a model
-// larger than kMaxJ joints or kMaxV dofs, otherwise cudaGetLastError()
-// after the launch.
+// Models of at most kMaxJ joints and kMaxV dofs keep their arrays in the
+// thread (local memory the compiler may hold in registers); a larger model
+// takes the same code with its arrays in a global workspace, a slice of
+// work_words(nj, nv) a scenario, which the wrapper allocates: no cap on
+// joints or dofs, at the cost of the slice's traffic through L1 and L2.
+//
+// C interface (one function per scalar type): free_fd_f32/f64 take the
+// workspace of free_fd_workspace(B, nj, nv) words (null when that is 0),
+// return -1 for an empty batch or a missing workspace, otherwise
+// cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 
@@ -142,13 +149,15 @@ __device__ inline void cross_motion(const S* m1, const S* m2, S* out) {
 
 __device__ inline int joint_nv(int type) { return type == 2 ? 6 : 1; }
 
+// One scenario's forward dynamics with its working arrays at the given
+// pointers: thread-local arrays (the register route) or its slice of the
+// global workspace; M has leading dimension ld.
 template <typename S>
-__global__ void __launch_bounds__(kThreads)
-free_fd_kernel(int B, int nj, int nq, int nv, const int* __restrict__ itab,
-               const S* __restrict__ ftab, const S* __restrict__ q,
-               const S* __restrict__ v, const S* __restrict__ tau, S* __restrict__ acc) {
-  const int sc = blockIdx.x * blockDim.x + threadIdx.x;
-  if (sc >= B) return;
+__device__ __forceinline__ void free_fd_one(
+    const int sc, const int nj, const int nq, const int nv, const int* __restrict__ itab,
+    const S* __restrict__ ftab, const S* __restrict__ q, const S* __restrict__ v,
+    const S* __restrict__ tau, S* __restrict__ acc, S (*Rw)[9], S (*pw)[3], S (*Sax)[6],
+    S (*V)[6], S (*Acc)[6], S (*F)[6], S (*Ic)[36], S* M, const int ld, S* rhs) {
   const int* type = itab;
   const int* parent = itab + nj;
   const int* qidx = itab + 2 * nj;
@@ -162,13 +171,9 @@ free_fd_kernel(int B, int nj, int nq, int nv, const int* __restrict__ itab,
   const S* grav = inertia + 9 * nj;
   const S* qs = q + static_cast<long long>(sc) * nq;
   const S* vs = v + static_cast<long long>(sc) * nv;
-
-  S Rw[kMaxJ][9], pw[kMaxJ][3];    // world poses, positions from `origin`
-  S Sax[kMaxV][6];                 // dof axes at `origin`
-  S V[kMaxJ][6], Acc[kMaxJ][6];    // body velocities, bias accelerations
-  S F[kMaxJ][6];                   // forces, then their subtree sums
-  S Ic[kMaxJ][36];                 // spatial inertias, then composite
-  S M[kMaxV][kMaxV];
+  // Rw, pw: world poses, positions from `origin`; Sax: dof axes at
+  // `origin`; V, Acc: body velocities, bias accelerations; F: forces, then
+  // their subtree sums; Ic: spatial inertias, then composite
   S origin[3] = {0, 0, 0};  // the first joint's world position
 
   for (int i = 0; i < nj; ++i) {
@@ -272,7 +277,6 @@ free_fd_kernel(int B, int nj, int nq, int nv, const int* __restrict__ itab,
     for (int k = 0; k < 36; ++k) Ic[par][k] += Ic[i][k];
   }
   // rhs = tau - b; the mass matrix's entries where joint(k) <= joint(l)
-  S rhs[kMaxV];
   for (int i = 0; i < nj; ++i)
     for (int c = 0; c < joint_nv(type[i]); ++c) {
       const int l = vidx[i] + c;
@@ -291,8 +295,8 @@ free_fd_kernel(int B, int nj, int nq, int nv, const int* __restrict__ itab,
           if (j == i && k > l) continue;
           S t = 0;
           for (int r = 0; r < 6; ++r) t += Sax[k][r] * IS[r];
-          M[k][l] = t;
-          M[l][k] = t;
+          M[k * ld + l] = t;
+          M[l * ld + k] = t;
         }
     }
   // zero the pairs whose joints lie on different branches
@@ -303,57 +307,117 @@ free_fd_kernel(int B, int nj, int nq, int nv, const int* __restrict__ itab,
       if (related) continue;
       for (int ci = 0; ci < joint_nv(type[i]); ++ci)
         for (int cj = 0; cj < joint_nv(type[j]); ++cj) {
-          M[vidx[i] + ci][vidx[j] + cj] = 0;
-          M[vidx[j] + cj][vidx[i] + ci] = 0;
+          M[(vidx[i] + ci) * ld + vidx[j] + cj] = 0;
+          M[(vidx[j] + cj) * ld + vidx[i] + ci] = 0;
         }
     }
   // Cholesky M = L L' in the lower triangle, then L y = rhs, L' a = y
   bool ok = true;
   for (int j = 0; j < nv; ++j) {
-    S d = M[j][j];
-    for (int k = 0; k < j; ++k) d -= M[j][k] * M[j][k];
+    S d = M[j * ld + j];
+    for (int k = 0; k < j; ++k) d -= M[j * ld + k] * M[j * ld + k];
     ok = ok && d > S(0);
     const S l = sqrt(d);
-    M[j][j] = l;
+    M[j * ld + j] = l;
     for (int i = j + 1; i < nv; ++i) {
-      S t = M[i][j];
-      for (int k = 0; k < j; ++k) t -= M[i][k] * M[j][k];
-      M[i][j] = t / l;
+      S t = M[i * ld + j];
+      for (int k = 0; k < j; ++k) t -= M[i * ld + k] * M[j * ld + k];
+      M[i * ld + j] = t / l;
     }
   }
   for (int i = 0; i < nv; ++i) {
     S t = rhs[i];
-    for (int k = 0; k < i; ++k) t -= M[i][k] * rhs[k];
-    rhs[i] = t / M[i][i];
+    for (int k = 0; k < i; ++k) t -= M[i * ld + k] * rhs[k];
+    rhs[i] = t / M[i * ld + i];
   }
   for (int i = nv - 1; i >= 0; --i) {
     S t = rhs[i];
-    for (int k = i + 1; k < nv; ++k) t -= M[k][i] * rhs[k];
-    rhs[i] = t / M[i][i];
+    for (int k = i + 1; k < nv; ++k) t -= M[k * ld + i] * rhs[k];
+    rhs[i] = t / M[i * ld + i];
   }
   S* out = acc + static_cast<long long>(sc) * nv;
   for (int i = 0; i < nv; ++i) out[i] = ok ? rhs[i] : S(NAN);
 }
 
+
+// words of the global workspace a scenario: Rw, pw, V, Acc, F, Ic (nj x
+// 66), Sax (nv x 6), M (nv x nv), rhs (nv)
+__host__ __device__ inline long long work_words(int nj, int nv) {
+  return 66LL * nj + 6LL * nv + static_cast<long long>(nv) * nv + nv;
+}
+
+// the register route: thread-local arrays, models of at most kMaxJ joints
+// and kMaxV dofs
+template <typename S>
+__global__ void __launch_bounds__(kThreads)
+free_fd_kernel(int B, int nj, int nq, int nv, const int* __restrict__ itab,
+               const S* __restrict__ ftab, const S* __restrict__ q,
+               const S* __restrict__ v, const S* __restrict__ tau, S* __restrict__ acc) {
+  const int sc = blockIdx.x * blockDim.x + threadIdx.x;
+  if (sc >= B) return;
+  S Rw[kMaxJ][9], pw[kMaxJ][3], Sax[kMaxV][6], V[kMaxJ][6], Acc[kMaxJ][6], F[kMaxJ][6],
+      Ic[kMaxJ][36], M[kMaxV * kMaxV], rhs[kMaxV];
+  free_fd_one(sc, nj, nq, nv, itab, ftab, q, v, tau, acc, Rw, pw, Sax, V, Acc, F, Ic, M,
+              kMaxV, rhs);
+}
+
+// larger models: the same arrays in a slice of the global workspace, one
+// a scenario
+template <typename S>
+__global__ void __launch_bounds__(kThreads)
+free_fd_kernel_ws(int B, int nj, int nq, int nv, const int* __restrict__ itab,
+                  const S* __restrict__ ftab, const S* __restrict__ q,
+                  const S* __restrict__ v, const S* __restrict__ tau, S* __restrict__ acc,
+                  S* __restrict__ work) {
+  const int sc = blockIdx.x * blockDim.x + threadIdx.x;
+  if (sc >= B) return;
+  S* w = work + sc * work_words(nj, nv);
+  S(*Rw)[9] = reinterpret_cast<S(*)[9]>(w);
+  S(*pw)[3] = reinterpret_cast<S(*)[3]>(w + 9 * nj);
+  S(*V)[6] = reinterpret_cast<S(*)[6]>(w + 12 * nj);
+  S(*Acc)[6] = reinterpret_cast<S(*)[6]>(w + 18 * nj);
+  S(*F)[6] = reinterpret_cast<S(*)[6]>(w + 24 * nj);
+  S(*Ic)[36] = reinterpret_cast<S(*)[36]>(w + 30 * nj);
+  S(*Sax)[6] = reinterpret_cast<S(*)[6]>(w + 66 * nj);
+  S* M = w + 66 * nj + 6 * nv;
+  free_fd_one(sc, nj, nq, nv, itab, ftab, q, v, tau, acc, Rw, pw, Sax, V, Acc, F, Ic, M,
+              nv, M + nv * nv);
+}
+
+bool in_registers(int nj, int nv) { return nj <= kMaxJ && nv <= kMaxV; }
+
 template <typename S>
 int launch(int B, int nj, int nq, int nv, const int* itab, const S* ftab, const S* q,
-           const S* v, const S* tau, S* acc, cudaStream_t stream) {
-  if (nj < 1 || nj > kMaxJ || nv < 1 || nv > kMaxV || B < 1) return -1;
-  free_fd_kernel<S><<<(B + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      B, nj, nq, nv, itab, ftab, q, v, tau, acc);
+           const S* v, const S* tau, S* acc, S* work, cudaStream_t stream) {
+  if (nj < 1 || nv < 1 || B < 1) return -1;
+  const int blocks = (B + kThreads - 1) / kThreads;
+  if (in_registers(nj, nv)) {
+    free_fd_kernel<S><<<blocks, kThreads, 0, stream>>>(B, nj, nq, nv, itab, ftab, q, v,
+                                                        tau, acc);
+  } else {
+    if (work == nullptr) return -1;
+    free_fd_kernel_ws<S><<<blocks, kThreads, 0, stream>>>(B, nj, nq, nv, itab, ftab, q,
+                                                           v, tau, acc, work);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// workspace words of a launch: 0 on the register route
+extern "C" long long free_fd_workspace(int B, int nj, int nv) {
+  return in_registers(nj, nv) ? 0 : static_cast<long long>(B) * work_words(nj, nv);
+}
+
 extern "C" int free_fd_f32(int B, int nj, int nq, int nv, const int* itab,
                            const float* ftab, const float* q, const float* v,
-                           const float* tau, float* acc, cudaStream_t stream) {
-  return launch<float>(B, nj, nq, nv, itab, ftab, q, v, tau, acc, stream);
+                           const float* tau, float* acc, float* work, cudaStream_t stream) {
+  return launch<float>(B, nj, nq, nv, itab, ftab, q, v, tau, acc, work, stream);
 }
 
 extern "C" int free_fd_f64(int B, int nj, int nq, int nv, const int* itab,
                            const double* ftab, const double* q, const double* v,
-                           const double* tau, double* acc, cudaStream_t stream) {
-  return launch<double>(B, nj, nq, nv, itab, ftab, q, v, tau, acc, stream);
+                           const double* tau, double* acc, double* work,
+                           cudaStream_t stream) {
+  return launch<double>(B, nj, nq, nv, itab, ftab, q, v, tau, acc, work, stream);
 }

@@ -34,11 +34,18 @@
 // tools/torch_k2_k5_scan.py); 4 x 8 tiles where 4 x 4 fit measured 1.3 to
 // 1.7x slower, a register cap of 128 or 85 no faster. The pivots of an SPD matrix
 // are the squares of its Cholesky diagonal, so a pivot that is not > 0 (or
-// NaN) fails the system exactly where the Cholesky would. A system whose
-// 4 x 8 tiles outnumber 256 threads (e.g. n = 64, r = 65 or 128) takes the
-// shared-memory route: [W | Y] copied into shared memory (n (n + r) words,
-// opt-in above 48 KB) and eliminated one pivot and one barrier a step
-// (aligator::gauss_jordan, K3's route for its large systems).
+// NaN) fails the system exactly where the Cholesky would.
+//
+// A system whose 4 x 8 tiles outnumber 256 threads (n > 64, or n = 64
+// with r = 65 or 128) takes a memory route: [W | Y] copied into shared
+// memory (n (n + rw) words, opt-in above 48 KB) where it fits the block's
+// opt-in maximum, the column groups rw narrowed until it does (n up to
+// ~165 in fp64, ~235 in fp32), else into a global-memory workspace, one
+// n x (n + rw) slice a block, which the wrapper allocates (its size from
+// spd_solve_workspace). Both eliminate by scalar Cholesky in the symmetric
+// form (cholesky_solve_inplace below): the register route's block
+// Cholesky with 1 x 1 pivot blocks, n forward and n back-substitution
+// steps of one barrier each. Simple rather than fast past n = 64.
 //
 // A block takes at most 128 columns of Y (kMaxR): wider right-hand sides
 // (the contact KKT's r = 3 nv past nv = 42) are split over blocks of equal
@@ -51,14 +58,13 @@
 // Gauss-Jordan with explicit 4 x 4 pivot-block inverses lost ~1e-6
 // relative in float64 on the Solo jump's Delassus matrix (four redundant
 // point feet at mu = 1e-8) and 18x and 138x a Cholesky solve's backward
-// error in float32 at condition 1e5 (see block_linalg.cuh). The
-// shared-memory route eliminates one pivot a step by Gauss-Jordan, with no
-// block inverse, and stays within a few times the Cholesky solve's
-// backward error.
+// error in float32 at condition 1e5 (see block_linalg.cuh). The memory
+// routes are the same symmetric Cholesky, one pivot a step.
 //
-// C interface (one function per scalar type): returns -1 for n out of
-// range (1 <= n <= 64) or an empty system, otherwise cudaGetLastError()
-// after the launch.
+// C interface (one function per scalar type): spd_solve_f32/f64 take a
+// workspace of spd_solve_workspace(M, n, r, sizeof(S)) bytes (null when
+// that is 0) and return -1 for an empty system or a missing workspace,
+// otherwise cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 
@@ -69,7 +75,6 @@
 namespace {
 
 constexpr int kThreads = 256;  // most threads a block
-constexpr int kMaxN = 64;
 constexpr int kMaxR = 128;  // columns of Y a block at most
 
 // [W | Y] in registers, C columns a tile; block (m, s) solves system m for
@@ -100,37 +105,77 @@ spd_solve_kernel_regs(const int n, const int r, const int rs, const S* __restric
       [=](int i, int c, S x) { Xm[i * r + c] = *failed ? nan : x; });
 }
 
-// [W | Y] in shared memory (W mirrored from A's lower triangle),
-// eliminated one pivot a step; block (m, s) solves system m for the
-// columns s rs .. s rs + rs - 1 of Y
+// Solve W X = Y in place on M = [W | Y] (n x (n + r), leading dimension
+// ld; W's upper triangle read, Y's r columns become X) by the whole block:
+// right-looking Cholesky in the symmetric form, step k taking
+// W_ij -= U_ki U_kj (U_kj = W_kj / sqrt(W_kk)) on the upper triangle of
+// the trailing rows and Y_ic -= U_ki (Y_kc / sqrt(W_kk)), which leaves row
+// k as sqrt(W_kk) [U_k | U^{-T} Y]_k; then back substitution on the
+// unscaled rows, Y_i -= W_ik (Y_k / W_kk) for i < k, X_k = Y_k / W_kk at
+// the end; one barrier a step. A pivot not > 0 (or NaN) sets *bad = 1, the
+// condition under which the Cholesky factorization of W fails. M is in
+// shared or global memory: the block's barriers order both.
+template <typename S>
+__device__ void cholesky_solve_inplace(S* M, int n, int r, int ld, int* bad) {
+  const int w = n + r;
+  for (int k = 0; k < n; ++k) {
+    const S d = M[k * ld + k];
+    if (threadIdx.x == 0 && !(d > S(0))) *bad = 1;
+    const S s = S(1) / sqrt(d);
+    const S* Rk = M + k * ld;
+    const int cols = w - k - 1;
+    const int work = (n - k - 1) * cols;
+    for (int e = threadIdx.x; e < work; e += blockDim.x) {
+      const int i = k + 1 + e / cols, j = k + 1 + e % cols;
+      if (j >= i) M[i * ld + j] -= (Rk[i] * s) * (Rk[j] * s);
+    }
+    __syncthreads();
+  }
+  for (int k = n - 1; k > 0; --k) {
+    const S* Yk = M + k * ld + n;
+    const S rd = S(1) / M[k * ld + k];
+    for (int e = threadIdx.x; e < k * r; e += blockDim.x) {
+      const int i = e / r, c = e % r;
+      M[i * ld + n + c] -= M[i * ld + k] * (Yk[c] * rd);
+    }
+    __syncthreads();
+  }
+}
+
+// [W | Y] in shared memory, or in the workspace `work` (a slice of n x (n +
+// rs) a block), W's upper triangle from A's lower triangle; block (m, s)
+// solves system m for the columns s rs .. s rs + rs - 1 of Y
 template <typename S>
 __global__ void __launch_bounds__(kThreads)
-spd_solve_kernel_smem(const int n, const int r, const int rs, const S* __restrict__ A,
-                      const S* __restrict__ R, S* __restrict__ X) {
+spd_solve_kernel_mem(const int n, const int r, const int rs, const S* __restrict__ A,
+                     const S* __restrict__ R, S* __restrict__ X, S* work) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  S* M = reinterpret_cast<S*>(smem_raw);  // n x (n + rs)
   __shared__ int bad;
 
-  const int c0 = blockIdx.y * rs, cols = min(rs, r - c0), w = n + cols;
+  const int c0 = blockIdx.y * rs, cols = min(rs, r - c0), ld = n + rs;
   const size_t m = blockIdx.x;
+  S* M = work == nullptr
+             ? reinterpret_cast<S*>(smem_raw)
+             : work + (m * gridDim.y + blockIdx.y) * static_cast<size_t>(n) * ld;
   const S* Am = A + m * n * n;
   const S* Rm = R + m * n * r + c0;
   S* Xm = X + m * n * r + c0;
   for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
     const int i = e / n, j = e % n;
-    M[i * w + j] = i >= j ? Am[e] : Am[j * n + i];
+    if (j >= i) M[i * ld + j] = Am[j * n + i];
   }
   for (int e = threadIdx.x; e < n * cols; e += blockDim.x)
-    M[(e / cols) * w + n + e % cols] = Rm[(e / cols) * r + e % cols];
+    M[(e / cols) * ld + n + e % cols] = Rm[(e / cols) * r + e % cols];
   if (threadIdx.x == 0) bad = 0;
   __syncthreads();
 
-  aligator::gauss_jordan(M, n, cols, w, &bad);
-  __syncthreads();
+  cholesky_solve_inplace(M, n, cols, ld, &bad);
 
   const S nan = aligator::qnan<S>();
-  for (int e = threadIdx.x; e < n * cols; e += blockDim.x)
-    Xm[(e / cols) * r + e % cols] = bad ? nan : M[(e / cols) * w + n + e % cols];
+  for (int e = threadIdx.x; e < n * cols; e += blockDim.x) {
+    const int i = e / cols, c = e % cols;
+    Xm[i * r + c] = bad ? nan : M[i * ld + n + c] / M[i * ld + i];
+  }
 }
 
 // rs columns of Y a block
@@ -160,35 +205,83 @@ int column_split(int M, int n, int r) {
   return r;
 }
 
-template <typename S>
-int launch(int M, int n, int r, const S* A, const S* R, S* X,
-           cudaStream_t stream) {
-  if (n < 1 || n > kMaxN || r < 1 || M < 1) return -1;
+// the largest dynamic shared memory a block can opt in to, beside the
+// static failure flag
+size_t shared_optin() {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess)
+    return aligator::kDefaultDynamicShared;
+  return static_cast<size_t>(bytes) - 64;
+}
+
+// A launch's route: register tiles of C columns (4 or 8) and rs columns
+// of Y a block, or (C = 0) a memory route of rs columns a block with [W |
+// Y] in shared memory where n (n + rs) words fit it, else in the workspace
+struct Route {
+  int C, rs;
+  bool shared;
+};
+
+Route route(int M, int n, int r, size_t elem) {
   // a block takes at most kMaxR columns of Y: wider right-hand sides are
   // split over the fewest blocks of equal width rw, in the same launch
   const int groups = (r + kMaxR - 1) / kMaxR, rw = (r + groups - 1) / groups;
-  if (aligator::reg_tiles<4>(n, rw) <= kThreads)
-    return launch_regs<4>(M, n, r, rw, A, R, X, stream);
+  if (aligator::reg_tiles<4>(n, rw) <= kThreads) return {4, rw, false};
   const int rs = column_split(M * groups, n, rw);
-  if (rs < rw) return launch_regs<4>(M, n, r, rs, A, R, X, stream);
-  if (aligator::reg_tiles<8>(n, rw) <= kThreads)
-    return launch_regs<8>(M, n, r, rw, A, R, X, stream);
-  const size_t smem = sizeof(S) * static_cast<size_t>(n * (n + rw));
-  const cudaError_t e = aligator::opt_in_shared(spd_solve_kernel_smem<S>, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(M, (r + rw - 1) / rw);
-  spd_solve_kernel_smem<S><<<grid, kThreads, smem, stream>>>(n, r, rw, A, R, X);
+  if (rs < rw) return {4, rs, false};
+  if (aligator::reg_tiles<8>(n, rw) <= kThreads) return {8, rw, false};
+  // the widest groups whose [W | Y] fits shared memory, at most kMaxR
+  const long long fit = static_cast<long long>(shared_optin() / (elem * n)) - n;
+  const int cap = fit >= 1 ? static_cast<int>(fit < kMaxR ? fit : kMaxR) : kMaxR;
+  const int g = (r + cap - 1) / cap;
+  return {0, (r + g - 1) / g, fit >= 1};
+}
+
+// the workspace of a launch in bytes: 0 unless the global-memory route
+// takes it
+size_t workspace_bytes(int M, int n, int r, size_t elem) {
+  if (n < 1 || r < 1 || M < 1) return 0;
+  const Route rt = route(M, n, r, elem);
+  if (rt.C != 0 || rt.shared) return 0;
+  const size_t blocks = static_cast<size_t>(M) * ((r + rt.rs - 1) / rt.rs);
+  return blocks * n * (n + rt.rs) * elem;
+}
+
+template <typename S>
+int launch(int M, int n, int r, const S* A, const S* R, S* X, S* work,
+           cudaStream_t stream) {
+  if (n < 1 || r < 1 || M < 1) return -1;
+  const Route rt = route(M, n, r, sizeof(S));
+  if (rt.C == 4) return launch_regs<4>(M, n, r, rt.rs, A, R, X, stream);
+  if (rt.C == 8) return launch_regs<8>(M, n, r, rt.rs, A, R, X, stream);
+  size_t smem = 0;
+  if (rt.shared) {
+    smem = sizeof(S) * static_cast<size_t>(n) * (n + rt.rs);
+    const cudaError_t e = aligator::opt_in_shared(spd_solve_kernel_mem<S>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    work = nullptr;
+  } else if (work == nullptr) {
+    return -1;
+  }
+  const dim3 grid(M, (r + rt.rs - 1) / rt.rs);
+  spd_solve_kernel_mem<S><<<grid, kThreads, smem, stream>>>(n, r, rt.rs, A, R, X, work);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int spd_solve_f32(int M, int n, int r, const float* A,
-                             const float* R, float* X, cudaStream_t stream) {
-  return launch<float>(M, n, r, A, R, X, stream);
+extern "C" long long spd_solve_workspace(int M, int n, int r, int elem) {
+  return static_cast<long long>(workspace_bytes(M, n, r, static_cast<size_t>(elem)));
 }
 
-extern "C" int spd_solve_f64(int M, int n, int r, const double* A,
-                             const double* R, double* X, cudaStream_t stream) {
-  return launch<double>(M, n, r, A, R, X, stream);
+extern "C" int spd_solve_f32(int M, int n, int r, const float* A, const float* R,
+                             float* X, float* work, cudaStream_t stream) {
+  return launch<float>(M, n, r, A, R, X, work, stream);
+}
+
+extern "C" int spd_solve_f64(int M, int n, int r, const double* A, const double* R,
+                             double* X, double* work, cudaStream_t stream) {
+  return launch<double>(M, n, r, A, R, X, work, stream);
 }

@@ -55,10 +55,11 @@ def feet(model: rbd.RobotModel, n: int = 4) -> tuple:
     return tuple(model.frame_id(f"foot{k}") for k in range(n))
 
 
-def base_actuation(nv: int, dtype=torch.float64, device="cpu") -> Tensor:
+def base_actuation(nv: int, dtype=torch.float64, device="cuda") -> Tensor:
     """(nv, nv − 6): every joint but the free-flyer base actuated."""
-    B = torch.zeros(nv, nv - 6, dtype=dtype, device=device)
-    B[6:] = torch.eye(nv - 6, dtype=dtype, device=device)
+    dev = resolve(device)
+    B = torch.zeros(nv, nv - 6, dtype=dtype, device=dev)
+    B[6:] = torch.eye(nv - 6, dtype=dtype, device=dev)
     return B
 
 

@@ -7,10 +7,13 @@ n)`` and ``R (..., n, r)``:
 
 * CPU tensors take :func:`spd_solve_plain` (torch Cholesky);
 * CUDA tensors take the kernel of ``csrc/spd_solve.cu`` (one thread block
-  per system and group of at most 128 right-hand sides), for ``n <= MAX_N``
-  and any ``r`` in float32 or float64; anything else raises. The kernel
-  eliminates by block Cholesky, backward stable on nearly singular systems
-  (the Delassus matrix of redundant contacts) as a Cholesky solve is.
+  per system and group of at most 128 right-hand sides), for any ``n`` and
+  ``r`` in float32 or float64; anything else raises. The kernel eliminates
+  by block Cholesky with the tiles in registers up to n = 64, past that by
+  scalar Cholesky in shared memory or, where [W | Y] does not fit there, in
+  a global-memory workspace that :func:`launch` allocates; each backward
+  stable on nearly singular systems (the Delassus matrix of redundant
+  contacts) as a Cholesky solve is.
 
 A system whose factorization fails (A not positive definite) gives NaN in
 its own solution only. The callers are the Schur and reduced-KKT solves of
@@ -32,15 +35,17 @@ for all directions. Launches count in ``_build.LAUNCHES["spd_solve"]``.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 from torch import Tensor
 
 from .. import _build
 from .._linalg import chol_solve
 
-# keep in sync with kMaxN, kMaxR in csrc/spd_solve.cu: systems up to n = 64;
-# a block takes up to 128 right-hand sides, a wider R is split over blocks
-MAX_N, MAX_R = 64, 128
+# keep in sync with kMaxR in csrc/spd_solve.cu: a block takes up to 128
+# right-hand sides, a wider R is split over blocks
+MAX_R = 128
 _SOURCE = "spd_solve"
 _C_FUNCS = {torch.float32: "spd_solve_f32", torch.float64: "spd_solve_f64"}
 
@@ -129,8 +134,8 @@ def launch(A: Tensor, R: Tensor) -> Tensor:
             f"spd_solve kernel takes float32/float64 A and R on one device, "
             f"got {A.dtype} on {A.device} and {R.dtype} on {R.device}"
         )
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"spd_solve kernel takes 1 <= n <= {MAX_N}, got n={n}")
+    if n < 1:
+        raise ValueError(f"spd_solve kernel takes n >= 1, got n={n}")
     if (torch.is_grad_enabled() and (A.requires_grad or R.requires_grad)) or \
             torch._C._functorch.is_functorch_wrapped_tensor(A) or \
             torch._C._functorch.is_functorch_wrapped_tensor(R):
@@ -142,7 +147,13 @@ def launch(A: Tensor, R: Tensor) -> Tensor:
         return X
     A = A.contiguous()
     R = R.contiguous()
-    fn = _build.c_function(_SOURCE, _C_FUNCS[A.dtype], 3, 4)
-    _build.run(fn, A.device, M, n, r, A.data_ptr(), R.data_ptr(),
-               X.data_ptr(), kernel="spd_solve")
+    size = _build.load(_SOURCE).spd_solve_workspace
+    size.restype = ctypes.c_longlong
+    size.argtypes = [ctypes.c_int] * 4
+    nbytes = size(M, n, r, A.element_size())
+    # the global-memory route's workspace, a slice of [W | Y] a block
+    work = A.new_empty((nbytes // A.element_size(),)) if nbytes else None
+    fn = _build.c_function(_SOURCE, _C_FUNCS[A.dtype], 3, 5)
+    _build.run(fn, A.device, M, n, r, A.data_ptr(), R.data_ptr(), X.data_ptr(),
+               0 if work is None else work.data_ptr(), kernel="spd_solve")
     return X

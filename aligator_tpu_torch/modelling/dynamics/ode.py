@@ -20,7 +20,7 @@ from torch import Tensor
 
 from ..._linalg import mv
 from ...core.dynamics import ExplicitDynamics, ImplicitDynamics
-from ...core.manifolds import Manifold, TangentBundle
+from ...core.manifolds import Manifold, TangentBundle, VectorSpace
 
 
 class ContinuousDynamics:
@@ -62,6 +62,19 @@ class IntegratorEuler(ExplicitDynamics):
 
     def forward(self, space, x, u):
         return space.integrate(x, self.timestep * self.ode.xdot(space, x, u))
+
+    def jacobians(self, space, x, u, y):
+        """On a vector space, from the ODE's closed-form ``xdot_jacobians``
+        where it has them (the centroidal ODEs, whose stage parameters meet
+        the ``(B, N)`` lead of the inputs): A = I + h ∂ẋ/∂x, B = h ∂ẋ/∂u,
+        E = −I; else the generic forward-mode Jacobians."""
+        jac = getattr(self.ode, "xdot_jacobians", None)
+        if jac is None or not isinstance(space, VectorSpace):
+            return ExplicitDynamics.jacobians(self, space, x, u, y)
+        Jx, Ju = jac(space, x, u)
+        h = self.timestep
+        eye = torch.eye(space.ndx, dtype=x.dtype, device=x.device)
+        return eye + h * Jx, h * Ju, (-eye).expand(Jx.shape)
 
 
 @dataclass

@@ -174,13 +174,17 @@ def cfd_internals(model, q, v, tau, contact_frames, active, prox_mu=1e-8, kp=0.0
     :func:`~...gar.spd_solve.spd_solve_diff` (implicit tangents; K2 on the
     card), as the loop constraints' derivatives need: the JAX package
     measured that the UR10 throw converges with implicit tangents and
-    stalls with autodiff through the Cholesky recursion."""
+    stalls with autodiff through the Cholesky recursion. The kinematics
+    ``kin`` are taken at the first joint (``rbd.kinematics``): the frame
+    positions it holds are relative to ``kin["origin"]``."""
     if contact_dims is None:
         contact_dims = (3,) * len(contact_frames)
     if contact_frames2 is None:
         contact_frames2 = (None,) * len(contact_frames)
     dtype = q.dtype
-    kin = rbd.kinematics(model, q, v)
+    # every spatial quantity at the first joint (rbd.kinematics), the world
+    # position references translated with it
+    kin = rbd.kinematics(model, q, v, at_first_joint=True)
     M = rbd.mass_matrix(model, q, kin=kin)
     free = tau - rbd.rnea(model, q, v, torch.zeros_like(v), kin=kin)
 
@@ -196,9 +200,11 @@ def cfd_internals(model, q, v, tau, contact_frames, active, prox_mu=1e-8, kp=0.0
             gamma = _rel_drift(model, q, v, fid, f2, dim, kin=kin) + kd * vel
         if p_refs is not None:
             # Baumgarte on the position: world target, or relative p₁ − p₂
-            perr = rbd.frame_placement(model, q, fid, kin=kin)[1] - p_refs[..., k, :]
-            if f2 is not None:
-                perr = perr - rbd.frame_placement(model, q, f2, kin=kin)[1]
+            p1 = rbd.frame_placement(model, q, fid, kin=kin)[1]
+            if f2 is None:
+                perr = p1 - (p_refs[..., k, :] - kin["origin"])
+            else:
+                perr = p1 - p_refs[..., k, :] - rbd.frame_placement(model, q, f2, kin=kin)[1]
             if dim == 6:
                 perr = torch.cat([perr, torch.zeros_like(perr)], -1)
             gamma = gamma + kp * perr

@@ -156,7 +156,7 @@ def aba_deriv_pack(model, q: Tensor, v: Tensor, tau: Tensor, fext=None) -> dict:
     nv, nv), ``solve_M`` (X ↦ M⁻¹X for X (..., nv, k)) and ``kin``. The
     inverse-dynamics identity ∂a/∂θ = −M⁻¹ ∂RNEA/∂θ at a = a* gives every
     direction from the RNEA derivative pass."""
-    kin = rbd.kinematics(model, q, v)
+    kin = rbd.kinematics(model, q, v, at_first_joint=True)
     b = rbd.rnea(model, q, v, torch.zeros_like(v), fext, kin=kin)
     L = cholesky(rbd.mass_matrix(model, q, kin=kin))
 

@@ -11,7 +11,9 @@ the primal solution (a*, λ*) of the contact dynamics:
 :func:`fd_rows` routes by device: CPU tensors take :func:`fd_rows_plain`
 (the batched port of ``derivatives._fd_rows_std``, which forms the
 inertia-transport tensor dI₆ explicitly); CUDA tensors take the kernel of
-``csrc/fd_rows.cu`` in float32 or float64, fed by
+``csrc/fd_rows.cu`` in float32 or float64 (up to ``MAX_CONTACTS``
+contacts, any nv; an instance whose working set exceeds shared memory in a
+global workspace allocated here), fed by
 :func:`.derivatives.fd_rows_inputs`, or raise. The contact configuration
 (body, dim and offset of each contact, kd, kp) is a runtime table of the
 kernel, so one build serves every robot; the kernel walks only the nonzeros
@@ -34,7 +36,7 @@ from . import model as rbd
 from .contact import contact_offsets
 from .derivatives import fd_rows_inputs, point_derivative_rows, rnea_tensors
 
-MAX_CONTACTS = 8  # keep in sync with kMaxContacts in csrc/fd_rows.cu
+MAX_CONTACTS = 16  # keep in sync with kMaxContacts in csrc/fd_rows.cu
 _SOURCE = "fd_rows"
 _C_FUNCS = {torch.float32: "fd_rows_f32", torch.float64: "fd_rows_f64"}
 INPUTS = ("S", "v", "Vb", "Vpar", "Vdof", "Ca", "Capar", "Accb", "h", "y", "I6",
@@ -182,9 +184,16 @@ def launch(model, inputs: dict, contact_bodies, contact_dims, kd: float, kp: flo
             ncont, *contact_bodies, *([0] * (MAX_CONTACTS - ncont)),
             *contact_dims, *([0] * (MAX_CONTACTS - ncont)), *lens)
         gains = (ctypes.c_double * 2)(float(kd), float(kp))
+        size = _build.load(_SOURCE).fd_rows_workspace
+        size.restype = ctypes.c_longlong
+        size.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+        words = size(nv, nb, ctypes.addressof(table), S.element_size())
+        # an instance's working set past shared memory: a global slice each
+        work = S.new_empty((K * words,)) if words > 0 else None
         # pointers: the two host tables, the inputs, the index lists, the
-        # outputs, the stream
-        fn = _build.c_function(_SOURCE, _C_FUNCS[dtype], 3, 2 + len(flat) + 1 + 4 + 1)
+        # outputs, the workspace, the stream
+        fn = _build.c_function(_SOURCE, _C_FUNCS[dtype], 3, 2 + len(flat) + 1 + 4 + 2)
         _build.run(fn, dev, K, nv, nb, ctypes.addressof(table), ctypes.addressof(gains),
-                   *(x.data_ptr() for x in flat + [lists] + out), kernel="fd_rows")
+                   *(x.data_ptr() for x in flat + [lists] + out),
+                   0 if work is None else work.data_ptr(), kernel="fd_rows")
     return tuple(o.reshape(lead + o.shape[1:]) for o in out)

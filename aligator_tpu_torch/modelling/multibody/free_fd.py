@@ -6,8 +6,10 @@ version.
 
 * CPU tensors take :func:`free_fd_plain` (:func:`.model.aba`);
 * CUDA tensors take the kernel of ``csrc/free_fd.cu`` (one thread a
-  scenario), for models of at most ``MAX_J`` joints and ``MAX_V`` dofs in
-  float32 or float64; anything else raises.
+  scenario) in float32 or float64, for a model of any size: up to 16
+  joints and 24 dofs with its arrays in the thread, past that in a
+  global-memory workspace that :func:`launch` allocates; anything else
+  raises.
 
 It replaces no Pallas kernel: the JAX package's ``model._aba_impl`` is
 compiled by XLA. The nonlinear rollout calls the forward dynamics once a
@@ -23,6 +25,8 @@ package's ``aba_custom`` custom JVP gives them. Launches count in
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 from torch import Tensor
 
@@ -32,7 +36,6 @@ from . import model as rbd
 from .derivatives import aba_derivatives
 from ..spaces.se3 import quat_to_matrix
 
-MAX_J, MAX_V = 16, 24  # keep in sync with kMaxJ, kMaxV in csrc/free_fd.cu
 _SOURCE = "free_fd"
 _C_FUNCS = {torch.float32: "free_fd_f32", torch.float64: "free_fd_f64"}
 
@@ -159,9 +162,6 @@ def launch(model: rbd.RobotModel, q: Tensor, v: Tensor, tau: Tensor) -> Tensor:
     """Launch the kernel on ``q (..., nq)``, ``v (..., nv)``, ``tau (..., nv)``
     (values only: :func:`free_fd` differentiates)."""
     nj, nq, nv = model.njoints, model.nq, model.nv
-    if not (nj <= MAX_J and nv <= MAX_V):
-        raise ValueError(f"free_fd kernel takes at most {MAX_J} joints and {MAX_V} "
-                         f"dofs, got {nj} and {nv}")
     if q.dtype not in _C_FUNCS or not (q.dtype == v.dtype == tau.dtype):
         raise ValueError(f"free_fd kernel takes float32/float64 q, v, tau of one dtype, "
                          f"got {q.dtype}, {v.dtype}, {tau.dtype}")
@@ -178,8 +178,14 @@ def launch(model: rbd.RobotModel, q: Tensor, v: Tensor, tau: Tensor) -> Tensor:
         return out
     qc, vc, tc = (t.expand(lead + t.shape[-1:]).contiguous() for t in (q, v, tau))
     itab = rbd.tables(model, q)["itab"]
-    fn = _build.c_function(_SOURCE, _C_FUNCS[q.dtype], 4, 7)
+    size = _build.load(_SOURCE).free_fd_workspace
+    size.restype = ctypes.c_longlong
+    size.argtypes = [ctypes.c_int] * 3
+    words = size(B, nj, nv)
+    work = q.new_empty((words,)) if words else None
+    fn = _build.c_function(_SOURCE, _C_FUNCS[q.dtype], 4, 8)
     _build.run(fn, q.device, B, nj, nq, nv, itab.data_ptr(),
                _model_table(model, q).data_ptr(), qc.data_ptr(), vc.data_ptr(),
-               tc.data_ptr(), out.data_ptr(), kernel="free_fd")
+               tc.data_ptr(), out.data_ptr(), 0 if work is None else work.data_ptr(),
+               kernel="free_fd")
     return out

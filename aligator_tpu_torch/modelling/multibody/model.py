@@ -331,20 +331,31 @@ def _local_transforms(model: RobotModel, q: Tensor):
     return R0 @ R_j.expand(lead + (3, 3)), p0 + (R0 @ p_j[..., None])[..., 0]
 
 
-def fk_world(model: RobotModel, q: Tensor):
-    """World pose (R, p) of every joint, composed one tree level at a time."""
+def _fk(model: RobotModel, q: Tensor, at_first_joint: bool = False):
+    """World pose (R, p) of every joint, composed one tree level at a time,
+    and the point the positions are taken from: the world origin (None) or,
+    with ``at_first_joint``, the first joint's world position (..., 3), its
+    placement and, for a free-flyer, its translation (the roots' positions
+    less it, the rest composed from them, as ``csrc/free_fd.cu`` does)."""
     R_loc, p_loc = _local_transforms(model, q)
+    origin = p_loc[..., 0, :] if at_first_joint else None
     R = torch.empty_like(R_loc)
     p = torch.empty_like(p_loc)
     for lvl, (i, par) in enumerate(tables(model, q)["levels"]):
         if lvl == 0:
             R[..., i, :, :] = R_loc[..., i, :, :]
-            p[..., i, :] = p_loc[..., i, :]
+            p[..., i, :] = (p_loc[..., i, :] if origin is None
+                            else p_loc[..., i, :] - origin[..., None, :])
             continue
         Rp = R[..., par, :, :]
         R[..., i, :, :] = Rp @ R_loc[..., i, :, :]
         p[..., i, :] = p[..., par, :] + (Rp @ p_loc[..., i, :, None])[..., 0]
-    return R, p
+    return R, p, origin
+
+
+def fk_world(model: RobotModel, q: Tensor):
+    """World pose (R, p) of every joint, composed one tree level at a time."""
+    return _fk(model, q)[:2]
 
 
 def _world_axes(model: RobotModel, R: Tensor, p: Tensor) -> Tensor:
@@ -363,14 +374,24 @@ def _world_axes(model: RobotModel, R: Tensor, p: Tensor) -> Tensor:
     return torch.cat([w_lin, w_ang], -1)
 
 
-def kinematics(model: RobotModel, q: Tensor, v: Optional[Tensor] = None) -> dict:
+def kinematics(model: RobotModel, q: Tensor, v: Optional[Tensor] = None,
+               at_first_joint: bool = False) -> dict:
     """One-pass kinematic data: 'R' (..., nj, 3, 3), 'p' (..., nj, 3), 'Phi'
-    (..., nv, 6), 'A' (nj, nv) [, 'V' (..., nj, 6) world-origin body
-    velocities and 'v' if ``v`` is given]."""
-    R, p = fk_world(model, q)
+    (..., nv, 6), 'A' (nj, nv) [, 'V' (..., nj, 6) body velocities and 'v'
+    if ``v`` is given], every spatial quantity at the world origin or, with
+    ``at_first_joint``, at the first joint's position 'origin' (..., 3):
+    the positions are then relative to it, so that far from the world
+    origin (a free-flying base at 5e9 m, which an exploding line-search
+    trial reaches) the spatial inertias' m ĉĉ terms do not cancel to
+    garbage. Joint-space results (RNEA, the mass matrix, the LWA
+    Jacobians) are invariant under the shift, gravity being uniform; only
+    their rounding changes."""
+    R, p, origin = _fk(model, q, at_first_joint)
     Phi = _world_axes(model, R, p)
     A = tables(model, q)["A"]
     out = {"R": R, "p": p, "Phi": Phi, "A": A}
+    if origin is not None:
+        out["origin"] = origin
     if v is not None:
         out["V"] = torch.einsum("bk,...k,...ks->...bs", A, v, Phi)
         out["v"] = v
@@ -439,12 +460,14 @@ def nonlinear_effects(model: RobotModel, q: Tensor, v: Tensor) -> Tensor:
 def aba(model: RobotModel, q: Tensor, v: Tensor, tau: Tensor,
         ext_forces: Optional[Tensor] = None) -> Tensor:
     """Forward dynamics q̈ = M(q)⁻¹(τ − b(q, v)), M and b from one
-    kinematics pass, M⁻¹ by a batched Cholesky (the JAX package solves it
-    in XLA too, outside its kernels) and two triangular solves, which a
-    CUDA graph can capture. Differentiable by plain autograd,
+    kinematics pass taken at the first joint (as ``csrc/free_fd.cu``; the
+    JAX package's ``_aba_impl`` works at the world origin, the same
+    function), M⁻¹ by a batched Cholesky (the JAX package solves it in XLA
+    too, outside its kernels) and two triangular solves, which a CUDA graph
+    can capture. Differentiable by plain autograd,
     forward and reverse; the solvers read the analytic
     :func:`.derivatives.aba_derivatives` where they can."""
-    kin = kinematics(model, q, v)
+    kin = kinematics(model, q, v, at_first_joint=True)
     b = rnea(model, q, v, torch.zeros_like(v), ext_forces, kin=kin)
     L = cholesky(mass_matrix(model, q, kin=kin))
     return cholesky_solve_tri(L, (tau - b)[..., None])[..., 0]

@@ -214,3 +214,24 @@ def make_ur10_with_payload(mass=0.5, radius=0.05, height=0.12, dtype=torch.float
                             inertia=_diag(ixx, ixx, izz))]
     frames = frames + [dict(name="mug", parent=len(joints) - 1)]
     return _build(joints, frames, dtype, device)
+
+
+def make_chain(n_revolute: int, free_flyer: bool = False, dtype=torch.float64,
+               device="cuda") -> RobotModel:
+    """A synthetic serial chain of ``n_revolute`` revolute joints (axes
+    cycling x, y, z, links of 8 cm, masses 0.5 + 0.01 i kg), on a fixed or a
+    free-flyer base, with a frame ``f<b>`` at the end of every fourth body
+    b = 3, 7, ...: a model past the kernels' register routes (64 joints and
+    70 dofs with a free-flyer base and 63 links)."""
+    joints = []
+    if free_flyer:
+        joints.append(dict(type=FREEFLYER, parent=-1, mass=5.0, com=(0.0, 0.0, 0.0),
+                           inertia=_diag(0.1, 0.12, 0.08)))
+    axes = ((1.0, 0.0, 0.0), Y_AXIS, Z_AXIS)
+    for i in range(n_revolute):
+        joints.append(dict(type=REVOLUTE, parent=len(joints) - 1, axis=axes[i % 3],
+                           placement_p=(0.0, 0.02, -0.08), mass=0.5 + 0.01 * i,
+                           com=(0.01, 0.0, -0.04), inertia=_diag(2e-3, 3e-3, 1e-3)))
+    frames = [dict(name=f"f{b}", parent=b, placement_p=(0.0, 0.0, -0.08))
+              for b in range(3, len(joints), 4)]
+    return _build(joints, frames, dtype, resolve(device))

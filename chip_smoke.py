@@ -60,10 +60,11 @@ any failed check raises and the script exits non-zero:
 7. the parallel-in-time LQ solvers, with the plain
    versions patched to raise and launch counts checked against the route:
    (a) the latency of one LQ
-   solve (N = 2048, nx = 4, nu = 2, nc = 0, fp32, mu = 1e-3; the
-   ``bench.py:297-310`` protocol) by the serial solve (K1), the associative
-   scan (one refinement step) and 8 parallel legs, at B = 1 and 1024, by the
-   chained method of ``bench_latency.chained_latency``, with each fp32
+   solve (N = 128, 512 and 2048 at B = 1 as ``bench_latency.py:91`` runs
+   them, and N = 2048 at B = 1024; nx = 4, nu = 2, nc = 0, fp32, mu = 1e-3;
+   the ``bench.py:297-310`` protocol) by the serial solve (K1), the
+   associative scan (one refinement step) and 8 parallel legs (at B = 1
+   only), by the chained method of ``bench_latency.chained_latency``, with each fp32
    solution's KKT error in fp64 and its distance to the fp64 CPU serial
    solve; (b) humanoid-dims ProxDDP on ``linear_solver='parallel'`` (4
    legs) at the bench's batch, solves/s beside the serial route's, and 16
@@ -82,10 +83,11 @@ any failed check raises and the script exits non-zero:
    the first 16 scenarios again on the CPU for 4 iterations (the solve's
    path is chaotic: rounding differences part card and CPU after ~6); then
    at batch 64 the implicit midpoint rule (K1 with general E; its horizon
-   cut to N = 20, two Newton steps a stage in the rollout, to convergence,
-   its converged fraction held to a floor likewise, and a breakdown) and
+   cut to N = 20, two Newton steps a stage in the rollout, its budget cut
+   to 120 iterations, its converged fraction held to a floor likewise, and
+   a breakdown) and
    ``hessian_approx='exact'`` (cut to 20 iterations), each with its CPU
-   check; then the float32 run at batch 1024, cut to 40 iterations, whose
+   check; then the float32 run at batch 1024, cut to 20 iterations, whose
    converged fraction within them gates nothing. Every line-search trial
    is a CUDA-graph replay: a trial that falls back to eager execution
    fails the script;
@@ -105,7 +107,7 @@ any failed check raises and the script exits non-zero:
    1024; ``examples/dual_ffsr_reach.py``, the dual-arm free-floating space
    robot, N = 60, batch 256; ``examples/acrobot.py``, N = 120, batch 1024;
    float64, the published options, ``rollout='nonlinear'``, the budgets
-   cut to 50, 60 and 150 iterations for the script's time), with the
+   cut to 50, 50 and 130 iterations for the script's time), with the
    plain versions patched to raise and the launch counts checked against
    the route (K2 twice a stage and K4 once a Newton step on the reaches,
    K1 once a Newton step on the acrobot, the free-dynamics kernel once a
@@ -123,10 +125,11 @@ any failed check raises and the script exits non-zero:
    throw (``examples/ur10_ballistic.py``: the arm and a free-flying payload,
    a 6D grasp as a loop constraint with position references, released at
    40% of the horizon; N = 80, dt = 0.025, linear rollout, its 400
-   iterations cut to 320 for the script's time,
+   iterations cut to 200 for the script's time,
    filter line search, from its warm start) at 64 targets, and the Solo
    jump (``examples/solo_jump.py``: 4 point feet under a stance, flight,
-   landing schedule, N = 28, 60 iterations, ``rollout='nonlinear'``) at
+   landing schedule, N = 28, its 60 iterations cut to 40,
+   ``rollout='nonlinear'``) at
    256 initial states, with the plain versions patched to raise and the
    launch counts checked against the route (the throw: K2 for the per-stage
    loop, the loop constraint's KKT and its implicit tangents, and the
@@ -150,7 +153,30 @@ any failed check raises and the script exits non-zero:
    those 16 against the CPU over 4 iterations as in phase 11, the end
    effector's lowest height held to the table's on the converged
    trajectories and the final end-effector error;
-14. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
+14. receding-horizon MPC (``examples/mpc_se2.py``, ``bench_mpc.py``'s
+   protocol: a cold solve, then 20 chained warm cycles at 2 iterations,
+   float32): the SE(2) car at batch 1 and 4096, humanoid dims at 1 and
+   128, with the plain versions patched to raise and the launches checked
+   against the route (K1; K3 and K4): ms a cycle of one scenario by the
+   delta of 20 and 5 chained cycles, scenario-cycles/s of a batch, the
+   share of cycles primal-feasible at 1e-4, at batch 1 the host syncs,
+   kernels and device-busy share of one cycle, the first 16 scenarios'
+   first 4 cycles against the CPU (counts and flags equal, trajectories
+   within 1e-3);
+15. the centroidal paths (float64, the published options and budgets):
+   the wheeled inverted pendulum (``examples/wheeled_inverted_pendulum.py``,
+   N = 100, RK2, nonlinear rollout) at 1024 initial states, the
+   centroidal gait (N = 90), the Solo kinodynamics (T = 64) and the
+   continuous gait (T = 210) at 256, with the plain versions patched to
+   raise and the launches checked against the route (K1; K2 2N a Newton
+   step; K3 and K4): solves/s, frac_converged, the first 16 scenarios'
+   converged count held to the JAX package's less one
+   (``tests/data/torch_centroidal_ref.npz``), each converged scenario's
+   physical checks (``solution_checks``: the CoM target, forces in the
+   friction cone on active contacts and none on swing ones, the pendulum
+   upright at its goal within its torque bound), the first 2 scenarios
+   against the CPU over 4 iterations as in phase 11;
+16. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -215,7 +241,8 @@ K5_FP32_TOL = 1e-3
 TALOS_T_DS, TALOS_T_SS = 4, 10  # N = 32
 TALOS_BATCHES = (16, 256)
 TALOS_CPU_SCENARIOS = 2
-TALOS_TIMED = 3  # timed batches at each walk batch (5 before PR 9's free-dynamics phase)
+# timed batches at each walk batch (5, then 3 for later phases' time)
+TALOS_TIMED = 2
 # card vs CPU, both float64, max |Δ| over xs and us relative to their scale.
 # In float32 the reduced KKT of a Newton step can come out indefinite (its
 # condition number is above 1/eps of float32), so which step is rejected
@@ -227,6 +254,7 @@ TALOS_FP32_TOL = 1e-4
 
 # parallel-in-time phase (bench.py:297-324, bench_latency.py)
 LAT_N, LAT_DIMS, LAT_MU = 2048, (4, 2, 0), 1e-3
+LAT_NS = (128, 512, LAT_N)  # bench_latency.py:91
 LAT_BATCHES = (1, 1024)
 LAT_LEGS = 8
 LAT_CPU_SCENARIOS = 2
@@ -256,11 +284,16 @@ CART_VARIANT_BATCH = 64  # the implicit midpoint rule and 'exact' Hessians
 CART_MIDPOINT_NSTEPS = 20
 CART_MIDPOINT_NEWTON = 2
 CART_MIDPOINT_MIN_FRAC = 0.9
+# its budget cut 300 -> 120 for the time limit (the MPC and centroidal
+# phases): on the card every scenario that converges does so within 90
+# iterations and one runs to the budget, which set the solve's time
+CART_MIDPOINT_ITERS = 120
 CART_EXACT_ITERS = 20
 # the fp32 run's depth: its converged fraction within these iterations is
 # read beside fp64's within the same (each iteration ~0.3 s, host-bound);
-# cut from 150 to 40 to make room for the free-dynamics phase
-CART_FP32_ITERS = 40
+# cut from 150 to 40 to make room for the free-dynamics phase, then to 20
+# for the MPC and centroidal phases
+CART_FP32_ITERS = 20
 # the depth of the profiled solve (fp64, batch 1024): the profiler's
 # processing of a solve's ~64,000 kernels an iteration takes ~10 s an
 # iteration on an H100 (PERF.md §6)
@@ -285,11 +318,13 @@ FREE_BATCHES = {"ur5": 1024, "ffsr": 256, "acrobot": 1024}
 FREE_REF = "tests/data/torch_free_ref.npz"
 FREE_NSTEPS = {"ur5": 40, "ffsr": 60, "acrobot": 120}
 # iteration budgets cut for the script's time limit, which the contact
-# phase after them also needs: the FFSR reach 120 -> 60, the UR5 reach 100
-# -> 50, the acrobot 250 -> 150; the first 16 scenarios are then held to
-# the JAX package's count of those that converged within the cut budget,
-# less one
-FREE_MAX_ITERS = {"ffsr": 60, "ur5": 50, "acrobot": 150}
+# phase after them also needs: the FFSR reach 120 -> 60 -> 50 (JAX
+# converges 6 of the first 16 within 50, 10 within 60), the UR5 reach 100
+# -> 50, the acrobot 250 -> 150 -> 130 (the MPC and centroidal phases' time;
+# JAX converges 11 of the first 16 within 130, 13 within 150); the first 16
+# scenarios are then held to the JAX package's count of those that
+# converged within the cut budget, less one
+FREE_MAX_ITERS = {"ffsr": 50, "ur5": 50, "acrobot": 130}
 FREE_CPU_SCENARIOS = 16
 # card vs CPU, relative, by iteration: these solves magnify any difference
 # of rounding from their first Newton step. Two CPU solves of the first 16
@@ -332,10 +367,13 @@ CONTACT_REF = "tests/data/torch_contact_ref.npz"
 CONTACT_CPU_SCENARIOS = 4
 UR10_LANDING_TOL = 1e-3  # tests/test_ballistic.py's bound
 # the throw's budget cut 400 -> 320 for the script's time limit (with the
-# UR5 table phase after it); its first 4 are then held to the JAX package's
-# count of those that converged within the cut budget (scenario 0 at 302),
-# less one
-CONTACT_MAX_ITERS = {"ur10": 320}
+# UR5 table phase after it), then to 200 (the MPC and centroidal phases):
+# its first 4 are held to the JAX package's count of those that converged
+# within the cut budget (scenario 0 at 302), less one, which within 320
+# was 0 already (the card converged none of the first 4 there, 2 of the 64
+# at 265 and 288 iterations); the jump's 60 -> 40 (JAX converges 19 of
+# the first 64 within 40, as within 60)
+CONTACT_MAX_ITERS = {"ur10": 200, "solo": 40}
 CONTACT_PROFILE_ITERS = 1
 # phase 13, the UR5 table reach (examples/ur5_table.py: N = 30, dt = 0.05,
 # |tau| <= 80, the table plane and the box; ProxDDPConfig(tol=1e-4,
@@ -350,7 +388,7 @@ TABLE_Q0 = (0.0, -1.2, 1.6, 0.0, 0.0, 0.0)  # examples/ur5_table.py's start
 TABLE_PROFILE_ITERS = 2
 INV_DEMOS = (16, 4096)
 INV_STEPS = 100  # cut from 300 (the published fit) for the free-dynamics phase
-INV_TIMED_STEPS = 10
+INV_TIMED_STEPS = 5  # 10 before the MPC and centroidal phases
 INV_LOSS_TOL = 1e-6  # final loss, card vs CPU, relative
 INV_GRAD_TOL = 1e-8  # first step's gradient, card vs CPU, relative
 # θ sensitivities (examples/theta_family.py)
@@ -614,6 +652,11 @@ def kernel_phase():
                                                  CART_VARIANT_BATCH, torch.float64),
              "acrobot_fp64": k1_timing((4, 1, 1, False), FREE_NSTEPS["acrobot"] + 1,
                                        FREE_BATCHES["acrobot"], torch.float64)}
+    # the MPC phase's SE(2) shape at its batches (the wheeled inverted
+    # pendulum's, (4, 1, 1, E = -I) fp64 at 1024 and T = 101, is the
+    # cartpole's above)
+    for b in MPC_PATHS["se2"]:
+        times[f"se2_mpc_B{b}"] = k1_timing(main, T, b)
     t = times["se2car"]
     return dict(
         name="fused_riccati", route="cuda",
@@ -770,9 +813,11 @@ def k2_phase():
     from aligator_tpu_torch.gar import spd_solve as sp
 
     # the register routes (4 x 4 and 4 x 8 tiles) and, past 256 tiles, the
-    # shared-memory route ((64, 65), (64, 128))
+    # memory routes: shared memory ((64, 65), (64, 128), (96, 97)), and the
+    # global workspace past it ((200, 201) and (320, 321) in fp64)
     for i, (n, r) in enumerate(((12, 1), (24, 13), (56, 57), (22, 57), (64, 64),
-                                (28, 84), (12, 84), (64, 65), (64, 128))):
+                                (28, 84), (12, 84), (64, 65), (64, 128), (96, 97),
+                                (200, 201), (320, 321))):
         A, R = spd_batch(130, n, r, torch.float64, SEED + i)
         err = rel_err(sp.spd_solve(A, R), sp.spd_solve_plain(A, R))
         print(f"[kernel] spd_solve fp64 M=130 n={n} r={r}: max rel err {err:.3e} "
@@ -832,6 +877,13 @@ def k2_phase():
     shapes += [("UR10 LQ loop", UR10_BATCH, n, 25, f64) for n in (24, 6)]
     shapes += [("Solo contact KKT", K_solo, n, 42, f64) for n in (14, 12)]
     shapes += [("Solo LQ loop", SOLO_BATCH, n, 29, f64) for n in (28, 8)]
+    # the centroidal gait's per-stage loop (fp64, Schur n = ndx = 9 and
+    # reduced KKT n = nu = 12, each against ndx + 1 = 10 columns) at its
+    # batch; the memory routes past n = 64, where the JAX package solves in
+    # XLA (shared memory at n = 96, the global workspace at 200 and 320)
+    shapes += [("centroidal loop", CENTROIDAL_BATCHES["centroidal"], n, 10, f64)
+               for n in (9, 12)]
+    shapes += [("large n", 64, n, n + 1, f64) for n in (96, 200, 320)]
     by_shape = {}
     for i, (what, M, n, r, dtype) in enumerate(shapes):
         A, R = spd_batch(M, n, r, dtype, SEED + 10 + i)
@@ -843,7 +895,7 @@ def k2_phase():
         tol = K2_FP32_TOL if dtype == f32 else FP64_TOL
         check(torch.isfinite(X).all().item(), "non-finite spd_solve output")
         check(err <= tol, f"spd_solve {dtype} M={M} n={n} r={r}: {err}")
-        reps = 200 if M <= 512 else 50
+        reps = 10 if n > 64 else 200 if M <= 512 else 50
         ms = kernel_ms(lambda: sp.launch(A, R), reps, "spd_solve_kernel")
         call_ms = avg_time_ms(lambda: sp.spd_solve(A, R), reps)
         plain_ms = avg_time_ms(lambda: sp.spd_solve_plain(A, R), 20)
@@ -1144,6 +1196,31 @@ def k3_phase():
         print(f"[kernel] fused_stage sweep fp32 B={Bs} N={N}: kernel {ms_b:.4f} ms "
               f"({ms_b / N * 1e3:.2f} us per stage), bound {bms_b:.4f} ms "
               f"({ms_b / bms_b:.1f}x)")
+    # the centroidal paths' shapes, fp64 at 256: the continuous gait (N =
+    # 210, (21, 12), nc = 41) and the kinodynamics (N = 64, (25, 20), nc = 20)
+    centroidal = {}
+    for (Bc, Nc, nxc, nuc, ncc) in ((CENTROIDAL_BATCHES["continuous"], 210, 21, 12, 41),
+                                    (CENTROIDAL_BATCHES["kinodynamics"], 64, 25, 20, 20)):
+        knc, Pc, pc, mdc, mec = convex_knots(Bc, Nc, nxc, nuc, ncc, torch.float64,
+                                             SEED + 30 + nxc)
+        gotc = fs.sweep(knc, Pc, pc, mdc, mec)
+        refc = fs.sweep_plain(knc, Pc, pc, mdc, mec)
+        errc = max(rel_err(gotc[k], refc[k]) for k in fs.FACTOR_FIELDS)
+        check(errc <= FP64_TOL, f"fused_stage sweep nx={nxc}: {errc}")
+        msc = kernel_ms(lambda: fs.sweep(knc, Pc, pc, mdc, mec), 5, "sweep_kernel")
+        plainc = avg_time_ms(lambda: fs.sweep_plain(knc, Pc, pc, mdc, mec), 1)
+        sw = (2 * nxc * nxc + 2 * nxc * nuc + nuc * nuc + 2 * nxc + nuc
+              + ncc * (nxc + nuc + 1))
+        fw = (nuc * (nxc + 1) + ncc * (nxc + 1) + 2 * nxc + 3 * nxc * nxc + nxc)
+        nbc = 8 * Bc * (Nc * (sw + fw) + nxc * nxc + nxc + 2)
+        flc = Bc * Nc * k3_flops_per_stage(nxc, nuc, ncc)
+        bmc, byc = bound(nbc, flc, fp64=True)
+        print(f"[kernel] fused_stage sweep fp64 B={Bc} N={Nc} (nx,nu,nc)={(nxc, nuc, ncc)}: "
+              f"vs plain {errc:.2e} (tol {FP64_TOL:g}); kernel {msc:.4f} ms, plain "
+              f"{plainc:.3f} ms; bound {bmc:.4f} ms ({byc}; kernel {msc / bmc:.1f}x)")
+        centroidal[f"B={Bc} nx={nxc}"] = dict(ms=msc, plain_ms=plainc, bound_ms=bmc,
+                                              bound_by=byc, err=errc)
+        del knc, gotc, refc
     ms = by_batch[B]["ms"]
     plain_ms = avg_time_ms(lambda: fs.sweep_plain(kn, P, p, md, me), 2)
     nbytes, flops, bms, by = sweep_bound(B)
@@ -1155,7 +1232,8 @@ def k3_phase():
         source="aligator_tpu_torch/csrc/fused_stage.cu",
         replaces="aligator_tpu/gar/pallas_stage.py:140", max_abs_err=max_abs,
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
-    ), dict(occupancy=info, by_batch=by_batch, conditioning=conditioning)
+    ), dict(occupancy=info, by_batch=by_batch, conditioning=conditioning,
+            centroidal=centroidal)
 
 
 def random_gains(B, T, nx, nu, nc, dtype, seed):
@@ -1195,7 +1273,11 @@ def k4_phase():
             (FREE_BATCHES["ur5"], FREE_NSTEPS["ur5"] + 1, 12, 6, 6, f64),
             (FREE_BATCHES["ffsr"], FREE_NSTEPS["ffsr"] + 1, 40, 14, 14, f64),
             (UR10_BATCH, UR10_NSTEPS + 1, 24, 6, 12, f64),
-            (SOLO_BATCH, sum(SOLO_PHASES) + 1, 28, 8, 0, f64))):
+            (SOLO_BATCH, sum(SOLO_PHASES) + 1, 28, 8, 0, f64),
+            # the continuous gait (T = 211, nc = 41) and the kinodynamics
+            # (T = 65, nc = 20) at 256
+            (CENTROIDAL_BATCHES["continuous"], 211, 21, 12, 41, f64),
+            (CENTROIDAL_BATCHES["kinodynamics"], 65, 25, 20, 20, f64))):
         gains, x0, lam0 = random_gains(B, T, nx, nu, nc, dt, SEED + 10 + i)
         got = fs.forward(gains, x0, lam0)
         ref = fs.forward_plain(gains, x0, lam0)
@@ -1338,6 +1420,43 @@ def free_fd_phase():
               f"{ms / bms:.0f}x)")
         by_shape[case] = dict(B=B, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                               nbytes=nbytes, flops=flops)
+    # past the register route's 16 joints and 24 dofs: the global workspace
+    # (a fixed chain of 40 links; a free-flyer chain of 65 joints, 70 dofs)
+    for case, (n_rev, ff) in (("chain40", (40, False)), ("chain65", (64, True))):
+        B = 1024
+        m = robots.make_chain(n_rev, ff, device="cuda")
+        q, v, tau = free_fd_states(m, B, SEED + 70, torch.float64)
+        got, ref = free_fd.free_fd(m, q, v, tau), free_fd.free_fd_plain(m, q, v, tau)
+        err = rel_err(got, ref)
+        # the long chains' mass matrices magnify rounding: the limit is also
+        # 100 times the plain version's distance from itself one ulp away
+        spread = max(rel_err(free_fd.free_fd_plain(m, q * s, v, tau), ref)
+                     for s in (1.0 + FREE_SPREAD_EPS, 1.0 - FREE_SPREAD_EPS))
+        tol = max(FP64_TOL, FREE_SPREAD_FACTOR * spread)
+        worst_abs = max(worst_abs, abs_err(got, ref))
+        ms = kernel_ms(lambda: free_fd.launch(m, q, v, tau), 10, "free_fd_kernel")
+        plain_ms = avg_time_ms(lambda: free_fd.free_fd_plain(m, q, v, tau), 5)
+        nbytes = 8 * B * (m.nq + 3 * m.nv)
+        flops = B * free_fd_flops(m)
+        bms, by = bound(nbytes, flops, fp64=True)
+        print(f"[kernel] free_fd fp64 {case} B={B} (nj={m.njoints}, nv={m.nv}; global "
+              f"workspace): vs plain {err:.2e} (tol {tol:.1e}: 1e-9 or 100x the one-ulp "
+              f"spread {spread:.1e}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms; bound {bms:.5f} ms ({by}; kernel {ms / bms:.0f}x)")
+        check(err <= tol, f"free_fd {case}: {err}")
+        by_shape[case] = dict(B=B, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                              nbytes=nbytes, flops=flops, err=err)
+    # the FFSR's exploding-trial states: the base at |q| ~ 5e9 m, where the
+    # plain version (model.aba) now works at the first joint too
+    m = robots.make_dual_arm_ffsr(device="cuda")
+    q, v, tau = free_fd_states(m, 1024, SEED + 71, torch.float64)
+    q[:, :3] += 5e9 * torch.sign(torch.randn((1024, 3), generator=_gen(SEED + 72),
+                                             device="cuda", dtype=torch.float64))
+    got, ref = free_fd.free_fd(m, q, v, tau), free_fd.free_fd_plain(m, q, v, tau)
+    err = rel_err(got, ref)
+    print(f"[kernel] free_fd fp64 dual_arm_ffsr, base at |q| ~ 5e9 m (exploding trials): "
+          f"kernel vs plain {err:.2e} (tol 1e-9)")
+    check(bool(torch.isfinite(ref).all()) and err <= 1e-9, f"free_fd far: {err}")
     main = by_shape["ffsr"]
     return dict(
         name="free_fd", route="cuda", source="aligator_tpu_torch/csrc/free_fd.cu",
@@ -1500,6 +1619,7 @@ def k5_phase():
                            bound_by=by, flops_per_instance=flops / K)
         del inputs, args
     by_batch.update(k5_solo_rows())
+    by_batch.update(k5_chain_rows())
     main = by_batch[TALOS_BATCHES[0] * N]
     return dict(
         name="fd_rows", route="cuda", source="aligator_tpu_torch/csrc/fd_rows.cu",
@@ -1508,6 +1628,59 @@ def k5_phase():
                                                      "bound_by")},
         library_ms=None,
     ), dict(by_K=by_batch)
+
+
+def k5_chain_rows():
+    """K5 past its old bounds (8 contacts; nv, nb, nc <= 64): a free-flyer
+    chain of nv = 70, nb = 65 with ten 3D contacts, whose working set
+    exceeds a block's shared memory and takes the global workspace, fp64
+    and fp32 at K = 512, against its plain version, timed beside its bound."""
+    from aligator_tpu_torch.modelling.multibody import contact, fd_rows, robots
+    from aligator_tpu_torch.modelling.multibody.derivatives import fd_rows_inputs
+
+    rows = {}
+    for dtype, tol in ((torch.float64, FP64_TOL), (torch.float32, 1e-3)):
+        model = robots.make_chain(64, True, dtype=dtype, device="cuda")
+        frames = tuple(model.frame_id(f"f{b}") for b in range(3, 43, 4))
+        dims = (3,) * len(frames)
+        bodies = tuple(model.frame_parents[f] for f in frames)
+        g = _gen(SEED + 43)
+        K, nv, nb = 512, model.nv, model.njoints
+        q = model.configuration_space().integrate(
+            model.neutral(torch.float64, "cuda")[None],
+            0.1 * torch.randn((K, nv), generator=g, device="cuda", dtype=torch.float64))
+        v, tau = (torch.randn((K, nv), generator=g, device="cuda", dtype=torch.float64)
+                  for _ in range(2))
+        q, v, tau = q.to(dtype), (0.2 * v).to(dtype), tau.to(dtype)
+        act = torch.ones((K, len(frames)), dtype=dtype, device="cuda")
+        act[::3, 0] = 0.0
+        out = contact.cfd_internals(model, q, v, tau, frames, act, prox_mu=1e-6, kd=10.0)
+        args = (model, q, v, out["a"], out["lam"], act, frames, dims)
+        got = fd_rows.fd_rows(*args, kd=10.0)
+        ref = fd_rows.fd_rows_plain(*args, kd=10.0)
+        torch.cuda.synchronize()
+        err = max(rel_err(a, b) for a, b in zip(got, ref))
+        check(all(torch.isfinite(t).all().item() for t in got), "fd_rows chain non-finite")
+        check(err <= tol, f"fd_rows chain {dtype}: {err}")
+        inputs = fd_rows_inputs(model, q, v, out["a"], frames)
+        inputs.update(v=v, lam=out["lam"], act=act)
+        ms = kernel_ms(lambda: fd_rows.launch(model, inputs, bodies, dims, 10.0, 0.0), 5,
+                       "fd_rows_kernel")
+        plain_ms = avg_time_ms(lambda: fd_rows.fd_rows_plain(*args, kd=10.0), 2)
+        nc, ncont, w = sum(dims), len(frames), torch.finfo(dtype).bits // 8
+        in_words = 4 * nv * 6 + nv + 5 * nb * 6 + nb * 36 + nc + 4 * ncont
+        out_words = 2 * nv * nv + 2 * nc * nv
+        nbytes = w * (K * (in_words + out_words) + nb * nv + nv * nv)
+        flops = k5_flops(model, bodies, dims, act.reshape(K, ncont).cpu())
+        bms, by = bound(nbytes, flops, fp64=dtype == torch.float64)
+        name = str(dtype)[6:]
+        print(f"[kernel] fd_rows {name} chain nv={nv} nb={nb}, {ncont} 3D contacts K={K} "
+              f"(global workspace): vs plain {err:.2e} (tol {tol:g}); kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms; bound {bms:.4f} ms ({by}; kernel {ms / bms:.1f}x)")
+        rows[f"chain {name} K={K}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                           bound_by=by, err=err)
+        del got, ref, inputs, out, args
+    return rows
 
 
 def k5_solo_rows():
@@ -1681,7 +1854,7 @@ def profile_solve(run, tag="profile"):
           f"{sum(r[1] for r in rows)} kernel launches")
     for ms, count, key in rows[:12]:
         print(f"[{tag}]   {ms:9.3f} ms {count:6d}x  {key[:90]}")
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, kernels=sum(r[1] for r in rows),
                 top=[(round(ms, 3), c, k[:60]) for ms, c, k in rows[:5]])
 
 
@@ -1736,7 +1909,7 @@ def reset_counts():
 
 
 def medium_path(label, make, x0s, solve, expected, min_frac=None,
-                expect_iters=None, timed=5, cpu_scenarios=MEDIUM_CPU_SCENARIOS,
+                expect_iters=None, timed=3, cpu_scenarios=MEDIUM_CPU_SCENARIOS,
                 cpu_make=None):
     """Drive one path on the card at full batch, then its first
     ``cpu_scenarios`` scenarios on the CPU. ``make(device, x0s)`` builds the
@@ -1956,13 +2129,23 @@ def talos_cpu_check(make, x0s, cfg):
     return dict(same_iters=same, rel_dxs=dx, rel_dus=du)
 
 
+TALOS_FP32_ULPS = (0.0, 1.0, -1.0)  # x0 scaled by 1 + k·2^-23 (one fp32 ulp)
+
+
 def talos_fp32_check(make, cfg):
     """The float32 solve on the card, step by step, against the JAX
     package's float32 solve of the same 2 scenarios
     (``tests/data/torch_talos_fp32_ref.npz``, written by
-    ``tools/torch_talos_fp32_fixture.py``): solved with 0..4 iterations, the
-    infeasibilities after each step and which steps the line search
-    rejected (iterate unchanged) must be the JAX package's."""
+    ``tools/torch_talos_fp32_fixture.py``): solved with 0..4 iterations from
+    x0 and from x0·(1 ± 2^-23), the three in one batch; the infeasibilities
+    after each step and which steps the line search rejected (iterate
+    unchanged) must be the JAX package's from x0, or from one of the two
+    one ulp away. The card's pattern flips within one or two fp32 ulps of
+    x0 (measured: step 2 accepted at x0 since the multibody dynamics work
+    at the first joint, steps 1 and 2 accepted at x0·(1 + 2·2^-23) before),
+    while JAX and the port on the CPU reject all four steps at x0 ± 1 ulp:
+    the rejections follow the order of the fp32 sums."""
+
     import pathlib
 
     import aligator_tpu_torch as at
@@ -1970,7 +2153,10 @@ def talos_fp32_check(make, cfg):
     path = pathlib.Path(__file__).resolve().parent / "tests/data/torch_talos_fp32_ref.npz"
     with np.load(path) as f:
         ref = {k: f[k] for k in f.files}
-    prob = make("cuda", ref["x0"])
+    nb = len(ref["x0"])
+    x0s = np.concatenate([(ref["x0"].astype(np.float64) * (1.0 + k * 2.0 ** -23))
+                          .astype(np.float32) for k in TALOS_FP32_ULPS])
+    prob = make("cuda", x0s)
     prim, dual, rejected, prev = [], [], [], None
     with plain_versions_raise():
         for k in range(cfg.max_iters + 1):
@@ -1982,19 +2168,26 @@ def talos_fp32_check(make, cfg):
                                  & (res.us == prev.us).flatten(1).all(1)).cpu().numpy())
             prev = res
     prim, dual, rejected = (np.stack(a, 1) for a in (prim, dual, rejected))
-    err = float(max(np.abs(prim - ref["prim"]).max() / np.abs(ref["prim"]).max(),
-                    np.abs(dual - ref["dual"]).max() / np.abs(ref["dual"]).max()))
-    same = (np.array_equal(res.num_iters.cpu().numpy(), ref["num_iters"])
-            and np.array_equal(res.al_iter.cpu().numpy(), ref["al_iter"]))
-    print(f"[talos] fp32 card vs JAX fp32 ({len(ref['x0'])} scenarios): rejected steps "
-          f"{rejected.tolist()} (JAX {ref['rejected'].tolist()}), prim per step "
-          f"{prim.tolist()}, rel err of prim/dual {err:.2e} (tol {TALOS_FP32_TOL:g}), "
-          f"num_iters/al_iter equal {same}")
-    check(same, "talos fp32: card and JAX iteration counts differ")
-    check(np.array_equal(rejected, ref["rejected"]),
-          "talos fp32: the card and JAX reject different Newton steps")
-    check(err <= TALOS_FP32_TOL, f"talos fp32: infeasibilities differ from JAX's: {err}")
-    return dict(rejected=rejected.tolist(), prim=prim.tolist(), rel_err=err)
+    iters, al = res.num_iters.cpu().numpy(), res.al_iter.cpu().numpy()
+    groups = []
+    for g, ulp in enumerate(TALOS_FP32_ULPS):
+        sl = slice(g * nb, (g + 1) * nb)
+        err = float(max(np.abs(prim[sl] - ref["prim"]).max() / np.abs(ref["prim"]).max(),
+                        np.abs(dual[sl] - ref["dual"]).max() / np.abs(ref["dual"]).max()))
+        same = (np.array_equal(iters[sl], ref["num_iters"])
+                and np.array_equal(al[sl], ref["al_iter"]))
+        match = same and np.array_equal(rejected[sl], ref["rejected"]) and \
+            err <= TALOS_FP32_TOL
+        groups.append(dict(ulps=ulp, rejected=rejected[sl].tolist(), prim=prim[sl].tolist(),
+                           rel_err=err, counts_equal=same, matches_jax=bool(match)))
+        print(f"[talos] fp32 card from x0·(1 {ulp:+g}·2^-23) vs JAX fp32 from x0 ({nb} "
+              f"scenarios): rejected steps {rejected[sl].tolist()} (JAX "
+              f"{ref['rejected'].tolist()}), prim per step {prim[sl].tolist()}, rel err of "
+              f"prim/dual {err:.2e} (tol {TALOS_FP32_TOL:g}), num_iters/al_iter equal {same}")
+    check(any(g["matches_jax"] for g in groups),
+          "talos fp32: from x0 and one ulp away the card rejects other Newton steps than "
+          "JAX, or its infeasibilities differ")
+    return dict(groups=groups)
 
 
 # ---------------------------------------------------------------- phase 7
@@ -2045,27 +2238,35 @@ def chained_latency_ms(solve, prob, k_lo=1, k_hi=3, reps=3, slow_s=0.1):
     return 1e3 * (t_hi - t_lo) / (k_hi - k_lo)
 
 
+def lat_cases():
+    """(N, B) of the latency phase: one problem at each of bench_latency.py's
+    horizons, and the batch of 1024 at N = 2048 as bench.py runs it."""
+    return [(N, B) for N in LAT_NS for B in LAT_BATCHES if B == 1 or N == LAT_N]
+
+
 def latency_phase(card):
     """(a): one long-horizon LQ solve by the serial solve (K1), the
-    associative scan and the parallel legs, at B = 1 and 1024, on ``card``
-    (nvidia-smi's name and power limit)."""
+    associative scan and the parallel legs, at N = 128, 512 and 2048
+    (bench_latency.py's horizons, one problem), and by the first two at B =
+    1024 at N = 2048, on ``card`` (nvidia-smi's name and power limit)."""
     from aligator_tpu_torch.gar import associative, lqr_problem, parallel, riccati
 
     nx, nu, nc = LAT_DIMS
-    lens = sorted(set(parallel.get_work(LAT_N + 1, LAT_LEGS)[1]))
     solvers = {
         "serial": lambda p: riccati.solve_and_gains(p, LAT_MU, LAT_MU, True),
         "associative": lambda p: associative.solve(p, LAT_MU, LAT_MU, refine_steps=1),
         f"parallel{LAT_LEGS}": lambda p: parallel.solve(p, LAT_MU, LAT_MU, LAT_LEGS, True),
     }
     out, counted = {}, []
-    for B in LAT_BATCHES:
-        prob = k1_problem(B, LAT_N + 1, nx, nu, nc, True, torch.float32, SEED + 40)[0]
+    for N, B in lat_cases():
+        prob = k1_problem(B, N + 1, nx, nu, nc, True, torch.float32, SEED + 40)[0]
         n = min(B, LAT_CPU_SCENARIOS)
         cpu64 = prob.map(lambda t: t[:n].cpu().double())
         ref = riccati.solve(cpu64, LAT_MU, LAT_MU, True)
         scale = max(r.abs().max().item() for r in ref if r.numel())
         for name, solve in solvers.items():
+            if B > 1 and name.startswith("parallel"):
+                continue  # the legs at one problem only (2 s a solve)
             with plain_versions_raise():
                 reset_counts()
                 sol = solve(prob)
@@ -2079,31 +2280,36 @@ def latency_phase(card):
             dist = max((g - r).abs().max().item() for g, r in zip(got, ref)
                        if r.numel()) / scale
             finite = all(bool(torch.isfinite(t).all()) for t in sol[:4])
-            print(f"[latency] B={B} N={LAT_N} {name}: {ms:.3f} ms a solve (chained), "
+            print(f"[latency] B={B} N={N} {name}: {ms:.3f} ms a solve (chained), "
                   f"launches a solve {dict((k, v) for k, v in launches.items() if v)}; "
                   f"fp32 solution in fp64 ({n} scenarios): KKT {kkt:.3e} (bound "
                   f"{LAT_KKT_TOL:g}), distance to the fp64 CPU serial solve "
                   f"{dist:.3e} (bound {LAT_DIST_TOL:g})")
-            check(finite, f"latency {name} B={B}: non-finite solution")
-            check(kkt <= LAT_KKT_TOL, f"latency {name} B={B}: KKT {kkt}")
-            check(dist <= LAT_DIST_TOL, f"latency {name} B={B}: distance {dist}")
-            out[f"B{B}_{name}"] = dict(ms=ms, launches=launches, kkt=kkt, dist=dist)
-        ser = out[f"B{B}_serial"]["ms"]
-        print(f"[latency] {card}, B={B}: serial {ser:.3f} ms, associative "
-              f"{out[f'B{B}_associative']['ms']:.3f} ms "
-              f"(speedup {ser / out[f'B{B}_associative']['ms']:.2f}), parallel "
-              f"{out[f'B{B}_parallel{LAT_LEGS}']['ms']:.3f} ms "
-              f"(speedup {ser / out[f'B{B}_parallel{LAT_LEGS}']['ms']:.2f})")
+            check(finite, f"latency {name} N={N} B={B}: non-finite solution")
+            check(kkt <= LAT_KKT_TOL, f"latency {name} N={N} B={B}: KKT {kkt}")
+            check(dist <= LAT_DIST_TOL, f"latency {name} N={N} B={B}: distance {dist}")
+            out[f"N{N}_B{B}_{name}"] = dict(ms=ms, launches=launches, kkt=kkt, dist=dist)
+        key = f"N{N}_B{B}_"
+        ser = out[key + "serial"]["ms"]
+        legs = out.get(key + f"parallel{LAT_LEGS}")
+        print(f"[latency] {card}, N={N} B={B}: serial {ser:.3f} ms, associative "
+              f"{out[key + 'associative']['ms']:.3f} ms "
+              f"(speedup {ser / out[key + 'associative']['ms']:.2f})"
+              + (f", parallel {legs['ms']:.3f} ms (speedup {ser / legs['ms']:.2f})"
+                 if legs else ""))
         del prob, sol
     # K1 once a serial solve; K2 three times an associative solve and again
     # for its refinement; the legs' θ sweeps 2 K2 launches a stage of each
     # leg group, their forward below K4's nx
-    want = {"serial": dict(fused_riccati=1), "associative": dict(spd_solve=6),
-            f"parallel{LAT_LEGS}": dict(spd_solve=sum(2 * (L - 1) for L in lens))}
-    for B in LAT_BATCHES:
+    for N, B in lat_cases():
+        lens = sorted(set(parallel.get_work(N + 1, LAT_LEGS)[1]))
+        want = {"serial": dict(fused_riccati=1), "associative": dict(spd_solve=6),
+                f"parallel{LAT_LEGS}": dict(spd_solve=sum(2 * (L - 1) for L in lens))}
         for name, w in want.items():
-            got = {k: v for k, v in out[f"B{B}_{name}"]["launches"].items() if v}
-            check(got == w, f"latency {name} B={B}: launches {got} != {w}")
+            if f"N{N}_B{B}_{name}" not in out:
+                continue
+            got = {k: v for k, v in out[f"N{N}_B{B}_{name}"]["launches"].items() if v}
+            check(got == w, f"latency {name} N={N} B={B}: launches {got} != {w}")
     return counted, out
 
 
@@ -2461,7 +2667,8 @@ def cartpole_phases():
         "cartpole_midpoint": dict(batch=CART_VARIANT_BATCH, integrator="midpoint",
                                   nsteps=CART_MIDPOINT_NSTEPS, profile=True,
                                   rollout_max_iters=CART_MIDPOINT_NEWTON,
-                                  min_frac=CART_MIDPOINT_MIN_FRAC),
+                                  min_frac=CART_MIDPOINT_MIN_FRAC,
+                                  max_iters=CART_MIDPOINT_ITERS),
         "cartpole_exact": dict(batch=CART_VARIANT_BATCH, hessian_approx="exact",
                                max_iters=CART_EXACT_ITERS),
         "cartpole_fp32": dict(batch=CART_BATCH, dtype=torch.float32, cpu_n=0,
@@ -3075,6 +3282,330 @@ def table_phase(cpu_refs):
     return counts, out
 
 
+# ---------------------------------------------------------------- phase 14
+
+
+MPC_PATHS = {"se2": (1, 4096), "humanoid": (1, 128)}
+MPC_CYCLES = 20
+MPC_CPU_SCENARIOS = 16
+MPC_CPU_CYCLES = 4  # the CPU's cycles (~2 s each at N = 50) held to the card's first
+MPC_HUMANOID_SEED = 5
+
+
+def mpc_problem(path, batch, dev):
+    """The MPC paths of bench_mpc.py's protocol, float32: the SE(2) car at N
+    = 50 (one scenario the nominal state, a batch the fleet of
+    ``mpc_se2.se2_initial_states``) and humanoid dims at N = 100 (x0
+    perturbed by 0.05 N(0, 1), numpy)."""
+    from aligator_tpu_torch.examples import medium_dims, mpc_se2
+
+    if path == "se2":
+        return mpc_se2.create_mpc_problem(batch, 50, torch.float32, dev, seed=SEED)
+    prob = medium_dims.make_humanoid_dims_problem(100, torch.float32, dev)
+    if batch > 1:
+        rng = np.random.default_rng(MPC_HUMANOID_SEED)
+        x0 = prob.x0.cpu().numpy() + 0.05 * rng.standard_normal((batch, prob.x0.shape[1]))
+        prob = dataclasses.replace(prob, x0=torch.tensor(x0, dtype=torch.float32, device=dev))
+    return prob
+
+
+def mpc_chain(prob, cfg, cold, x_start, n):
+    """``n`` chained cycles from ``x_start`` and the cold solve: the
+    per-cycle results (each cycle writes its state into ``prob.x0``)."""
+    from aligator_tpu_torch.examples import mpc_se2
+
+    x, xs, us, out = x_start, cold.xs, cold.us, []
+    for _ in range(n):
+        x, r = mpc_se2.mpc_cycle(prob, cfg, x, xs, us)
+        xs, us = r.xs, r.us
+        out.append((x, r))
+    return out
+
+
+def mpc_host_syncs(run):
+    """The host synchronizations of one call of ``run``: CUDA's sync debug
+    mode warns at each."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def mpc_phase(card):
+    """Receding-horizon MPC (examples/mpc_se2.py, bench_mpc.py's protocol):
+    a cold solve, then 20 chained warm cycles (apply the first control,
+    shift the warm start, re-solve at 2 iterations) at each batch, with the
+    plain versions patched to raise and the launches checked against the
+    route (K1 a Newton step on the SE(2) car, K3 and K4 at humanoid dims);
+    ms a cycle of one scenario by the delta method (20 against 5 chained
+    cycles, each timed once), scenario-cycles/s of a batch (the counted
+    20 cycles), the share of cycles primal feasible at 1e-4; at B = 1 the
+    host synchronizations and kernels of one cycle and its device-busy
+    share (profiled); the first 16 scenarios' first 4 cycles
+    held to the same cycles on the CPU (iteration counts and flags equal,
+    trajectories within 1e-3, as the SE(2) path is held)."""
+    import aligator_tpu_torch as at
+    from aligator_tpu_torch.examples import mpc_se2
+
+    cold_cfg = at.solvers.ProxDDPConfig(**mpc_se2.COLD)
+    warm = at.solvers.ProxDDPConfig(**mpc_se2.WARM)
+    out, counted = {}, []
+    for path, batches in MPC_PATHS.items():
+        for B in batches:
+            label = f"mpc {path} B={B}"
+            prob = mpc_problem(path, B, "cuda")
+            cold = at.solvers.solve(prob, cold_cfg)
+            x_start = prob.x0.clone()
+            mpc_chain(prob, warm, cold, x_start, 1)  # the warm trial graph's capture
+            with plain_versions_raise():
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                recs = mpc_chain(prob, warm, cold, x_start, MPC_CYCLES)
+                float(recs[-1][1].us.sum())
+                t_hi = time.perf_counter() - t0
+                launches = launch_counts()
+                steps = sum(int(r.newton_steps.max()) for _, r in recs)
+                want = dict.fromkeys(KERNEL_NAMES, 0)
+                if path == "se2":
+                    want["fused_riccati"] = steps
+                else:
+                    want["fused_stage_sweep"] = want["fused_stage_forward"] = steps
+                print(f"[{label}] {MPC_CYCLES} cycles: launches {launches}, expected {want}")
+                check(launches == want, f"{label}: launches {launches} != {want}")
+                counted.append(launches)
+
+                def chain(n):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    r = mpc_chain(prob, warm, cold, x_start, n)[-1][1]
+                    float(r.us.sum())
+                    return time.perf_counter() - t0
+
+                t_lo = chain(5) if B == 1 else None
+                syncs = prof = None
+                if B == 1:  # one scenario's cycle: its syncs, kernels, busy share
+                    syncs = mpc_host_syncs(lambda: mpc_se2.mpc_cycle(
+                        prob, warm, x_start, cold.xs, cold.us))
+                    prof = profile_solve(lambda: mpc_se2.mpc_cycle(
+                        prob, warm, x_start, cold.xs, cold.us), f"{label} cycle")
+            prims = torch.stack([r.prim_infeas for _, r in recs], 1)
+            iters = torch.stack([r.num_iters for _, r in recs], 1)
+            finite = all(bool(torch.isfinite(r.xs).all() & torch.isfinite(r.us).all())
+                         for _, r in recs)
+            check(finite, f"{label}: non-finite cycles")
+            feas = (prims <= warm.tol).float().mean().item()
+            res = dict(frac_cycles_prim_ok=feas, iters_mean=iters.float().mean().item(),
+                       launches=launches)
+            prof_line = ""
+            if prof is not None:
+                res.update(host_syncs_per_cycle=syncs, kernels_per_cycle=prof["kernels"],
+                           busy_share=prof["busy_ms"] / prof["wall_ms"], cycle_profile=prof)
+                prof_line = (f"; host syncs a cycle {syncs}, device kernels a cycle "
+                             f"{prof['kernels']}, busy share {100 * res['busy_share']:.1f}%")
+            if B == 1:
+                ms = 1e3 * (t_hi - t_lo) / (MPC_CYCLES - 5)
+                res["ms_per_cycle"] = ms
+                rate = f"{ms:.3f} ms a cycle (delta of 20 and 5 chained cycles)"
+            else:
+                res["scenario_cycles_per_s"] = B * MPC_CYCLES / t_hi
+                rate = f"{res['scenario_cycles_per_s']:.1f} scenario-cycles/s"
+            print(f"[{label}] {card}: {rate}; primal-feasible share {feas:.4f} at "
+                  f"{warm.tol:g}; mean iterations a cycle {res['iters_mean']:.2f}{prof_line}")
+            # the first scenarios' cycles on the CPU
+            n = min(B, MPC_CPU_SCENARIOS)
+            cprob = dataclasses.replace(mpc_problem(path, B, "cpu"),
+                                        x0=x_start[:n].cpu().clone())
+            crecs = mpc_chain(cprob, warm, at.solvers.solve(cprob, cold_cfg),
+                              cprob.x0.clone(), MPC_CPU_CYCLES)
+            same = all(torch.equal(cr.num_iters, r.num_iters[:n].cpu())
+                       and torch.equal(cr.conv, r.conv[:n].cpu())
+                       for (_, cr), (_, r) in zip(crecs, recs))
+            gap = max(max((cr.xs - r.xs[:n].cpu()).abs().max().item(),
+                          (cr.us - r.us[:n].cpu()).abs().max().item())
+                      for (_, cr), (_, r) in zip(crecs, recs))
+            print(f"[{label}] cpu check ({n} scenarios, {MPC_CPU_CYCLES} cycles): num_iters "
+                  f"and conv equal {same}, max|d(xs, us)| {gap:.3e} (tol "
+                  f"{MEDIUM_CPU_TRAJ_TOL:g})")
+            check(same, f"{label}: card and CPU cycles differ in iterations")
+            check(gap <= MEDIUM_CPU_TRAJ_TOL, f"{label}: card and CPU cycles differ")
+            res.update(cpu_same=same, cpu_gap=gap)
+            out[f"{path}_B{B}"] = res
+    return counted, out
+
+
+# ---------------------------------------------------------------- phase 15
+
+
+CENTROIDAL_BATCHES = {"wip": 1024, "centroidal": 256, "kinodynamics": 256,
+                      "continuous": 256}
+CENTROIDAL_REF = "tests/data/torch_centroidal_ref.npz"
+CENTROIDAL_CPU_SCENARIOS = 1
+CENTROIDAL_CPU_ITERS = 4
+
+
+def centroidal_module(path):
+    from aligator_tpu_torch.examples import (centroidal_locomotion, continuous_centroidal,
+                                             solo_kinodynamics, wheeled_inverted_pendulum)
+
+    return {"wip": wheeled_inverted_pendulum, "centroidal": centroidal_locomotion,
+            "kinodynamics": solo_kinodynamics, "continuous": continuous_centroidal}[path]
+
+
+def centroidal_problem(path, x0s, dev):
+    """``(problem, init)`` of a path at its published size, float64, from
+    numpy initial states."""
+    mod = centroidal_module(path)
+    x0 = torch.tensor(x0s, dtype=torch.float64, device=dev)
+    if path == "wip":
+        prob = mod.create_wip_problem(device=dev)
+    elif path == "centroidal":
+        prob = mod.create_centroidal_problem(device=dev)
+    elif path == "kinodynamics":
+        prob = mod.create_kinodynamics_problem(device=dev)
+    else:
+        prob = dataclasses.replace(mod.create_problem(device=dev)[0], x0=x0)
+        return prob, dict(xs_init=mod.warm_start(prob))
+    return dataclasses.replace(prob, x0=x0), {}
+
+
+def centroidal_route(path, N, res):
+    """The launches a solve's route implies: K1 a Newton step for the
+    pendulum ((4, 1), E = -I); the per-stage loop's K2 twice a stage a step
+    for the centroidal gait ((9, 12): nu > 8 sends it past K1, nx < 12 past
+    K3 and K4); K3 and K4 a step for the kinodynamics (25, 20) and the
+    continuous gait (21, 12)."""
+    steps = int(res.newton_steps.max())
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    if path == "wip":
+        want["fused_riccati"] = steps
+    elif path == "centroidal":
+        want["spd_solve"] = 2 * N * steps
+    else:
+        want["fused_stage_sweep"] = want["fused_stage_forward"] = steps
+    return want
+
+
+def short_gaps(a, b):
+    """History rows by iteration and the iterate (xs, us, lams) of two solves
+    cut to the same iterations, and whether their counts and flags agree."""
+    k = min(a.history.shape[1], b.history.shape[1])
+    by_iter = [col_rel(a.history[:, i:i + 1].cpu(), b.history[:, i:i + 1].cpu())
+               for i in range(k)]
+    traj = max(col_rel(getattr(a, f).cpu(), getattr(b, f).cpu()) for f in ("xs", "us", "lams"))
+    same = bool(torch.equal(a.num_iters.cpu(), b.num_iters.cpu())
+                and torch.equal(a.conv.cpu(), b.conv.cpu()))
+    return by_iter, traj, same
+
+
+def centroidal_phase(card):
+    """The wheeled inverted pendulum (B = 1024), the centroidal gait, the
+    Solo kinodynamics and the continuous gait (B = 256) at their published
+    sizes and budgets, float64, initial states from SEED (numpy,
+    ``initial_states`` of each example): with the plain versions patched to
+    raise, launches checked against the route (:func:`centroidal_route`),
+    solves/s, frac_converged, the first 16 scenarios' converged count held
+    to the JAX package's (tests/data/torch_centroidal_ref.npz) less one,
+    the least of its counts from x0 and from x0·(1 ± 1e-15) (the gait
+    flips scenarios on one ulp),
+    each converged scenario's physical checks (``solution_checks``); the
+    first 2 scenarios over 4 iterations on the card against the CPU, to 1e-9
+    or 100 times the spread of CPU solves from x0·(1 ± 1e-15)."""
+    import aligator_tpu_torch as at
+
+    ref = np.load(CENTROIDAL_REF)
+    out, counted = {}, []
+    for path, B in CENTROIDAL_BATCHES.items():
+        mod = centroidal_module(path)
+        label = f"centroidal {path} B={B}"
+        x0s = mod.initial_states(B, SEED)
+        floor_x0 = ref[f"{path}_full_x0"]
+        check(np.array_equal(x0s[:len(floor_x0)], floor_x0),
+              f"{label}: initial states differ from the fixture's")
+        prob, init = centroidal_problem(path, x0s, "cuda")
+        cfg = at.solvers.ProxDDPConfig(**mod.SOLVE_OPTIONS)
+        with plain_versions_raise():
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = at.solvers.solve(prob, cfg, **init)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            launches = launch_counts()
+            want = centroidal_route(path, prob.nsteps, res)
+            print(f"[{label}] first solve {first_s:.2f} s, launches {launches}, expected {want}")
+            check(launches == want, f"{label}: launches {launches} != {want}")
+            counted.append(launches)
+            secs = first_s
+            # a second, timed solve where the first (which also captures the
+            # graphs) is short; the longer paths report their first solve
+            if first_s < 3.0:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r2 = at.solvers.solve(prob, cfg, **init)
+                float(r2.us.sum())
+                secs = time.perf_counter() - t0
+        finite = torch.isfinite(res.xs).flatten(1).all(1) & torch.isfinite(res.us).flatten(1).all(1)
+        check(bool(finite.all()), f"{label}: non-finite solutions")
+        conv = res.conv & finite
+        frac = conv.float().mean().item()
+        n16 = len(floor_x0)
+        # JAX's count from x0, and the least of it and its counts from
+        # x0·(1 ± 1e-15): the floor is that least count less one
+        jax_conv = int(ref[f"{path}_full_conv"].sum())
+        jax_least = min(jax_conv, *(int(ref[f"{path}_full_conv_{k}"].sum())
+                                    for k in ("up", "down")))
+        ours = int(conv[:n16].sum())
+        checks = mod.solution_checks(res.xs, res.us)
+        phys = {k: (v | ~conv).float().mean().item() for k, v in checks.items()}
+        hist = torch.bincount(res.num_iters.long()).tolist()
+        print(f"[{label}] {card}: {B / secs:.2f} solves/s ({secs:.2f} s a batch), "
+              f"frac_converged {frac:.4f}, first {n16} converged {ours} (JAX {jax_conv}, "
+              f"{jax_least} at least over one ulp of x0, floor {jax_least - 1}); physical "
+              f"checks on converged scenarios {phys}; num_iters histogram {hist}")
+        check(ours >= jax_least - 1, f"{label}: {ours} of the first {n16} converged, JAX "
+                                     f"{jax_conv} (least {jax_least})")
+        check(all(v == 1.0 for v in phys.values()), f"{label}: physical checks {phys}")
+        # card against CPU over the first iterations, held to the CPU spread
+        n, k = CENTROIDAL_CPU_SCENARIOS, CENTROIDAL_CPU_ITERS
+        kcfg = dataclasses.replace(cfg, max_iters=k, record_history=True)
+
+        def short(dev, scale=1.0):
+            p, i = centroidal_problem(path, x0s[:n] * scale, dev)
+            return at.solvers.solve(p, kcfg, **i)
+
+        t0 = time.perf_counter()
+        cpu = short("cpu")
+        spread = [short_gaps(short("cpu", s), cpu)
+                  for s in (1.0 + FREE_SPREAD_EPS, 1.0 - FREE_SPREAD_EPS)]
+        cpu_s = time.perf_counter() - t0
+        with plain_versions_raise():
+            card_k = short("cuda")
+        by_iter, traj, same = short_gaps(card_k, cpu)
+        lim_iter = [max(FREE_CPU_TOL, FREE_SPREAD_FACTOR * max(g[0][i] for g in spread))
+                    for i in range(len(by_iter))]
+        lim_traj = max(FREE_CPU_TOL, FREE_SPREAD_FACTOR * max(g[1] for g in spread))
+        print(f"[{label}] cpu check ({n} scenarios, {k} iterations, {cpu_s:.1f} s): "
+              f"num_iters and conv equal {same}; history rows rel err by iteration "
+              f"{[f'{e:.1e}' for e in by_iter]} (limits {[f'{e:.1e}' for e in lim_iter]}), "
+              f"iterate {traj:.2e} (limit {lim_traj:.1e})")
+        check(same, f"{label}: card and CPU iteration counts differ")
+        check(all(e <= t for e, t in zip(by_iter, lim_iter)) and traj <= lim_traj,
+              f"{label}: card and CPU solves differ")
+        out[path] = dict(batch=B, solves_per_sec=B / secs, batch_s=secs, first_solve_s=first_s,
+                         frac_converged=frac, first16_converged=ours, jax_first16=jax_conv,
+                         jax_first16_least=jax_least,
+                         physical=phys, num_iters_hist=hist, launches=launches,
+                         cpu_by_iter=by_iter, cpu_traj=traj, cpu_limits=lim_iter + [lim_traj])
+        del prob, res
+    return counted, out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -3119,13 +3650,15 @@ def main():
         free_counts, free = timed("free-dynamics", lambda: free_phase(cpu_refs))
         contact_counts, contacts = timed("contact", lambda: contact_phase(cpu_refs))
         table_counts, table = timed("ur5-table", lambda: table_phase(cpu_refs))
+        mpc_counts, mpc = timed("mpc", lambda: mpc_phase(smi))
+        cent_counts, cent = timed("centroidal", lambda: centroidal_phase(smi))
     finally:
         cpu_refs.stop()
         late.thread.join()
     # each kernel's launches: the sum over the paths' counted runs
     runs = [se2_counts, *medium_counts.values(), *talos_counts.values(), *pit_counts,
             *cart_counts.values(), inv_counts, *sens_counts, *free_counts.values(),
-            *contact_counts.values(), table_counts]
+            *contact_counts.values(), table_counts, *mpc_counts, *cent_counts]
     for k in (k1, k2, k3, k4, k5, k6):
         k["launches"] = sum(c[k["name"]] for c in runs)
     print(json.dumps({"slice": result, "fused_riccati": k1_times,
@@ -3136,7 +3669,8 @@ def main():
                       "sensitivity": sens, "free_dynamics": free,
                       "free_dynamics_launches": free_counts, "contact": contacts,
                       "contact_launches": contact_counts, "ur5_table": table,
-                      "ur5_table_launches": table_counts,
+                      "ur5_table_launches": table_counts, "mpc": mpc,
+                      "centroidal": cent,
                       "spd_solve": k2_extra, "fused_stage_sweep": k3_extra,
                       "fused_stage_forward": k4_shapes,
                       "fd_rows": k5_extra, "free_fd": k6_extra, "phase_s": phase_s,

@@ -260,12 +260,87 @@ def test_spd_solve_not_positive_definite_at_the_path_batches(cuda_device, dtype,
 
 @pytest.mark.cuda
 def test_spd_solve_rejects_oversized_systems(cuda_device):
-    """n = 65 is past the kernel; r is not bounded (r = 129 solves)."""
+    """No system is too large: n = 65 (past the register tiles, once the
+    kernel's bound) and r = 129 (split over blocks) both solve."""
     A, R = _spd_batch(np.random.default_rng(0), 2, 65, 3, torch.float64, cuda_device)
-    with pytest.raises(ValueError, match="n <= 64"):
-        spd_solve.spd_solve(A, R)
+    assert _rel(spd_solve.spd_solve(A, R), spd_solve.spd_solve_plain(A, R)) <= TOL[A.dtype]
     A, R = _spd_batch(np.random.default_rng(0), 2, 12, 129, torch.float64, cuda_device)
     assert _rel(spd_solve.spd_solve(A, R), spd_solve.spd_solve_plain(A, R)) <= TOL[A.dtype]
+
+
+# past n = 64 K2 takes its memory routes: [W | Y] in shared memory, the
+# column groups narrowed to fit (n = 65 .. 128 in fp64, .. 200 in fp32),
+# else in a global workspace (n = 200 in fp64, 320); a failing system NaN
+# alone; forward error to 1e-9 (fp64) or 1e-3 (fp32) and backward error
+# within 10x the plain Cholesky solve's
+LARGE_N = [65, 96, 128, 200, 320]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", LARGE_N)
+@pytest.mark.parametrize("rk", ["1", "n+1", "3n"])
+def test_spd_solve_past_n_64_matches_plain(cuda_device, dtype, n, rk):
+    r = {"1": 1, "n+1": n + 1, "3n": 3 * n}[rk]
+    M = 5
+    A, R = _spd_batch(np.random.default_rng(n + r), M, n, r, dtype, cuda_device)
+    A[2, 5, 5] = -1.0  # not positive definite: NaN in that system only
+    before = _build.LAUNCHES["spd_solve"]
+    X = spd_solve.spd_solve(A, R)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["spd_solve"] == before + 1
+    ref = spd_solve.spd_solve_plain(A, R)
+    ok = torch.arange(M, device=cuda_device) != 2
+    assert torch.isnan(X[2]).all()
+    assert torch.isfinite(X[ok]).all()
+    assert _rel(X[ok], ref[ok]) <= {torch.float64: 1e-9, torch.float32: 1e-3}[dtype]
+    e = _backward_errors(A[ok], X[ok], R[ok]).max().item()
+    ep = _backward_errors(A[ok], ref[ok], R[ok]).max().item()
+    assert e <= 10 * ep, (e, ep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,digits", [(torch.float32, 5), (torch.float64, 10)])
+@pytest.mark.parametrize("n", LARGE_N)
+@pytest.mark.parametrize("rk", ["1", "n+1", "3n"])
+def test_spd_solve_past_n_64_is_backward_stable(cuda_device, dtype, digits, n, rk):
+    r = {"1": 1, "n+1": n + 1, "3n": 3 * n}[rk]
+    _check_backward_stable(cuda_device, 4, n, r, dtype, digits)
+
+
+@pytest.mark.cuda
+def test_spd_solve_diff_past_n_64_matches_plain(cuda_device):
+    """spd_solve_diff at n = 96 on the card: forward-mode tangents (one
+    launch for all directions) and reverse mode against torch.func through
+    the plain Cholesky solve, fp64, to 1e-10 relative."""
+    from aligator_tpu_torch._linalg import chol_solve
+
+    g = torch.Generator(device=cuda_device).manual_seed(35)
+    K, n, r = 6, 96, 5
+    P = torch.randn((K, n, n), generator=g, device=cuda_device, dtype=torch.float64)
+    R = torch.randn((K, n, r), generator=g, device=cuda_device, dtype=torch.float64)
+    d = torch.randn((8, n, n), generator=g, device=cuda_device, dtype=torch.float64)
+
+    def f(solve):
+        def fn(z):
+            L = P + torch.einsum("i,ijk->jk", z, d)
+            return solve(L @ L.mT + n * torch.eye(n, dtype=L.dtype, device=L.device),
+                         R * (1 + z.sum()))
+        return fn
+
+    z = torch.zeros(8, dtype=torch.float64, device=cuda_device)
+    before = _build.LAUNCHES["spd_solve"]
+    J = torch.func.jacfwd(f(spd_solve.spd_solve_diff))(z)
+    assert _build.LAUNCHES["spd_solve"] - before == 2
+    J_ref = torch.func.jacfwd(f(chol_solve))(z)
+    torch.testing.assert_close(J, J_ref, rtol=0, atol=1e-10 * J_ref.abs().max().item())
+    grads = []
+    for solve in (spd_solve.spd_solve_diff, chol_solve):
+        Pg, Rg = P.clone().requires_grad_(), R.clone().requires_grad_()
+        A = Pg @ Pg.mT + n * torch.eye(n, dtype=P.dtype, device=P.device)
+        grads.append(torch.autograd.grad(solve(A, Rg).sin().sum(), (Pg, Rg)))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-10 * max(1.0, b.abs().max().item()))
 
 
 @pytest.mark.cuda
@@ -555,15 +630,96 @@ def test_fd_rows_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="dim 3 or 6"):
         fd_rows.fd_rows(model, *ins[:3], ins[3][:, :8], ins[4][:, :2], frames[:2],
                         (4, 4), kd=kd)
-    # a 65-joint chain: nv = nb = 65 is above the launcher's bound of 64
-    chain = rbd.make_model(
-        [dict(type=rbd.REVOLUTE, parent=i - 1, axis=(0.0, 1.0, 0.0),
-              placement_p=(0.0, 0.0, -0.1), mass=1.0, com=(0.0, 0.0, -0.05),
-              inertia=np.eye(3) * 1e-2) for i in range(65)],
-        [dict(name="tip", parent=64)], device=cuda_device)
-    z = torch.zeros((2, 65), dtype=torch.float64, device=cuda_device)
-    with pytest.raises(ValueError, match="does not take these dimensions"):
-        fd_rows.fd_rows(chain, z, z, z, z[:, :3], z[:, :1] + 1, (0,), (3,), kd=1.0)
+    # 17 contacts: past kMaxContacts
+    with pytest.raises(ValueError, match="1 to 16 contacts"):
+        fd_rows.fd_rows(model, *ins[:3], ins[3][:, :1].expand(4, 51), ins[4][:, :1].expand(4, 17),
+                        frames[:1] * 17, (3,) * 17, kd=kd)
+
+
+def _chain(n_rev, free_flyer, device):
+    from aligator_tpu_torch.modelling.multibody import robots
+    return robots.make_chain(n_rev, free_flyer, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fd_rows_past_the_old_caps_matches_plain(cuda_device, dtype):
+    """K5 on a free-flyer chain with nv = 70 (nb = 65) and ten 3D contacts:
+    its working set past shared memory takes the global workspace; against
+    the plain rows at the tolerances of test_fd_rows_matches_plain."""
+    model = _chain(64, True, "cpu")
+    assert model.nv == 70 and model.njoints == 65
+    rng = np.random.default_rng(8)
+    K, nv = 9, model.nv
+    frames = tuple(model.frame_id(f"f{b}") for b in range(3, 43, 4))
+    assert len(frames) == 10
+    q = model.configuration_space().integrate(
+        model.neutral()[None], torch.tensor(0.1 * rng.standard_normal((K, nv))))
+    act = np.ones((K, 10))
+    act[::3, 0] = 0.0
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=cuda_device)
+
+    ins = (t(q), t(0.2 * rng.standard_normal((K, nv))), t(rng.standard_normal((K, nv))),
+           t(10.0 * rng.standard_normal((K, 30))), t(act))
+    model = model.to(dtype, cuda_device)
+    before = _build.LAUNCHES["fd_rows"]
+    got = fd_rows.fd_rows(model, *ins, frames, (3,) * 10, kd=10.0)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fd_rows"] == before + 1
+    ref = fd_rows.fd_rows_plain(model, *ins, frames, (3,) * 10, kd=10.0)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert torch.isfinite(g).all()
+        assert _rel(g, r) <= {torch.float64: 1e-9, torch.float32: 1e-3}[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 300])
+def test_free_fd_past_the_old_caps_matches_plain(cuda_device, B):
+    """The free-dynamics kernel on a fixed-base chain of 40 revolute joints
+    (past the register route's 16 joints and 24 dofs: the global
+    workspace), and on a free-flyer chain of 65 joints and 70 dofs, against
+    model.aba to 1e-12 relative to the output's scale, the tolerance of
+    test_free_fd_matches_plain, or to 100 times the distance between
+    model.aba at q and at q·(1 ± 1e-15), whichever is larger: the long
+    chains' mass matrices (condition ~1e6 and more) magnify the rounding
+    of two orders of summation past 1e-12, as the free paths' solves are
+    held to their one-ulp spread."""
+    rng = np.random.default_rng(40)
+    for m in (_chain(40, False, cuda_device), _chain(64, True, cuda_device)):
+        dq, v, tau = (torch.tensor(rng.standard_normal((B, m.nv)), device=cuda_device)
+                      for _ in range(3))
+        q = m.configuration_space().integrate(m.neutral()[None], 0.5 * dq)
+        before = _build.LAUNCHES["free_fd"]
+        got = free_fd.free_fd(m, q, v, tau)
+        assert _build.LAUNCHES["free_fd"] == before + 1
+        ref = rbd.aba(m, q, v, tau)
+        spread = max((rbd.aba(m, q * s, v, tau) - ref).abs().max().item()
+                     for s in (1.0 + 1e-15, 1.0 - 1e-15))
+        scale = max(1.0, ref.abs().max().item())
+        assert (got - ref).abs().max().item() <= max(1e-12 * scale, 100 * spread)
+
+
+@pytest.mark.cuda
+def test_free_fd_far_from_the_origin_matches_plain(cuda_device):
+    """The FFSR's exploding-trial states (the base at |q| ~ 5e9 m, where a
+    line search's trial rollout took it): the kernel and its plain version,
+    model.aba, both at the first joint, agree to 1e-9 relative (at the world
+    origin the plain version's spatial inertias cancelled to garbage)."""
+    from aligator_tpu_torch.modelling.multibody import robots
+
+    m = robots.make_dual_arm_ffsr(device=cuda_device)
+    rng = np.random.default_rng(41)
+    B = 64
+    dq, v, tau = (torch.tensor(rng.standard_normal((B, m.nv)), device=cuda_device)
+                  for _ in range(3))
+    q = m.configuration_space().integrate(m.neutral()[None], 0.5 * dq)
+    q[:, :3] += torch.tensor(5e9 * rng.choice([-1.0, 1.0], (B, 3)), device=cuda_device)
+    got, ref = free_fd.free_fd(m, q, v, tau), free_fd.free_fd_plain(m, q, v, tau)
+    assert torch.isfinite(got).all() and torch.isfinite(ref).all()
+    assert _rel(got, ref) <= 1e-9
 
 
 # ---------------------------------------------------------------- slices
@@ -1407,3 +1563,115 @@ def test_convex_distance_is_captured_in_a_cuda_graph(cuda_device):
     graph.replay()
     torch.cuda.synchronize()
     torch.testing.assert_close(out, fn.value(sp, x, u), rtol=0, atol=1e-12)
+
+
+# ---------------------------------------------------------------- MPC and centroidal
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["se2", "humanoid"])
+def test_mpc_cycle_card_matches_cpu(cuda_device, plain_versions_raise, path):
+    """One receding-horizon cycle (apply the first control, shift the warm
+    start, re-solve at bench_mpc.py's warm budget) after a cold solve, B =
+    4, float32, on the card against the CPU: iteration counts and flags
+    equal, trajectories within 1e-3 (as the SE(2) path is held); K1 a Newton
+    step on the SE(2) car, K3 and K4 at humanoid dims."""
+    from aligator_tpu_torch.examples import medium_dims, mpc_se2
+
+    def make(dev):
+        if path == "se2":
+            return mpc_se2.create_mpc_problem(4, 50, torch.float32, dev, seed=2)
+        prob = medium_dims.make_humanoid_dims_problem(100, torch.float32, dev)
+        rng = np.random.default_rng(2)
+        x0 = prob.x0.cpu().numpy() + 0.05 * rng.standard_normal((4, prob.x0.shape[1]))
+        return dataclasses.replace(prob, x0=torch.tensor(x0, dtype=torch.float32,
+                                                         device=dev))
+
+    cold_cfg = at.solvers.ProxDDPConfig(**mpc_se2.COLD)
+    warm = at.solvers.ProxDDPConfig(**mpc_se2.WARM)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        if dev != "cpu":
+            plain_versions_raise()
+        prob = make(dev)
+        cold = at.solvers.solve(prob, cold_cfg)
+        before = _launches()
+        x, res = mpc_se2.mpc_cycle(prob, warm, prob.x0, cold.xs, cold.us)
+        counts = {k: v - before[k] for k, v in _launches().items()}
+        out[dev] = (cold, x, res, counts)
+    (ccold, cx, cres, _), (gcold, gx, gres, counts) = out["cpu"], out[cuda_device]
+    for a, b in ((gcold, ccold), (gres, cres)):
+        assert torch.equal(a.num_iters.cpu(), b.num_iters)
+        assert torch.equal(a.conv.cpu(), b.conv)
+        for name in ("xs", "us"):
+            assert (getattr(a, name).cpu() - getattr(b, name)).abs().max() <= 1e-3, name
+    assert (gx.cpu() - cx).abs().max() <= 1e-3
+    steps = int(gres.newton_steps.max())
+    want = dict(k1=steps, k2=0, k3=0, k4=0, k5=0) if path == "se2" else \
+        dict(k1=0, k2=0, k3=steps, k4=steps, k5=0)
+    assert counts == want
+
+
+CENTROIDAL_PATHS = ("wip", "centroidal", "kinodynamics", "continuous")
+
+
+def _centroidal_problem(path, x0s, dev):
+    from aligator_tpu_torch.examples import (centroidal_locomotion, continuous_centroidal,
+                                             solo_kinodynamics, wheeled_inverted_pendulum)
+
+    mods = {"wip": wheeled_inverted_pendulum, "centroidal": centroidal_locomotion,
+            "kinodynamics": solo_kinodynamics, "continuous": continuous_centroidal}
+    mod = mods[path]
+    x0 = torch.tensor(x0s, dtype=torch.float64, device=dev)
+    if path == "continuous":
+        prob = dataclasses.replace(mod.create_problem(device=dev)[0], x0=x0)
+        return mod, prob, dict(xs_init=mod.warm_start(prob))
+    make = {"wip": "create_wip_problem", "centroidal": "create_centroidal_problem",
+            "kinodynamics": "create_kinodynamics_problem"}[path]
+    return mod, dataclasses.replace(getattr(mod, make)(device=dev), x0=x0), {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", CENTROIDAL_PATHS)
+def test_centroidal_example_card_matches_cpu(cuda_device, plain_versions_raise, path):
+    """Each centroidal example at its published size, B = 4, float64, 4
+    iterations, on the card against the CPU, each output to 1e-9 relative or
+    to 100 times the largest distance between the CPU solve and those from
+    x0·(1 ± 1e-15), as the free and contact paths are held; the launches of
+    the route: K1 a Newton step for the pendulum, K2 twice a stage a step
+    for the centroidal gait (the per-stage loop, nx = 9 below K3 and K4),
+    K3 and K4 a step for the kinodynamics and the continuous gait."""
+    from aligator_tpu_torch.examples import (centroidal_locomotion, continuous_centroidal,
+                                             solo_kinodynamics, wheeled_inverted_pendulum)
+
+    mod = {"wip": wheeled_inverted_pendulum, "centroidal": centroidal_locomotion,
+           "kinodynamics": solo_kinodynamics, "continuous": continuous_centroidal}[path]
+    x0s = mod.initial_states(4, 12)
+    cfg = at.solvers.ProxDDPConfig(**{**mod.SOLVE_OPTIONS, "max_iters": 4})
+
+    def solve(dev, scale=1.0):
+        _, prob, init = _centroidal_problem(path, x0s * scale, dev)
+        return at.solvers.solve(prob, cfg, **init), prob
+
+    cpu, _ = solve("cpu")
+    spread = [solve("cpu", s)[0] for s in (1.0 + 1e-15, 1.0 - 1e-15)]
+    plain_versions_raise()
+    before = _launches()
+    gpu, prob = solve(cuda_device)
+    torch.cuda.synchronize()
+    counts = {k: v - before[k] for k, v in _launches().items()}
+    for name in ("num_iters", "conv"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+    for name in ("xs", "us", "lams", "prim_infeas", "dual_infeas"):
+        ref = getattr(cpu, name)
+        scale = max(1.0, ref.abs().max().item())
+        apart = max((getattr(r, name) - ref).abs().max().item() for r in spread) / scale
+        gap = (getattr(gpu, name).cpu() - ref).abs().max().item() / scale
+        assert gap <= max(1e-9, 100 * apart), (name, gap, apart)
+    steps = int(gpu.newton_steps.max())
+    assert steps > 0
+    want = {"wip": dict(k1=steps, k2=0, k3=0, k4=0, k5=0),
+            "centroidal": dict(k1=0, k2=2 * prob.nsteps * steps, k3=0, k4=0, k5=0),
+            "kinodynamics": dict(k1=0, k2=0, k3=steps, k4=steps, k5=0),
+            "continuous": dict(k1=0, k2=0, k3=steps, k4=steps, k5=0)}[path]
+    assert counts == want

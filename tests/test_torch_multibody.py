@@ -360,4 +360,4 @@ def test_spd_solve_contact_kkt_shapes_match_jax_kernel_interpret(n, r):
         jnp.asarray(A), jnp.asarray(R))
     got = spd_solve.spd_solve(torch.tensor(A), torch.tensor(R))
     assert _rel_err(got, ref) < TOL
-    assert spd_solve.MAX_N >= n and spd_solve.MAX_R >= r
+    assert spd_solve.MAX_R >= r  # one block's columns; n has no cap
