@@ -103,18 +103,18 @@ def se2_problem_from_numpy(params, nsteps: int = 50, device="cuda",
 
 def robot_model_from_numpy(params, dtype=None, device="cuda") -> rbd.RobotModel:
     """A :class:`~.modelling.multibody.model.RobotModel` from its leaves
-    ``jplac_p jplac_q axes mass com inertia gravity fplac_p fplac_q`` and its
-    topology ``joint_types parents frame_parents frame_names`` (sequences);
-    ``dtype`` defaults to the arrays' own. A model with an ``armature``
-    raises: the port's models have none yet."""
-    if params.get("armature") is not None:
-        raise NotImplementedError("a joint armature (MJCF/URDF models) is not ported "
-                                  "yet: it comes with the MJCF parser")
+    ``jplac_p jplac_q axes mass com inertia gravity fplac_p fplac_q``, the
+    optional per-dof ``armature`` (absent or None: none) and its topology
+    ``joint_types parents frame_parents frame_names`` (sequences); ``dtype``
+    defaults to the arrays' own."""
     dev = resolve(device)
     leaves = {k: torch.tensor(np.asarray(params[k]), dtype=dtype, device=dev)
               for k in rbd.LEAVES}
+    arm = params.get("armature")
     return rbd.RobotModel(
         **leaves,
+        armature=None if arm is None else torch.tensor(np.asarray(arm), dtype=dtype,
+                                                       device=dev),
         joint_types=tuple(str(t) for t in params["joint_types"]),
         parents=tuple(int(i) for i in params["parents"]),
         frame_parents=tuple(int(i) for i in params["frame_parents"]),

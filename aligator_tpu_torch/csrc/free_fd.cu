@@ -36,8 +36,11 @@
 //   itab: [type (nj) | parent (nj) | q index (nj) | v index (nj)],
 //         type 0 revolute, 1 prismatic, 2 free-flyer;
 //   ftab: [R0 (nj x 9) | p0 (nj x 3) | axis (nj x 3) | mass (nj) |
-//          com (nj x 3) | inertia (nj x 9) | gravity (3)], R0 the joint
-//         placements' rotations (row major).
+//          com (nj x 3) | inertia (nj x 9) | gravity (3) | armature (nv)],
+//         R0 the joint placements' rotations (row major), armature the
+//         per-dof reflected rotor inertia (zeros for a model without one),
+//         added to M's diagonal as the PyTorch version's mass_matrix does
+//         (RNEA's armature * a term vanishes in b = RNEA(q, v, 0)).
 //
 // Models of at most kMaxJ joints and kMaxV dofs keep their arrays in the
 // thread (local memory the compiler may hold in registers); a larger model
@@ -169,6 +172,7 @@ __device__ __forceinline__ void free_fd_one(
   const S* com = mass + nj;
   const S* inertia = com + 3 * nj;
   const S* grav = inertia + 9 * nj;
+  const S* armature = grav + 3;
   const S* qs = q + static_cast<long long>(sc) * nq;
   const S* vs = v + static_cast<long long>(sc) * nv;
   // Rw, pw: world poses, positions from `origin`; Sax: dof axes at
@@ -311,6 +315,7 @@ __device__ __forceinline__ void free_fd_one(
           M[(vidx[j] + cj) * ld + vidx[i] + ci] = 0;
         }
     }
+  for (int k = 0; k < nv; ++k) M[k * ld + k] += armature[k];
   // Cholesky M = L L' in the lower triangle, then L y = rhs, L' a = y
   bool ok = true;
   for (int j = 0; j < nv; ++j) {

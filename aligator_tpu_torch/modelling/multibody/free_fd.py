@@ -142,16 +142,19 @@ class _FreeFD(torch.autograd.Function):
 
 def _model_table(model: rbd.RobotModel, like: Tensor) -> Tensor:
     """The kernel's float table of a model: placement rotations and
-    translations, axes, masses, coms, inertias and gravity, made once a
-    model, dtype and device from its device tensors (not kept when made while
-    a CUDA graph is being captured)."""
+    translations, axes, masses, coms, inertias, gravity and the per-dof
+    armature (zeros for a model without one), made once a model, dtype and
+    device from its device tensors (not kept when made while a CUDA graph is
+    being captured)."""
     key = (like.dtype, like.device)
     cache = model.__dict__.setdefault("_free_fd_table", {})
     tab = cache.get(key)
     if tab is None:
         dt = like.dtype
+        arm = model.armature if model.armature is not None else \
+            model.mass.new_zeros(model.nv)
         parts = [quat_to_matrix(model.jplac_q.to(dt)), model.jplac_p, model.axes,
-                 model.mass, model.com, model.inertia, model.gravity]
+                 model.mass, model.com, model.inertia, model.gravity, arm]
         tab = torch.cat([p.to(dt).reshape(-1) for p in parts])
         if not torch.cuda.is_current_stream_capturing():
             cache[key] = tab

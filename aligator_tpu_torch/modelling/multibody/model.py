@@ -60,6 +60,9 @@ class RobotModel:
     gravity: Tensor  # (3,)
     fplac_p: Tensor  # (nf, 3)
     fplac_q: Tensor  # (nf, 4)
+    # per-dof reflected rotor inertia (MJCF/URDF ``armature``), added to the
+    # mass matrix's diagonal and to RNEA's τ as armature·q̈; None ⇔ zeros
+    armature: Optional[Tensor] = None  # (nv,)
     joint_types: tuple = ()
     parents: tuple = ()
     frame_parents: tuple = ()
@@ -91,9 +94,12 @@ class RobotModel:
         return self.frame_names.index(name)
 
     def to(self, dtype=None, device=None) -> "RobotModel":
-        """A copy with every leaf tensor cast to ``dtype`` on ``device``."""
+        """A copy with every leaf tensor (the armature too) cast to ``dtype``
+        on ``device``."""
+        arm = self.armature
         return dataclasses.replace(self, **{
-            k: getattr(self, k).to(dtype=dtype, device=device) for k in LEAVES})
+            k: getattr(self, k).to(dtype=dtype, device=device) for k in LEAVES},
+            armature=None if arm is None else arm.to(dtype=dtype, device=device))
 
     def configuration_space(self) -> Manifold:
         comps = [SE3() if t == FREEFLYER else VectorSpace(1)
@@ -138,13 +144,14 @@ def with_frame(model: RobotModel, name: str, parent: int, placement_p=None,
 
 
 def make_model(joints, frames=(), gravity=(0.0, 0.0, -9.81), dtype=torch.float64,
-               device="cuda") -> RobotModel:
+               device="cuda", armature=None) -> RobotModel:
     """Build a RobotModel from joint descriptions (as the JAX ``make_model``):
     ``joints`` are dicts with keys type, parent, placement_p, placement_q
     (optional), axis (rev/prism), mass, com, inertia (about the com, in the
     joint frame); ``frames`` dicts with name, parent (joint index),
-    placement_p, placement_q (optional). On the card unless ``device="cpu"``
-    is asked for."""
+    placement_p, placement_q (optional); ``armature`` an optional (nv,)
+    per-dof reflected rotor inertia. On the card unless ``device="cpu"`` is
+    asked for."""
     device = resolve(device)
     ident_q = (0.0, 0.0, 0.0, 1.0)
 
@@ -163,6 +170,8 @@ def make_model(joints, frames=(), gravity=(0.0, 0.0, -9.81), dtype=torch.float64
         gravity=torch.tensor(gravity, dtype=dtype, device=device),
         fplac_p=stack([f.get("placement_p", (0.0, 0.0, 0.0)) for f in frames], (3,)),
         fplac_q=stack([f.get("placement_q", ident_q) for f in frames], (4,)),
+        armature=None if armature is None else torch.tensor(
+            np.asarray(armature, np.float64), dtype=dtype, device=device),
         joint_types=tuple(j["type"] for j in joints),
         parents=tuple(int(j.get("parent", i - 1)) for i, j in enumerate(joints)),
         frame_parents=tuple(int(f["parent"]) for f in frames),
@@ -449,7 +458,10 @@ def rnea(model: RobotModel, q: Tensor, v: Tensor, a: Tensor,
     f = inertia_apply(m, c_w, I_w, Acc) + motion_cross_force(V, h)
     if ext_forces is not None:
         f = f - ext_forces_world(kin, ext_forces)
-    return (kin["Phi"] * torch.einsum("bk,...bs->...ks", kin["A"], f)).sum(-1)
+    tau = (kin["Phi"] * torch.einsum("bk,...bs->...ks", kin["A"], f)).sum(-1)
+    if model.armature is not None:
+        tau = tau + model.armature.to(a.dtype) * a
+    return tau
 
 
 def nonlinear_effects(model: RobotModel, q: Tensor, v: Tensor) -> Tensor:
@@ -482,7 +494,10 @@ def mass_matrix(model: RobotModel, q: Tensor, kin: Optional[dict] = None) -> Ten
     Psi = Phi[..., None, :, :] * A[:, :, None]  # (..., nj, nv, 6) masked axes
     IPsi = inertia_apply(m[:, None], c_w[..., None, :], I_w[..., None, :, :], Psi)
     M = torch.einsum("...bks,...bls->...kl", Psi, IPsi)
-    return 0.5 * (M + M.mT)
+    M = 0.5 * (M + M.mT)
+    if model.armature is not None:
+        M = M + torch.diag(model.armature.to(M.dtype))
+    return M
 
 
 def frame_placement(model: RobotModel, q: Tensor, frame_id: int,

@@ -6,19 +6,21 @@ their published nominal kinematic and inertial parameters, the dual-arm
 free-floating space robot (FFSR), a free sphere and the UR10 with a
 free-flying payload. Each builder returns a
 :class:`~.model.RobotModel` in ``dtype`` on ``device`` (the card unless
-``device="cpu"`` is asked for). The Panda read from its MJCF file
-(``make_panda_real``) is not ported: it needs the MJCF parser.
+``device="cpu"`` is asked for). :func:`make_panda_real` reads the real
+Panda from its MJCF file (:mod:`.mjcf`).
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
 
 from ..._device import resolve
-from .model import FREEFLYER, REVOLUTE, RobotModel, make_model
+from .mjcf import load_mjcf
+from .model import FREEFLYER, REVOLUTE, RobotModel, make_model, with_frame
 
 HALF_PI = math.pi / 2
 Z_AXIS = (0.0, 0.0, 1.0)
@@ -156,6 +158,36 @@ def make_panda(dtype=torch.float64, device="cuda") -> RobotModel:
     frames = [dict(name="ee", parent=6, placement_p=(0.0, 0.0, 0.107)),
               dict(name="elbow", parent=3)]
     return _build(joints, frames, dtype, device)
+
+
+# the vendored robot assets (MuJoCo Menagerie's Franka Panda, the FFSR
+# fork's XML): a directory beside the package unless ALIGATOR_REFERENCE_DIR
+# names another. Read at run time, not part of the repository.
+REFERENCE_DIR = os.environ.get(
+    "ALIGATOR_REFERENCE_DIR",
+    os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))), "reference"))
+PANDA_MJCF_PATH = os.path.join(REFERENCE_DIR, "franka_emika_panda", "panda_nohand.xml")
+
+
+def make_panda_real(path: str = None, dtype=torch.float64, device="cuda"):
+    """The real Franka Emika Panda (7 dofs, no hand) read from its MJCF
+    file (``path``, by default :data:`PANDA_MJCF_PATH` read at call time)
+    through :func:`.mjcf.load_mjcf`: its kinematic frames, identified
+    masses, coms, full rotational inertias and per-joint armature. Frames:
+    the file's bodies and sites, ``attachment`` (the flange) aliased as
+    ``ee``, and ``elbow`` (joint 3's frame), the names the reach example's
+    costs and collision pairs use. Returns ``(model, info)``; raises
+    ``FileNotFoundError`` when the file is absent (callers then take
+    :func:`make_panda`, the nominal model), as the JAX function does."""
+    p = PANDA_MJCF_PATH if path is None else path
+    if not os.path.exists(p):
+        raise FileNotFoundError(p)
+    model, info = load_mjcf(p, dtype=dtype, device=device)
+    att = model.frame_id("attachment")
+    model = with_frame(model, "ee", model.frame_parents[att], placement_p=model.fplac_p[att],
+                       placement_q=model.fplac_q[att])
+    return with_frame(model, "elbow", 3), info
 
 
 PANDA_Q_HOME = np.array([0.0, -0.785398, 0.0, -2.356194, 0.0, 1.570796, 0.785398])

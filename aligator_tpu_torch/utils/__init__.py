@@ -1,1 +1,2 @@
-"""utils — the solver trace logger and rollouts."""
+"""utils — the solver trace logger, rollouts, MPC cycles, problem
+interchange, NLP export, profiling ranges and plots."""

@@ -34,7 +34,7 @@ any failed check raises and the script exits non-zero:
    free-dynamics kernel
    (``csrc/free_fd.cu``, the forward dynamics of ``model.aba``) on every
    robot builder against its plain version and timed at the three paths'
-   shapes; the stability of K2 in fp32 (condition 1e5, both routes) and of
+   shapes and, with an armature, on the Panda read from MJCF and the FFSR; the stability of K2 in fp32 (condition 1e5, both routes) and of
    K3 on nearly singular KKT systems in a rotated control basis (fp32 at μ
    = 1e-4 and 1e-5, fp64 at 1e-8), each held to 10 times the backward
    error of the plain Cholesky solves (and K3 in fp32 to 10 times the
@@ -79,7 +79,7 @@ any failed check raises and the script exits non-zero:
    plain versions patched to raise and K1's launches checked against the
    Newton steps: solves/s, the converged fraction (held to a floor from
    the JAX package's CPU solve of the same initial states), the
-   iterations, a device-time breakdown of a solve cut to 2 iterations, and
+   iterations, a device-time breakdown of a solve cut to 1 iteration, and
    the first 16 scenarios again on the CPU for 4 iterations (the solve's
    path is chaotic: rounding differences part card and CPU after ~6); then
    at batch 64 the implicit midpoint rule (K1 with general E; its horizon
@@ -107,7 +107,7 @@ any failed check raises and the script exits non-zero:
    1024; ``examples/dual_ffsr_reach.py``, the dual-arm free-floating space
    robot, N = 60, batch 256; ``examples/acrobot.py``, N = 120, batch 1024;
    float64, the published options, ``rollout='nonlinear'``, the budgets
-   cut to 50, 50 and 130 iterations for the script's time), with the
+   cut to 50, 40 and 130 iterations for the script's time), with the
    plain versions patched to raise and the launch counts checked against
    the route (K2 twice a stage and K4 once a Newton step on the reaches,
    K1 once a Newton step on the acrobot, the free-dynamics kernel once a
@@ -125,10 +125,10 @@ any failed check raises and the script exits non-zero:
    throw (``examples/ur10_ballistic.py``: the arm and a free-flying payload,
    a 6D grasp as a loop constraint with position references, released at
    40% of the horizon; N = 80, dt = 0.025, linear rollout, its 400
-   iterations cut to 200 for the script's time,
+   iterations cut to 120 for the script's time,
    filter line search, from its warm start) at 64 targets, and the Solo
    jump (``examples/solo_jump.py``: 4 point feet under a stance, flight,
-   landing schedule, N = 28, its 60 iterations cut to 40,
+   landing schedule, N = 28, its 60 iterations cut to 30,
    ``rollout='nonlinear'``) at
    256 initial states, with the plain versions patched to raise and the
    launch counts checked against the route (the throw: K2 for the per-stage
@@ -176,7 +176,23 @@ any failed check raises and the script exits non-zero:
    friction cone on active contacts and none on swing ones, the pendulum
    upright at its goal within its torque bound), the first 2 scenarios
    against the CPU over 4 iterations as in phase 11;
-16. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
+16. the Panda reach on a Panda read from MJCF (``examples/panda_reach.py``
+   with ``real_model=True``): ``model_to_mjcf`` writes the nominal Panda
+   with its flange named ``attachment`` and Menagerie's armature 0.1 on its
+   7 dofs to a temporary file, ``make_panda_real`` reads it back through
+   ``load_mjcf`` (the model held to the one written: every table to 1e-12,
+   the armature equal); N = 50, dt = 0.02, the capsule post, the published
+   ``ProxDDPConfig`` with its 300 iterations cut to the fixture's budget,
+   float64, 256 starts about the home posture, with the plain versions
+   patched to raise and the launches checked against the route (K2 twice
+   a stage and K4 once a Newton step, the free-dynamics kernel with its
+   armature section once a stage of every rollout): solves/s,
+   frac_converged, the iterations, a breakdown of one iteration, the first
+   16 starts' converged count held to the JAX package's less one
+   (``tests/data/torch_ingest_ref.npz``), the first 4 against the CPU over
+   4 iterations as in phase 11, the elbow's and the flange's least
+   clearance to the post and the final flange error;
+17. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -186,9 +202,11 @@ import dataclasses
 import json
 import math
 import multiprocessing
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -296,8 +314,8 @@ CART_EXACT_ITERS = 20
 CART_FP32_ITERS = 20
 # the depth of the profiled solve (fp64, batch 1024): the profiler's
 # processing of a solve's ~64,000 kernels an iteration takes ~10 s an
-# iteration on an H100 (PERF.md §6)
-CART_PROFILE_ITERS = 2
+# iteration on an H100 (PERF.md §6); 2 before the ingested Panda's phase
+CART_PROFILE_ITERS = 1
 CART_CPU_SCENARIOS = 16
 # card vs CPU, both float64, over the CPU run's first CART_CPU_ITERS
 # iterations: the history rows and the iterate reached, max |Δ| relative to
@@ -321,10 +339,12 @@ FREE_NSTEPS = {"ur5": 40, "ffsr": 60, "acrobot": 120}
 # phase after them also needs: the FFSR reach 120 -> 60 -> 50 (JAX
 # converges 6 of the first 16 within 50, 10 within 60), the UR5 reach 100
 # -> 50, the acrobot 250 -> 150 -> 130 (the MPC and centroidal phases' time;
-# JAX converges 11 of the first 16 within 130, 13 within 150); the first 16
+# JAX converges 11 of the first 16 within 130, 13 within 150); for the
+# ingested Panda's phase the FFSR 50 -> 40 (JAX converges 1 of the first
+# 16 within 40); the first 16
 # scenarios are then held to the JAX package's count of those that
 # converged within the cut budget, less one
-FREE_MAX_ITERS = {"ffsr": 50, "ur5": 50, "acrobot": 130}
+FREE_MAX_ITERS = {"ffsr": 40, "ur5": 50, "acrobot": 130}
 FREE_CPU_SCENARIOS = 16
 # card vs CPU, relative, by iteration: these solves magnify any difference
 # of rounding from their first Newton step. Two CPU solves of the first 16
@@ -372,8 +392,9 @@ UR10_LANDING_TOL = 1e-3  # tests/test_ballistic.py's bound
 # within the cut budget (scenario 0 at 302), less one, which within 320
 # was 0 already (the card converged none of the first 4 there, 2 of the 64
 # at 265 and 288 iterations); the jump's 60 -> 40 (JAX converges 19 of
-# the first 64 within 40, as within 60)
-CONTACT_MAX_ITERS = {"ur10": 200, "solo": 40}
+# the first 64 within 40, as within 60); for the ingested Panda's phase
+# the throw's 200 -> 120 and the jump's 40 -> 30
+CONTACT_MAX_ITERS = {"ur10": 120, "solo": 30}
 CONTACT_PROFILE_ITERS = 1
 # phase 13, the UR5 table reach (examples/ur5_table.py: N = 30, dt = 0.05,
 # |tau| <= 80, the table plane and the box; ProxDDPConfig(tol=1e-4,
@@ -386,6 +407,20 @@ TABLE_REF = "tests/data/torch_collision_ref.npz"
 TABLE_CPU_SCENARIOS = 16
 TABLE_Q0 = (0.0, -1.2, 1.6, 0.0, 0.0, 0.0)  # examples/ur5_table.py's start
 TABLE_PROFILE_ITERS = 2
+# phase 16, the Panda reach on a Panda read from MJCF (examples/panda_reach.py,
+# real_model=True, on the armature Panda that write_panda_mjcf writes; N =
+# 50, dt = 0.02, the post; ProxDDPConfig(tol=1e-4, mu_init=1e-2,
+# rollout="nonlinear"), its 300 iterations cut to the fixture's
+# full_budget for the script's time; the JAX package converges none of
+# the first 16 within it, nor within 300 from the home posture) at B =
+# 256 starts, float64; the first 16 against the JAX package's converged
+# count (tests/data/torch_ingest_ref.npz, tools/torch_ingest_fixture.py),
+# the first 4 over CART_CPU_ITERS iterations against the CPU as the free
+# paths are
+PANDA_BATCH, PANDA_NSTEPS = 256, 50
+PANDA_REF = "tests/data/torch_ingest_ref.npz"
+PANDA_CPU_SCENARIOS = 4
+PANDA_PROFILE_ITERS = 1
 INV_DEMOS = (16, 4096)
 INV_STEPS = 100  # cut from 300 (the published fit) for the free-dynamics phase
 INV_TIMED_STEPS = 5  # 10 before the MPC and centroidal phases
@@ -884,6 +919,9 @@ def k2_phase():
     shapes += [("centroidal loop", CENTROIDAL_BATCHES["centroidal"], n, 10, f64)
                for n in (9, 12)]
     shapes += [("large n", 64, n, n + 1, f64) for n in (96, 200, 320)]
+    # the reach on the Panda read from MJCF: its per-stage loop (n = ndx 14
+    # and nu 7, against ndx + 1 = 15 columns) at its batch
+    shapes += [("Panda loop", PANDA_BATCH, n, 15, f64) for n in (14, 7)]
     by_shape = {}
     for i, (what, M, n, r, dtype) in enumerate(shapes):
         A, R = spd_batch(M, n, r, dtype, SEED + 10 + i)
@@ -1277,7 +1315,9 @@ def k4_phase():
             # the continuous gait (T = 211, nc = 41) and the kinodynamics
             # (T = 65, nc = 20) at 256
             (CENTROIDAL_BATCHES["continuous"], 211, 21, 12, 41, f64),
-            (CENTROIDAL_BATCHES["kinodynamics"], 65, 25, 20, 20, f64))):
+            (CENTROIDAL_BATCHES["kinodynamics"], 65, 25, 20, 20, f64),
+            # the reach on the Panda read from MJCF (T = 51, nc = 7 + 2) at 256
+            (PANDA_BATCH, PANDA_NSTEPS + 1, 14, 7, 9, f64))):
         gains, x0, lam0 = random_gains(B, T, nx, nu, nc, dt, SEED + 10 + i)
         got = fs.forward(gains, x0, lam0)
         ref = fs.forward_plain(gains, x0, lam0)
@@ -1338,7 +1378,7 @@ def free_fd_flops(model):
     the world inertia, momenta and forces and the 6x6 spatial inertia and
     its subtree sum; per dof its axis, velocity and bias terms and I_c S;
     per related dof pair one 6-term product; the Cholesky factor and its two
-    substitutions."""
+    substitutions; with an armature its nv additions to M's diagonal."""
     nj, nv = model.njoints, model.nv
     pairs = 0
     vfirst, nvj = [], []
@@ -1354,7 +1394,7 @@ def free_fd_flops(model):
             j = model.parents[j]
     return (nj * (60 + 45 + 30 + 15 + 90 + 60 + 60 + 40 + 108 + 42)
             + nv * (30 + 12 + 36 + 72 + 12) + 12 * pairs
-            + nv ** 3 // 3 + 2 * nv * nv)
+            + nv ** 3 // 3 + 2 * nv * nv + (nv if model.armature is not None else 0))
 
 
 def free_fd_states(model, B, seed, dtype):
@@ -1375,7 +1415,8 @@ def free_fd_phase():
     every robot builder in fp64 (B = 1000, no block size divides it) and on
     the FFSR in fp32, then timed at the free-dynamics paths' shapes (one
     stage of the rollout: the acrobot and the UR5 at 1024, the FFSR at
-    256)."""
+    256), with an armature (the Panda read from MJCF, the FFSR; B = 256)
+    and past the register route."""
     from aligator_tpu_torch.modelling.multibody import free_fd, robots
 
     names = ("make_pendulum", "make_double_pendulum", "make_ur5", "make_ur10", "make_panda",
@@ -1420,6 +1461,35 @@ def free_fd_phase():
               f"{ms / bms:.0f}x)")
         by_shape[case] = dict(B=B, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                               nbytes=nbytes, flops=flops)
+    # with an armature (its section of the model table, added to M's
+    # diagonal): the Panda read from MJCF (Menagerie's 0.1 a joint) and the
+    # FFSR with the fork's 10 on its 14 arm dofs, at B = 256
+    from aligator_tpu_torch.examples import panda_reach
+
+    ffsr = robots.make_dual_arm_ffsr(device="cuda")
+    arm = torch.full((ffsr.nv,), 10.0, dtype=torch.float64, device="cuda")
+    arm[:6] = 0.0
+    for case, m in (("panda_armature", panda_reach.armature_panda(device="cuda")),
+                    ("ffsr_armature", dataclasses.replace(ffsr, armature=arm))):
+        B = 256
+        q, v, tau = free_fd_states(m, B, SEED + 73, torch.float64)
+        got, ref = free_fd.free_fd(m, q, v, tau), free_fd.free_fd_plain(m, q, v, tau)
+        err = rel_err(got, ref)
+        worst_abs = max(worst_abs, abs_err(got, ref))
+        moved = rel_err(free_fd.free_fd_plain(dataclasses.replace(m, armature=None), q, v, tau),
+                        ref)
+        ms = kernel_ms(lambda: free_fd.launch(m, q, v, tau), 50, "free_fd_kernel")
+        plain_ms = avg_time_ms(lambda: free_fd.free_fd_plain(m, q, v, tau), 20)
+        nbytes = 8 * B * (m.nq + 3 * m.nv)
+        flops = B * free_fd_flops(m)
+        bms, by = bound(nbytes, flops, fp64=True)
+        print(f"[kernel] free_fd fp64 {case} B={B} (nj={m.njoints}, nv={m.nv}, armature "
+              f"{m.armature.max().item():g}): vs plain {err:.2e} (tol {FP64_TOL:g}; without "
+              f"the armature the result moves by {moved:.1e}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms; bound {bms:.5f} ms ({by}; kernel {ms / bms:.0f}x)")
+        check(err <= FP64_TOL and moved > 1e-6, f"free_fd {case}: {err}, moved {moved}")
+        by_shape[case] = dict(B=B, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                              nbytes=nbytes, flops=flops, err=err)
     # past the register route's 16 joints and 24 dofs: the global workspace
     # (a fixed chain of 40 links; a free-flyer chain of 65 joints, 70 dofs)
     for case, (n_rev, ff) in (("chain40", (40, False)), ("chain65", (64, True))):
@@ -2927,14 +2997,16 @@ CPU_REF_FIELDS = ("history", "history_xs", "history_us", "xs", "us", "num_iters"
 
 def free_cpu_refs(conn):
     """Worker process, CPU only: each free path's first FREE_CPU_SCENARIOS
-    scenarios, each contact path's first CONTACT_CPU_SCENARIOS and the UR5
-    table reach's first TABLE_CPU_SCENARIOS solved for CART_CPU_ITERS
+    scenarios, each contact path's first CONTACT_CPU_SCENARIOS, the UR5
+    table reach's first TABLE_CPU_SCENARIOS and the ingested Panda reach's
+    first PANDA_CPU_SCENARIOS (its MJCF file written in the worker's own
+    temporary directory) solved for CART_CPU_ITERS
     iterations with the published options from x0 and from
     x0·(1 ± FREE_SPREAD_EPS); sends ``("ok",
     {case: [fields of each solve as numpy arrays]})`` or ``("error",
     traceback)``."""
     import aligator_tpu_torch as at
-    from aligator_tpu_torch.examples import ur5_table
+    from aligator_tpu_torch.examples import panda_reach, ur5_table
 
     try:
         torch.set_num_threads(2)
@@ -2946,6 +3018,10 @@ def free_cpu_refs(conn):
                   p["init"]) for case, p in contact_paths().items()]
         jobs += [("ur5_table", ur5_table.SOLVE_OPTIONS,
                   lambda s: table_problem("cpu", TABLE_CPU_SCENARIOS, s), None)]
+        panda_dir = tempfile.mkdtemp()
+        panda_path = write_panda_file(panda_dir)
+        jobs += [("panda_mjcf", panda_reach.SOLVE_OPTIONS, lambda s: panda_problem(
+            panda_path, "cpu", PANDA_CPU_SCENARIOS, s), None)]
         for case, opts, make, init in jobs:
             cfg = at.solvers.ProxDDPConfig(**{**opts, "max_iters": CART_CPU_ITERS},
                                            record_history=True, record_history_trajs=True)
@@ -2956,6 +3032,7 @@ def free_cpu_refs(conn):
                 r = at.solvers.solve(prob, cfg, **(init(prob) if init else {}))
                 out[case].append(dict({k: getattr(r, k).numpy() for k in CPU_REF_FIELDS},
                                       secs=time.perf_counter() - t0))
+        shutil.rmtree(panda_dir, ignore_errors=True)
         conn.send(("ok", out))
     except BaseException:
         conn.send(("error", traceback.format_exc()))
@@ -3606,6 +3683,147 @@ def centroidal_phase(card):
     return counted, out
 
 
+# ---------------------------------------------------------------- phase 16
+
+
+def write_panda_file(directory):
+    """The armature Panda's MJCF text (``panda_reach.write_panda_mjcf``) in
+    ``directory``; returns its path."""
+    from aligator_tpu_torch.examples import panda_reach
+
+    path = f"{directory}/panda.xml"
+    panda_reach.write_panda_mjcf(path)
+    return path
+
+
+def panda_problem(path, dev, n, scale=1.0):
+    """The published reach on the Panda read from ``path``
+    (``create_panda_problem(real_model=True)`` with ``PANDA_MJCF_PATH``
+    pointed at it) with the first ``n`` of the PANDA_BATCH starts,
+    multiplied by ``scale``."""
+    from aligator_tpu_torch.examples import panda_reach
+    from aligator_tpu_torch.modelling.multibody import robots
+
+    robots.PANDA_MJCF_PATH = path
+    prob = panda_reach.create_panda_problem(nsteps=PANDA_NSTEPS, real_model=True, device=dev)
+    x0 = panda_reach.initial_states(PANDA_BATCH, SEED)[:n] * scale
+    return dataclasses.replace(prob, x0=torch.tensor(x0, device=dev))
+
+
+def panda_launches(steps, trials, n, iters):
+    """The reach's launches: K2 twice a stage and K4 once a Newton step (the
+    per-stage loop; ndx 14, general E), the free-dynamics kernel
+    (:func:`free_fd_launches`)."""
+    return {k: 0 for k in KERNEL_NAMES} | dict(
+        spd_solve=2 * n * steps, fused_stage_forward=steps,
+        free_fd=free_fd_launches(trials, n, iters))
+
+
+def post_clearance(model, xs, frame):
+    """Each trajectory's least distance ``(B,)`` from ``frame`` to the
+    post's axis, less the post's radius (the margin the collision
+    constraint keeps non-negative)."""
+    from aligator_tpu_torch.examples import panda_reach
+    from aligator_tpu_torch.modelling.multibody import model as rbd
+
+    a, b = (torch.tensor(p, dtype=xs.dtype, device=xs.device) for p in panda_reach.POST)
+    _, p = rbd.frame_placement(model, xs[..., :model.nq], model.frame_id(frame))
+    ab = b - a
+    t = (((p - a) @ ab) / (ab @ ab)).clamp(0.0, 1.0)
+    d = (p - (a + t[..., None] * ab)).norm(dim=-1)
+    return (d - panda_reach.POST_RADIUS).amin(-1)
+
+
+def panda_mjcf_phase(cpu_refs):
+    """The Panda reach on a Panda read from MJCF at the published size,
+    float64, B = PANDA_BATCH: the text written (the JAX package's, from the
+    fixture), the model read back held to the one written, then solves/s,
+    frac_converged, the iterations, launch counts, a breakdown of one
+    iteration, the first 16 starts' converged count held to the JAX
+    package's less one and the first 4 against the CPU (``cpu_refs``) for
+    CART_CPU_ITERS iterations; the flange's and the elbow's least clearance
+    to the post and the final flange error."""
+    import aligator_tpu_torch as at
+    from aligator_tpu_torch.examples import panda_reach
+    from aligator_tpu_torch.modelling.multibody import free_fd, robots
+    from aligator_tpu_torch.modelling.multibody import model as rbd
+    from aligator_tpu_torch.modelling.multibody.mjcf_export import model_to_mjcf
+
+    ref = np.load(PANDA_REF)
+    written = panda_reach.armature_panda(device="cuda")
+    check(model_to_mjcf(written, name="panda") == str(ref["mjcf_text"]),
+          "panda: the port's MJCF text is not the JAX package's")
+    n_jax = len(ref["full_conv"])
+    check(np.array_equal(panda_reach.initial_states(PANDA_BATCH, SEED)[:n_jax],
+                         ref["full_x0s"]), "panda: the starts are not the JAX reference's")
+    tmp = tempfile.mkdtemp()
+    try:
+        path = write_panda_file(tmp)
+        model, info = robots.make_panda_real(path, device="cuda")
+        errs = {k: rel_err(getattr(model, k), getattr(written, k))
+                for k in ("jplac_p", "axes", "mass", "com", "inertia", "gravity")}
+        errs["jplac_R"] = rel_err(rbd.quat_to_matrix(model.jplac_q),
+                                  rbd.quat_to_matrix(written.jplac_q))
+        for name in ("attachment", "elbow"):
+            i, j = model.frame_id(name), written.frame_id(name)
+            errs[f"frame {name}"] = max(rel_err(model.fplac_p[i], written.fplac_p[j]),
+                                        rel_err(rbd.quat_to_matrix(model.fplac_q[i]),
+                                                rbd.quat_to_matrix(written.fplac_q[j])))
+        same_arm = model.armature is not None and torch.equal(model.armature, written.armature)
+        print(f"[panda_mjcf] the model read back from {len(str(ref['mjcf_text']))} bytes of "
+              f"MJCF: {model.njoints} joints, frames {model.frame_names}; largest table "
+              f"error against the model written {max(errs.values()):.2e} (tol 1e-12; "
+              f"{ {k: f'{e:.1e}' for k, e in errs.items()} }); armature equal {same_arm} "
+              f"({model.armature.tolist() if model.armature is not None else None})")
+        check(max(errs.values()) <= 1e-12 and same_arm
+              and (model.joint_types, model.parents) == (written.joint_types, written.parents),
+              f"panda: the model read back differs from the one written: {errs}")
+        prob = panda_problem(path, "cuda", 1)
+        solved = prob.stages.dynamics.ode.model
+        table = free_fd._model_table(solved, prob.x0)
+        check(solved.armature is not None and "attachment" in solved.frame_names
+              and torch.equal(table[-solved.nv:], solved.armature),
+              "panda: the problem does not solve the ingested model with its armature")
+        budget = int(ref["full_budget"])
+        cfg = at.solvers.ProxDDPConfig(**{**panda_reach.SOLVE_OPTIONS, "max_iters": budget})
+        counts, out = nonlinear_run(
+            "panda_mjcf", lambda dev, n: panda_problem(path, dev, n), cfg, PANDA_BATCH,
+            panda_launches, PANDA_CPU_SCENARIOS, profile=True,
+            profile_iters=PANDA_PROFILE_ITERS, cpu_refs=cpu_refs.get()["panda_mjcf"],
+            keep=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = out.pop("result")
+    jax_n = int(ref["full_conv"].sum())
+    card_n = int(out["conv"][:n_jax].sum())
+    print(f"[panda_mjcf] converged on the first {n_jax} within {budget} iterations: card "
+          f"{card_n}, JAX {jax_n} (floor {jax_n - 1}); JAX's iterations "
+          f"{ref['full_num_iters'].tolist()}, the card's {out['num_iters'][:n_jax].tolist()}")
+    check(card_n >= jax_n - 1, f"panda: {card_n} of {n_jax} converged, JAX {jax_n}")
+    conv = out["conv"]
+    clear = {f: post_clearance(solved, res.xs, f).cpu() for f in ("ee", "elbow")}
+    _, p_f = rbd.frame_placement(solved, res.xs[:, -1, :solved.nq], solved.frame_id("ee"))
+    err = (p_f - torch.tensor(panda_reach.P_TARGET, dtype=p_f.dtype, device=p_f.device)
+           ).norm(dim=-1).cpu()
+
+    def over_conv(t, fn):
+        return float(fn(t[conv])) if bool(conv.any()) else float("nan")
+
+    print(f"[panda_mjcf] least clearance to the post (the constraint keeps it >= 0): flange "
+          f"{float(clear['ee'].min()):.3e} m, elbow {float(clear['elbow'].min()):.3e} m over "
+          f"the batch ({over_conv(clear['ee'], torch.min):.3e}, "
+          f"{over_conv(clear['elbow'], torch.min):.3e} over the converged); the final flange "
+          f"error: median {float(err.median()):.3e} m, largest {float(err.max()):.3e} m, "
+          f"largest over the converged {over_conv(err, torch.max):.3e} m")
+    out.update(first_converged=card_n, jax_first_converged=jax_n, budget=budget,
+               clearance_flange_min=float(clear["ee"].min()),
+               clearance_elbow_min=float(clear["elbow"].min()),
+               final_flange_err_median=float(err.median()),
+               final_flange_err_max=float(err.max()), model_table_err=max(errs.values()))
+    del out["conv"], out["num_iters"], res
+    return counts, out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -3652,13 +3870,14 @@ def main():
         table_counts, table = timed("ur5-table", lambda: table_phase(cpu_refs))
         mpc_counts, mpc = timed("mpc", lambda: mpc_phase(smi))
         cent_counts, cent = timed("centroidal", lambda: centroidal_phase(smi))
+        panda_counts, panda = timed("panda-mjcf", lambda: panda_mjcf_phase(cpu_refs))
     finally:
         cpu_refs.stop()
         late.thread.join()
     # each kernel's launches: the sum over the paths' counted runs
     runs = [se2_counts, *medium_counts.values(), *talos_counts.values(), *pit_counts,
             *cart_counts.values(), inv_counts, *sens_counts, *free_counts.values(),
-            *contact_counts.values(), table_counts, *mpc_counts, *cent_counts]
+            *contact_counts.values(), table_counts, *mpc_counts, *cent_counts, panda_counts]
     for k in (k1, k2, k3, k4, k5, k6):
         k["launches"] = sum(c[k["name"]] for c in runs)
     print(json.dumps({"slice": result, "fused_riccati": k1_times,
@@ -3670,7 +3889,8 @@ def main():
                       "free_dynamics_launches": free_counts, "contact": contacts,
                       "contact_launches": contact_counts, "ur5_table": table,
                       "ur5_table_launches": table_counts, "mpc": mpc,
-                      "centroidal": cent,
+                      "centroidal": cent, "panda_mjcf": panda,
+                      "panda_mjcf_launches": panda_counts,
                       "spd_solve": k2_extra, "fused_stage_sweep": k3_extra,
                       "fused_stage_forward": k4_shapes,
                       "fd_rows": k5_extra, "free_fd": k6_extra, "phase_s": phase_s,

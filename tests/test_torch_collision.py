@@ -106,13 +106,6 @@ def test_solves_match_jax(case):
     small_solve_matches(case, build)
 
 
-def test_panda_real_model_is_not_substituted():
-    """The real Panda (make_panda_real) is not ported: asking for it raises
-    rather than building the nominal model."""
-    with pytest.raises(NotImplementedError, match="make_panda_real"):
-        panda_reach.create_panda_problem(nsteps=2, real_model=True, device="cpu")
-
-
 @pytest.mark.slow
 def test_fixture_matches_a_live_jax_solve():
     """The problems' derivatives and the small solves of the fixture

@@ -1675,3 +1675,183 @@ def test_centroidal_example_card_matches_cpu(cuda_device, plain_versions_raise, 
             "kinodynamics": dict(k1=0, k2=0, k3=steps, k4=steps, k5=0),
             "continuous": dict(k1=0, k2=0, k3=steps, k4=steps, k5=0)}[path]
     assert counts == want
+
+
+# ---------------------------------------------------------------- model ingestion, armature
+
+
+def _armature_model(case, dev):
+    """The free-dynamics kernel's armature cases: the armature Panda
+    (Menagerie's 0.1 on each joint), the FFSR with 10 on its 14 arm dofs
+    (as the fork's file), a fixed-base chain of 40 links with 0.05 (the
+    global workspace)."""
+    from aligator_tpu_torch.examples import panda_reach
+    from aligator_tpu_torch.modelling.multibody import robots
+
+    if case == "panda":
+        return panda_reach.armature_panda(device=dev)
+    m = robots.make_dual_arm_ffsr(device=dev) if case == "ffsr" else _chain(40, False, dev)
+    arm = torch.full((m.nv,), 10.0 if case == "ffsr" else 0.05, dtype=torch.float64,
+                     device=dev)
+    if case == "ffsr":
+        arm[:6] = 0.0
+    return dataclasses.replace(m, armature=arm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,B", [("panda", 1024), ("ffsr", 256), ("chain40", 256)])
+def test_free_fd_with_armature_matches_plain(cuda_device, case, B):
+    """The free-dynamics kernel's armature section (added to M's diagonal
+    before its Cholesky factor) on the register route (the Panda, the
+    FFSR) and on the global workspace (40 links) against model.aba, whose
+    mass matrix adds it too: fp64 to 1e-12 relative to the output's scale,
+    or 100 times the plain version's distance from itself one ulp away in
+    q on the chain (test_free_fd_past_the_old_caps_matches_plain); fp32 on
+    the register route to 1e-2 (chip_smoke.py's FREE_FD_FP32_TOL). Without
+    the armature the result moves."""
+    rng = np.random.default_rng(42)
+    m = _armature_model(case, cuda_device)
+    dq, v, tau = (torch.tensor(rng.standard_normal((B, m.nv)), device=cuda_device)
+                  for _ in range(3))
+    q = m.configuration_space().integrate(m.neutral()[None], 0.5 * dq)
+    before = _build.LAUNCHES["free_fd"]
+    got = free_fd.free_fd(m, q, v, tau)
+    assert _build.LAUNCHES["free_fd"] == before + 1
+    ref = rbd.aba(m, q, v, tau)
+    spread = 0.0
+    if case == "chain40":
+        spread = max((rbd.aba(m, q * s, v, tau) - ref).abs().max().item()
+                     for s in (1.0 + 1e-15, 1.0 - 1e-15))
+    scale = max(1.0, ref.abs().max().item())
+    assert (got - ref).abs().max().item() <= max(1e-12 * scale, 100 * spread)
+    bare = free_fd.free_fd(dataclasses.replace(m, armature=None), q, v, tau)
+    assert (bare - got).abs().max().item() > 1e-6 * scale
+    if case != "chain40":  # fp32 on the register route, as chip_smoke.py checks it
+        m32 = m.to(torch.float32)
+        q32, v32, t32 = q.float(), v.float(), tau.float()
+        got32, ref32 = free_fd.free_fd(m32, q32, v32, t32), rbd.aba(m32, q32, v32, t32)
+        assert _rel(got32, ref32) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fd_rows_do_not_see_the_armature(cuda_device, dtype):
+    """K5's rows, ∂(RNEA + Jᵀλ)/∂(q, v), do not depend on the armature
+    (armature·a depends on neither): on the free-flyer chain (nv = 70, the
+    global workspace) the kernel's rows with and without an armature are
+    equal."""
+    model = _chain(64, True, "cpu")
+    rng = np.random.default_rng(9)
+    K, nv = 9, model.nv
+    frames = tuple(model.frame_id(f"f{b}") for b in range(3, 43, 4))
+    q = model.configuration_space().integrate(
+        model.neutral()[None], torch.tensor(0.1 * rng.standard_normal((K, nv))))
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=cuda_device)
+
+    ins = (t(q), t(0.2 * rng.standard_normal((K, nv))), t(rng.standard_normal((K, nv))),
+           t(10.0 * rng.standard_normal((K, 30))), t(np.ones((K, 10))))
+    model = model.to(dtype, cuda_device)
+    with_arm = dataclasses.replace(model, armature=t(np.linspace(0.01, 0.5, nv)))
+    before = _build.LAUNCHES["fd_rows"]
+    rows = fd_rows.fd_rows(with_arm, *ins, frames, (3,) * 10, kd=10.0)
+    rows0 = fd_rows.fd_rows(model, *ins, frames, (3,) * 10, kd=10.0)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fd_rows"] == before + 2
+    for r, r0 in zip(rows, rows0):
+        assert torch.equal(r, r0)
+
+
+@pytest.mark.cuda
+def test_ingested_panda_reach_card_matches_cpu(cuda_device, plain_versions_raise, tmp_path,
+                                               monkeypatch):
+    """The reach on the Panda read back from the MJCF text that
+    ``write_panda_mjcf`` writes (``make_panda_real``: armature, the
+    ``attachment`` flange), 4 of chip_smoke.py's starts, N = 10, 4
+    iterations, on the card against the CPU (1e-9 or 100 times the one-ulp
+    spread, as test_collision_example_card_matches_cpu): K2 twice a stage,
+    K4 once a Newton step, the free-dynamics kernel with its armature
+    section once a stage of each rollout and once a derivative
+    evaluation."""
+    from aligator_tpu_torch.examples import panda_reach
+    from aligator_tpu_torch.modelling.multibody import robots
+    from aligator_tpu_torch.solvers import proxddp
+    from aligator_tpu_torch.solvers.proxddp import TrialGraphWarning
+
+    path = str(tmp_path / "panda.xml")
+    panda_reach.write_panda_mjcf(path)
+    monkeypatch.setattr(robots, "PANDA_MJCF_PATH", path)
+    N = 10
+    x0 = torch.tensor(panda_reach.initial_states(4, 0))
+    cfg = at.solvers.ProxDDPConfig(**{**panda_reach.SOLVE_OPTIONS, "max_iters": 4})
+
+    def make(dev):
+        prob = panda_reach.create_panda_problem(nsteps=N, device=dev)
+        model = prob.stages.dynamics.ode.model
+        assert model.armature is not None and "attachment" in model.frame_names
+        return dataclasses.replace(prob, x0=x0.to(dev))
+
+    cpu = at.solvers.solve(make("cpu"), cfg)
+    spread = [at.solvers.solve(dataclasses.replace(make("cpu"), x0=x0 * s), cfg)
+              for s in (1.0 + 1e-15, 1.0 - 1e-15)]
+    plain_versions_raise()
+    before = _launches()
+    fd_before, trials_before = _build.LAUNCHES["free_fd"], proxddp.NONLINEAR_TRIALS
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", TrialGraphWarning)
+        gpu = at.solvers.solve(make(cuda_device), cfg)
+    torch.cuda.synchronize()
+    counts = {k: v - before[k] for k, v in _launches().items()}
+    for name in ("num_iters", "conv"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+    for name in ("xs", "us", "lams", "prim_infeas", "dual_infeas"):
+        ref = getattr(cpu, name)
+        scale = max(1.0, ref.abs().max().item())
+        apart = max((getattr(r, name) - ref).abs().max().item() for r in spread) / scale
+        gap = (getattr(gpu, name).cpu() - ref).abs().max().item() / scale
+        assert gap <= max(1e-9, 100 * apart), (name, gap, apart)
+    steps, iters = int(gpu.newton_steps.max()), int(gpu.num_iters.max())
+    assert steps > 0
+    assert counts == dict(k2=2 * N * steps, k3=0, k4=steps, k1=0, k5=0)
+    trials = proxddp.NONLINEAR_TRIALS - trials_before
+    assert _build.LAUNCHES["free_fd"] - fd_before == N * (trials + 1) + iters + 1
+
+
+@pytest.mark.cuda
+def test_gar_examples_card_match_cpu(cuda_device, k1_built, plain_versions_raise):
+    """The gar examples on the card against the CPU (fp64, 1e-9 relative):
+    gar_lqr's serial solve on K1 (once, (4, 2, 1) with explicit E), its
+    4-leg parallel solve and θ backward on K2; split_and_join's and
+    solve_cyclic's θ backward sweeps and θ solves on K2."""
+    from aligator_tpu_torch.examples import gar_cyclic_lqr, gar_lqr, gar_lqr_join
+
+    def lqr(dev):
+        return lqr_problem.random_convex_problem(np.random.default_rng(0), 2, 23, 4, 2, 1,
+                                                 device=dev)
+
+    def join(dev):
+        return lqr_problem.random_convex_problem(np.random.default_rng(42), 2, 9, 2, 1, 0,
+                                                 device=dev)
+
+    cpu = (gar_lqr.run(lqr("cpu")), gar_lqr_join.split_and_join(join("cpu"), 5, 1e-8),
+           gar_cyclic_lqr.solve_cyclic(gar_cyclic_lqr.create_cyclic_problem(device="cpu")))
+    plain_versions_raise()
+    before = _launches()
+    out = gar_lqr.run(lqr(cuda_device))
+    torch.cuda.synchronize()
+    counts = {k: v - before[k] for k, v in _launches().items()}
+    assert counts["k1"] == 1 and counts["k2"] > 0 and counts["k3"] == 0
+    for name in ("serial", "parallel", "dense"):
+        for g, r in zip(out[name], cpu[0][name]):
+            assert _rel(g.cpu(), r) <= 1e-9, name
+    for name in ("th_grad", "th_hess"):
+        assert _rel(out[name].cpu(), cpu[0][name]) <= 1e-9, name
+    k2 = _build.LAUNCHES["spd_solve"]
+    card = (gar_lqr_join.split_and_join(join(cuda_device), 5, 1e-8),
+            gar_cyclic_lqr.solve_cyclic(gar_cyclic_lqr.create_cyclic_problem(device=cuda_device)))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["spd_solve"] > k2
+    for got, ref in zip(card, cpu[1:]):
+        for g, r in zip(got, ref):
+            assert _rel(g.cpu(), r) <= 1e-9

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from aligator_tpu._pytree import replace
 from aligator_tpu.modelling.multibody import model as jrbd
 from aligator_tpu.modelling.multibody import residuals as jres
 from aligator_tpu.modelling.multibody import robots as jrobots
@@ -132,10 +133,18 @@ def test_with_frame_and_armature():
     assert tm2.frame_names == jm2.frame_names and tm2.frame_parents == jm2.frame_parents
     _close(tm2.fplac_p, jm2.fplac_p, 0.0)
     _close(tm2.fplac_q, jm2.fplac_q, 0.0)
+    # an armature carries across, survives with_frame and the casts, and
+    # enters the mass matrix as the JAX package's does
+    arm = np.linspace(0.1, 0.6, jm.nv)
     leaves = _tool().model_leaves(jm)
-    leaves["armature"] = np.ones(jm.nv)
-    with pytest.raises(NotImplementedError, match="armature"):
-        convert.robot_model_from_numpy(leaves, device="cpu")
+    leaves["armature"] = arm
+    tm3 = convert.robot_model_from_numpy(leaves, device="cpu")
+    _close(tm3.armature, arm, 0.0)
+    assert rbd.with_frame(tm3, "tool", 4).armature is tm3.armature
+    assert tm3.to(torch.float32).armature.dtype == torch.float32
+    q = np.linspace(-1.0, 1.0, jm.nq)
+    _close(rbd.mass_matrix(tm3, _t(q)[None])[0],
+           jrbd.mass_matrix(replace(jm, armature=jax.numpy.asarray(arm)), q), 1e-12)
 
 
 @pytest.mark.parametrize("model", ["ur5", "ffsr", "double_pendulum", "free_sphere",
