@@ -57,11 +57,14 @@
 // An instance whose working set exceeds a block's shared memory (a chain
 // of ~40 dofs or more: the pairs and slots grow as nv^2) takes the same
 // code with the working set in a slice of a global workspace, which the
-// wrapper allocates; it then loads with plain copies. Up to kMaxContacts
-// contacts; nv, nb and nc have no cap.
+// wrapper allocates; it then loads with plain copies. nv, nb, nc and the
+// number of contacts have no cap.
 //
-// The contact configuration (body, dim 3 or 6 and offset of each contact,
-// kd, kp) is a runtime table, so one build serves every robot. C interface
+// The contact configuration is runtime data, so one build serves every
+// robot: the body, dim (3 or 6) and offset of each contact sit at the end of
+// the device index lists (Index: cbody, cdim, coff), which the wrapper
+// builds once per (model, contact list), and the kernel reads them through
+// the read-only cache; kd and kp are kernel parameters. C interface
 // (one function per scalar type): returns -1 for dimensions it does not
 // take or a missing workspace, otherwise cudaGetLastError() after the
 // launch.
@@ -77,14 +80,10 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMinBlocks = 4;  // at most 128 registers a thread
-constexpr int kMaxContacts = 16;
 constexpr size_t kMaxSmem = 232448;  // a block's opt-in shared memory on an H100
 
 struct Table {
   int ncont;
-  int body[kMaxContacts];
-  int dim[kMaxContacts];
-  int off[kMaxContacts];
   int npair, nslot, nrel, nsp, neb;  // the index lists' lengths (Index)
   double kd, kp;
 };
@@ -108,10 +107,11 @@ struct Out {
 // sub_off[k + 1] - 1]; entry e < nrel of ra1 is ent[e] = k nv + j, with
 // ent_pair[e] the pair (j, k) or -1 and eb[eb_off[e] .. eb_off[e + 1] - 1]
 // the slots (b, j) of the bodies both k and j move (b ascending); entries
-// nrel .. nv^2 - 1 are zero
+// nrel .. nv^2 - 1 are zero. Contact c is on body cbody[c], of dim cdim[c]
+// and at offset coff[c] of lambda and the rows.
 struct Index {
   int pair_j, pair_k, slot_b, slot_j, slot_of, sp_off, sp, sub_off, sub, ent, ent_pair,
-      eb_off, eb, total;
+      eb_off, eb, cbody, cdim, coff, total;
   __host__ __device__ Index(int nv, int nb, const Table& t) {
     pair_j = 0;
     pair_k = pair_j + t.npair;
@@ -126,7 +126,10 @@ struct Index {
     ent_pair = ent + nv * nv;
     eb_off = ent_pair + t.nrel;
     eb = eb_off + t.nrel + 1;
-    total = eb + t.neb;
+    cbody = eb + t.neb;
+    cdim = cbody + t.ncont;
+    coff = cdim + t.ncont;
+    total = coff + t.ncont;
   }
 };
 
@@ -329,13 +332,13 @@ fd_rows_kernel(const int nv, const int nb, const int nc, const Table tab,
     } else {
       const int c = e - npair - nv - nb;
       const S* pc = sm + L.pc + c * 3;
-      const S* Vbc = sm + L.Vb + tab.body[c] * 6;
-      const S* wf = sm + L.lam + tab.off[c];
+      const S* Vbc = sm + L.Vb + __ldg(ix + I.cbody + c) * 6;
+      const S* wf = sm + L.lam + __ldg(ix + I.coff + c);
       S t[3];
       cr3(pc, wf, t);
       for (int r = 0; r < 3; ++r) {
         sm[L.Fc + c * 6 + r] = wf[r];
-        sm[L.Fc + c * 6 + 3 + r] = t[r] + (tab.dim[c] == 6 ? wf[3 + r] : S(0));
+        sm[L.Fc + c * 6 + 3 + r] = t[r] + (__ldg(ix + I.cdim + c) == 6 ? wf[3 + r] : S(0));
       }
       cr3(Vbc + 3, pc, t);
       for (int r = 0; r < 3; ++r) sm[L.pdot + c * 3 + r] = t[r] + Vbc[r];
@@ -380,8 +383,8 @@ fd_rows_kernel(const int nv, const int nb, const int nc, const Table tab,
         sm[L.DFV + e * 6 + s] = dfv[s] + t1[s] + t3[s];
       }
       for (int c = 0; c < ncont; ++c) {
-        if (tab.body[c] != b) continue;
-        const int dim = tab.dim[c], off = tab.off[c];
+        if (__ldg(ix + I.cbody + c) != b) continue;
+        const int dim = __ldg(ix + I.cdim + c), off = __ldg(ix + I.coff + c);
         const S* pc = sm + L.pc + c * 3;
         const S* omega = Vbb + 3;
         const S* AccA = sm + L.Accb + b * 6 + 3;
@@ -438,10 +441,11 @@ fd_rows_kernel(const int nv, const int nb, const int nc, const Table tab,
       sm[L.F + k * 6 + s] = f;
     } else {
       const int c = (e - nslot - nv * 6) / nv, j = (e - nslot - nv * 6) % nv;
-      if (__ldg(ix + I.slot_of + tab.body[c] * nv + j) >= 0) continue;
-      S* rq = out.r2q + (m * nc + tab.off[c]) * nv + j;
-      S* rv = out.r2v + (m * nc + tab.off[c]) * nv + j;
-      for (int r = 0; r < tab.dim[c]; ++r) rq[r * nv] = rv[r * nv] = S(0);
+      if (__ldg(ix + I.slot_of + __ldg(ix + I.cbody + c) * nv + j) >= 0) continue;
+      const int off = __ldg(ix + I.coff + c), dim = __ldg(ix + I.cdim + c);
+      S* rq = out.r2q + (m * nc + off) * nv + j;
+      S* rv = out.r2v + (m * nc + off) * nv + j;
+      for (int r = 0; r < dim; ++r) rq[r * nv] = rv[r * nv] = S(0);
     }
   }
   __syncthreads();
@@ -467,7 +471,7 @@ fd_rows_kernel(const int nv, const int nb, const int nc, const Table tab,
       }
       if (pkj >= 0) q += dot6(sm + L.SxS + pkj * 6, sm + L.F + k * 6);
       for (int c = 0; c < ncont; ++c) {
-        const int bc = tab.body[c];
+        const int bc = __ldg(ix + I.cbody + c);
         if (__ldg(ix + I.slot_of + bc * nv + k) < 0 ||
             __ldg(ix + I.slot_of + bc * nv + j) < 0)
           continue;
@@ -481,12 +485,13 @@ fd_rows_kernel(const int nv, const int nb, const int nc, const Table tab,
   }
 }
 
-// the contact table from the host arrays; false for what the kernel does
-// not take
+// the table from the host array (ncont, the index lists' lengths, then the
+// ncont bodies and the ncont dims, as the device lists end with them);
+// false for what the kernel does not take
 bool read_table(int nv, int nb, const int* table, const double* gains, Table& tab, int& nc) {
   tab = Table{};
   tab.ncont = table[0];
-  const int* lens = table + 1 + 2 * kMaxContacts;
+  const int* lens = table + 1;
   tab.npair = lens[0];
   tab.nslot = lens[1];
   tab.nrel = lens[2];
@@ -496,15 +501,14 @@ bool read_table(int nv, int nb, const int* table, const double* gains, Table& ta
   if (tab.npair < 1 || tab.npair > nv * nv || tab.nslot < 1 || tab.nslot > nb * nv ||
       tab.nrel < 1 || tab.nrel > nv * nv || tab.nsp < 0 || tab.neb < 0)
     return false;
-  if (tab.ncont < 1 || tab.ncont > kMaxContacts) return false;
+  if (tab.ncont < 1) return false;
+  const int* body = table + 6;
+  const int* dim = body + tab.ncont;
   nc = 0;
   for (int c = 0; c < tab.ncont; ++c) {
-    tab.body[c] = table[1 + c];
-    tab.dim[c] = table[1 + kMaxContacts + c];
-    tab.off[c] = nc;
-    if (tab.body[c] < 0 || tab.body[c] >= nb) return false;
-    if (tab.dim[c] != 3 && tab.dim[c] != 6) return false;
-    nc += tab.dim[c];
+    if (body[c] < 0 || body[c] >= nb) return false;
+    if (dim[c] != 3 && dim[c] != 6) return false;
+    nc += dim[c];
   }
   tab.kd = gains[0];
   tab.kp = gains[1];
@@ -555,13 +559,14 @@ int entry(int K, int nv, int nb, const int* table, const double* gains, const S*
 
 }  // namespace
 
-// Arguments: K instances, nv, nb; the host tables `table` (ncont, then
-// kMaxContacts body indices, then kMaxContacts dims, then the lengths npair,
-// nslot, nrel, nsp, neb of the index lists) and `gains` (kd, kp); the
+// Arguments: K instances, nv, nb; the host tables `table` (ncont, the
+// lengths npair, nslot, nrel, nsp, neb of the index lists, then ncont body
+// indices and ncont dims) and `gains` (kd, kp); the
 // per-instance inputs S (K,nv,6), v (K,nv), Vb (K,nb,6), Vpar, Vdof
 // (K,nv,6), Ca (K,nb,6), Capar (K,nv,6), Accb, h, y (K,nb,6), I6
 // (K,nb,6,6), lam (K,nc), pc (K,ncont,3), act (K,ncont); the index lists
-// (int32 on the device, laid out as Index says); the outputs ra1q, ra1v
+// and the contacts' bodies, dims and offsets (int32 on the device, laid out
+// as Index says); the outputs ra1q, ra1v
 // (K,nv,nv), r2q, r2v (K,nc,nv); the workspace, K times
 // fd_rows_workspace(nv, nb, table, sizeof(S)) words (null where that is 0).
 #define FD_ROWS_ENTRY(NAME, T)                                                       \

@@ -20,8 +20,11 @@ most two leg groups of uniform length.
 
 Requirement: ``nc0 == nx``. Operating domain: stage-wise jointly convex
 costs (what ProxDDP emits); on indefinite stage blocks a leg sweep can
-produce an indefinite value function and NaN, as in the JAX package. The
-multi-device ``solve_sharded`` of the JAX package is not ported.
+produce an indefinite value function and NaN, as in the JAX package.
+
+:func:`solve_sharded` runs the legs across devices instead, one leg a rank
+of a :class:`..parallel.mesh.Mesh` axis, with one all-gather of the legs'
+interface payload a solve.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 from torch import Tensor
 
 from .._linalg import mv
+from ..parallel import mesh as _mesh
 from . import block_tridiag, riccati
 from .lqr_problem import LQRProblem, add_parameterization, batch_param
 
@@ -75,7 +79,12 @@ def solve(problem: LQRProblem, mudyn, mueq, legs: int,
 
     Returns ``(xs, us, vs, lams)`` (each ``(B, T, ·)``) equal to rounding to
     the serial solve, and with ``return_gains`` a :class:`ParallelGains`
-    appended. ``mudyn``/``mueq`` are floats or ``(B,)`` tensors."""
+    appended. ``mudyn``/``mueq`` are floats or ``(B,)`` tensors.
+
+    The JAX function's ``time_sharding=`` hint has no counterpart here:
+    without a single-controller compiler a placement hint has no meaning,
+    and the legs already run as one batch on one device. Its counterpart is
+    :func:`solve_sharded`, a leg a device."""
     kn = problem.knots
     Bsz, T = kn.Q.shape[:2]
     nx = kn.nx
@@ -125,29 +134,10 @@ def solve(problem: LQRProblem, mudyn, mueq, legs: int,
     P_leg, p_leg = heads("Pmat"), heads("pvec")
     Vxt_leg, Vtt_leg, vt_leg = heads("Vxt"), heads("Vtt"), heads("vt")
 
-    # 4. the condensed system in [λ0, x_0^(0), θ_0, x_0^(1), θ_1, ...,
-    #    x_0^(L-1)] (reference assembleCondensedSystem)
-    K = 2 * legs
-    diag = kn.Q.new_zeros((Bsz, K, nx, nx))
-    lower = kn.Q.new_zeros((Bsz, K - 1, nx, nx))
-    rhs = kn.Q.new_zeros((Bsz, K, nx))
-    diag[:, 0] = -md[:, None, None] * eye
-    diag[:, 1::2] = P_leg
-    diag[:, 2::2] = Vtt_leg[:, :legs - 1]
-    lower[:, 0] = problem.G0.mT
-    lower[:, 1::2] = Vxt_leg[:, :legs - 1].mT
-    lower[:, 2::2] = kn.E[:, idx].mT
-    rhs[:, 0] = -problem.g0
-    rhs[:, 1::2] = -p_leg
-    rhs[:, 2::2] = -vt_leg[:, :legs - 1]
-    bt_factors = block_tridiag.factorize(diag, lower)
-    sol = block_tridiag.solve_factored(bt_factors, rhs)
-    for _ in range(refine_steps):
-        resid = rhs - block_tridiag.matmul(diag, lower, sol)
-        sol = sol + block_tridiag.solve_factored(bt_factors, resid)
-    lam_heads, x_heads = sol[:, 0::2], sol[:, 1::2]
-    # θ_i is the costate at the head of leg i + 1; the last leg's is zero
-    thetas = torch.cat([lam_heads[:, 1:], torch.zeros_like(lam_heads[:, :1])], 1)
+    # 4. the condensed system, solved per scenario
+    lam_heads, x_heads, thetas, bt_factors = _condensed_solve(
+        P_leg, Vxt_leg, Vtt_leg, kn.E[:, idx], p_leg, vt_leg, problem.G0, problem.g0,
+        md, refine_steps)
 
     # 5. the legs' forward substitutions, one routed forward a group
     parts, gain_parts = [], []
@@ -184,3 +174,103 @@ def solve(problem: LQRProblem, mudyn, mueq, legs: int,
         kff = kff.clone()
         kff[:, 0] = kff[:, 0] + mv(Kth0, mv(W1, x_heads[:, 0]))
     return out + (ParallelGains(kff=kff, K=K_all),)
+
+
+def _condensed_solve(P_leg, Vxt_leg, Vtt_leg, E_if, p_leg, vt_leg, G0, g0, md,
+                     refine_steps):
+    """The condensed block-tridiagonal system in the interface variables
+    ``[λ0, x_0^(0), θ_0, x_0^(1), θ_1, ..., x_0^(L-1)]`` (reference
+    ``assembleCondensedSystem``) from the legs' head values ``(B, legs, ·)``
+    and the interface E blocks ``(B, legs - 1, nx, nx)``, solved with
+    ``refine_steps`` refinement passes. Returns ``(lam_heads, x_heads,
+    thetas)``, each ``(B, legs, nx)``, and the system's block factors."""
+    Bsz, legs, nx = p_leg.shape
+    eye = torch.eye(nx, dtype=p_leg.dtype, device=p_leg.device)
+    K = 2 * legs
+    diag = p_leg.new_zeros((Bsz, K, nx, nx))
+    lower = p_leg.new_zeros((Bsz, K - 1, nx, nx))
+    rhs = p_leg.new_zeros((Bsz, K, nx))
+    diag[:, 0] = -md[:, None, None] * eye
+    diag[:, 1::2] = P_leg
+    diag[:, 2::2] = Vtt_leg[:, :legs - 1]
+    lower[:, 0] = G0.mT
+    lower[:, 1::2] = Vxt_leg[:, :legs - 1].mT
+    lower[:, 2::2] = E_if.mT
+    rhs[:, 0] = -g0
+    rhs[:, 1::2] = -p_leg
+    rhs[:, 2::2] = -vt_leg[:, :legs - 1]
+    factors = block_tridiag.factorize(diag, lower)
+    sol = block_tridiag.solve_factored(factors, rhs)
+    for _ in range(refine_steps):
+        resid = rhs - block_tridiag.matmul(diag, lower, sol)
+        sol = sol + block_tridiag.solve_factored(factors, resid)
+    lam_heads, x_heads = sol[:, 0::2], sol[:, 1::2]
+    # θ_i is the costate at the head of leg i + 1; the last leg's is zero
+    thetas = torch.cat([lam_heads[:, 1:], torch.zeros_like(lam_heads[:, :1])], 1)
+    return lam_heads, x_heads, thetas, factors
+
+
+def solve_sharded(problem: LQRProblem, mudyn, mueq, mesh, axis_name: str = "t",
+                  assume_explicit: bool = False, refine_steps: int = 1):
+    """Parallel-in-time solve with one leg a rank along the mesh axis
+    ``axis_name`` (counterpart of the JAX package's ``shard_map`` variant).
+
+    Each rank takes leg ``i`` (its coordinate on the axis), knots ``[i L,
+    (i + 1) L)`` of the ``(B, T, ·)`` problems with ``L = T / legs``;
+    parameterizes it by θ and sets its own interface knot (``setupKnot`` at
+    ``L - 1``, zero on the last leg); runs the θ sweep on it
+    (:func:`.riccati.sweep`: the per-stage loop with K2 on the card); then
+    makes the one collective of the solve, an all-gather over the axis'
+    group of its interface payload ``(B, 4 nx² + 2 nx)`` (P, Vxt, Vtt, the
+    interface E block, p, vt); solves the small condensed system
+    redundantly on every rank; and forward-substitutes its own leg from its
+    head state, costate and θ (:func:`.riccati.forward`: K4 at ``nx >=
+    12``).
+
+    Requires ``T % legs == 0`` and ``nc0 == nx``. Returns this rank's leg
+    ``(xs, us, vs, lams)``, each ``(B, L, ·)``; the JAX function returns the
+    global arrays sharded by leg, and assembling the legs here would be a
+    second collective, so a caller that wants the whole horizon gathers
+    them. The problem's tensors should be on the rank's device."""
+    legs, i = mesh.size(axis_name), mesh.index(axis_name)
+    kn = problem.knots
+    Bsz, T = kn.Q.shape[:2]
+    nx = kn.nx
+    if T % legs:
+        raise ValueError(f"solve_sharded requires horizon+1 ({T}) divisible by the mesh "
+                         f"axis ({legs})")
+    if problem.nc0 != nx:
+        raise ValueError("parallel solver requires nc0 == nx (pad G0)")
+    L = T // legs
+    md = batch_param(mudyn, problem)
+    me = batch_param(mueq, problem)
+    my = kn.map(lambda a: a[:, i * L:(i + 1) * L])
+    if my.nth != nx:
+        my = add_parameterization(my, nx)
+    if i < legs - 1:
+        # this leg's outgoing interface (reference setupKnot)
+        eye = torch.eye(nx, dtype=kn.Q.dtype, device=kn.Q.device)
+        my = dataclasses.replace(my, Gx=my.Gx.clone(), Gu=my.Gu.clone(),
+                                 Gth=my.Gth.clone(), gamma=my.gamma.clone())
+        my.Gx[:, L - 1] = my.A[:, L - 1].mT
+        my.Gu[:, L - 1] = my.B[:, L - 1].mT
+        my.Gth[:, L - 1] = -md[:, None, None] * eye
+        my.gamma[:, L - 1] = my.f[:, L - 1]
+    stages = riccati.sweep(my, md, me, assume_explicit)
+
+    # the interface payload, 4 nx² + 2 nx numbers a scenario, gathered once
+    heads = [stages[k][:, 0] for k in ("Pmat", "Vxt", "Vtt")] + [my.E[:, L - 1]]
+    payload = torch.cat([h.flatten(1) for h in heads]
+                        + [stages["pvec"][:, 0], stages["vt"][:, 0]], -1)
+    gathered = _mesh.all_gather(mesh, axis_name, payload).transpose(0, 1)  # (B, legs, ·)
+    n2 = nx * nx
+    P_leg, Vxt_leg, Vtt_leg, E_leg = (
+        gathered[..., k * n2:(k + 1) * n2].reshape(Bsz, legs, nx, nx) for k in range(4))
+    p_leg, vt_leg = gathered[..., 4 * n2:4 * n2 + nx], gathered[..., 4 * n2 + nx:]
+    lam_heads, x_heads, thetas, _ = _condensed_solve(
+        P_leg, Vxt_leg, Vtt_leg, E_leg[:, :legs - 1], p_leg, vt_leg, problem.G0,
+        problem.g0, md, refine_steps)
+
+    x0, lam0 = x_heads[:, i], lam_heads[:, i]
+    facs = riccati.RiccatiFactors(x0=x0, lam0=lam0, **stages)
+    return riccati.forward(facs, theta=thetas[:, i], x0=x0, lam0=lam0)

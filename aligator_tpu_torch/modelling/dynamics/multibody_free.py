@@ -5,9 +5,9 @@ the phase-space ODE ``(q̇, v̇) = (v, FD(q, v, τ))`` with the forward dynamics
 of :func:`~..multibody.model.aba`. The free and flexible ODEs give their
 acceleration derivatives analytically (``acc_derivatives``, the protocol
 that :class:`~.ode.IntegratorSemiImplEuler` assembles (A, B, E) from); the
-other integrators differentiate ``xdot`` by autograd. The free ODE's
-``acceleration`` (semi-implicit Euler's forward step) runs the
-free-dynamics kernel on the card.
+other integrators differentiate ``xdot`` by autograd. The free and
+flexible ODEs' ``acceleration`` (semi-implicit Euler's forward step) runs
+the free-dynamics kernel on the card.
 """
 
 from __future__ import annotations
@@ -92,6 +92,13 @@ class MultibodyFlexibleFwdDynamics(ODE):
     def xdot(self, space, x, u):
         q, v = _split(self.model, x)
         return torch.cat([v, rbd.aba(self.model, q, v, self._tau(q, v, u))], -1)
+
+    def acceleration(self, space, x, u):
+        """The acceleration alone, for a rollout: the free-dynamics kernel
+        on the card under the spring-damper torque, as
+        :meth:`MultibodyFreeFwdDynamics.acceleration`."""
+        q, v = _split(self.model, x)
+        return free_fd.free_fd(self.model, q, v, self._tau(q, v, u))
 
     def acc_derivatives(self, space, x, u):
         """Analytic acceleration derivatives; the spring-damper torque adds

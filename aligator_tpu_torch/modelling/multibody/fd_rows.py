@@ -11,14 +11,14 @@ the primal solution (a*, λ*) of the contact dynamics:
 :func:`fd_rows` routes by device: CPU tensors take :func:`fd_rows_plain`
 (the batched port of ``derivatives._fd_rows_std``, which forms the
 inertia-transport tensor dI₆ explicitly); CUDA tensors take the kernel of
-``csrc/fd_rows.cu`` in float32 or float64 (up to ``MAX_CONTACTS``
-contacts, any nv; an instance whose working set exceeds shared memory in a
-global workspace allocated here), fed by
-:func:`.derivatives.fd_rows_inputs`, or raise. The contact configuration
-(body, dim and offset of each contact, kd, kp) is a runtime table of the
-kernel, so one build serves every robot; the kernel walks only the nonzeros
-of the topology masks, from the index lists of :func:`support_lists`, built
-once per model. Launches count in ``_build.LAUNCHES["fd_rows"]``.
+``csrc/fd_rows.cu`` in float32 or float64 (any number of 3D/6D contacts,
+any nv; an instance whose working set exceeds shared memory in a global
+workspace allocated here), fed by :func:`.derivatives.fd_rows_inputs`, or
+raise. The contact configuration is runtime data, so one build serves every
+robot: the body, dim and offset of each contact end the device index lists
+that the kernel walks (the nonzeros of the topology masks, from
+:func:`support_lists`), built once per (model, contact list); kd and kp are
+kernel parameters. Launches count in ``_build.LAUNCHES["fd_rows"]``.
 """
 
 from __future__ import annotations
@@ -36,7 +36,6 @@ from . import model as rbd
 from .contact import contact_offsets
 from .derivatives import fd_rows_inputs, point_derivative_rows, rnea_tensors
 
-MAX_CONTACTS = 16  # keep in sync with kMaxContacts in csrc/fd_rows.cu
 _SOURCE = "fd_rows"
 _C_FUNCS = {torch.float32: "fd_rows_f32", torch.float64: "fd_rows_f64"}
 INPUTS = ("S", "v", "Vb", "Vpar", "Vdof", "Ca", "Capar", "Accb", "h", "y", "I6",
@@ -91,9 +90,14 @@ def support_lists(joint_types: tuple, parents: tuple):
 
 
 @functools.lru_cache(maxsize=None)
-def _device_lists(joint_types: tuple, parents: tuple, device):
+def _device_lists(joint_types: tuple, parents: tuple, bodies: tuple, dims: tuple,
+                  device):
+    """The index lists of :func:`support_lists` followed by the contacts'
+    bodies, dims and offsets (``Index`` in ``csrc/fd_rows.cu``), on the
+    device, and the lists' lengths."""
     lists, lens = support_lists(joint_types, parents)
-    return torch.as_tensor(lists, device=device), lens
+    table = np.concatenate([lists, bodies, dims, contact_offsets(dims)])
+    return torch.as_tensor(table.astype(np.int32), device=device), lens
 
 
 def fd_rows_plain(model, q: Tensor, v: Tensor, a: Tensor, lam: Tensor,
@@ -159,9 +163,9 @@ def launch(model, inputs: dict, contact_bodies, contact_dims, kd: float, kp: flo
     if dtype not in _C_FUNCS or dev.type != "cuda":
         raise ValueError(f"fd_rows kernel takes float32/float64 CUDA tensors, got "
                          f"{dtype} on {dev}")
-    if not 1 <= ncont <= MAX_CONTACTS or any(d not in (3, 6) for d in contact_dims):
-        raise ValueError(f"fd_rows kernel takes 1 to {MAX_CONTACTS} contacts of "
-                         f"dim 3 or 6, got {tuple(contact_dims)}")
+    if ncont < 1 or any(d not in (3, 6) for d in contact_dims):
+        raise ValueError(f"fd_rows kernel takes one or more contacts of dim 3 or 6, "
+                         f"got {tuple(contact_dims)}")
     want = dict(S=(nv, 6), v=(nv,), Vb=(nb, 6), Vpar=(nv, 6), Vdof=(nv, 6),
                 Ca=(nb, 6), Capar=(nv, 6), Accb=(nb, 6), h=(nb, 6), y=(nb, 6),
                 I6=(nb, 6, 6), lam=(nc,), pcs=(ncont, 3), act=(ncont,))
@@ -176,13 +180,12 @@ def launch(model, inputs: dict, contact_bodies, contact_dims, kd: float, kp: flo
     if (model.njoints, model.nv) != (nb, nv) or six != 6:
         raise ValueError(f"fd_rows: the model's (nb, nv) = {(model.njoints, model.nv)} "
                          f"does not match nb={nb}, nv={nv}")
-    lists, lens = _device_lists(model.joint_types, model.parents, dev)
+    bodies, dims = tuple(map(int, contact_bodies)), tuple(map(int, contact_dims))
+    lists, lens = _device_lists(model.joint_types, model.parents, bodies, dims, dev)
     out = [S.new_empty((K, nv, nv)), S.new_empty((K, nv, nv)),
            S.new_empty((K, nc, nv)), S.new_empty((K, nc, nv))]
     if K:
-        table = (ctypes.c_int * (1 + 2 * MAX_CONTACTS + len(lens)))(
-            ncont, *contact_bodies, *([0] * (MAX_CONTACTS - ncont)),
-            *contact_dims, *([0] * (MAX_CONTACTS - ncont)), *lens)
+        table = (ctypes.c_int * (1 + len(lens) + 2 * ncont))(ncont, *lens, *bodies, *dims)
         gains = (ctypes.c_double * 2)(float(kd), float(kp))
         size = _build.load(_SOURCE).fd_rows_workspace
         size.restype = ctypes.c_longlong
@@ -190,8 +193,8 @@ def launch(model, inputs: dict, contact_bodies, contact_dims, kd: float, kp: flo
         words = size(nv, nb, ctypes.addressof(table), S.element_size())
         # an instance's working set past shared memory: a global slice each
         work = S.new_empty((K * words,)) if words > 0 else None
-        # pointers: the two host tables, the inputs, the index lists, the
-        # outputs, the workspace, the stream
+        # pointers: the two host tables, the inputs, the index lists and
+        # contacts, the outputs, the workspace, the stream
         fn = _build.c_function(_SOURCE, _C_FUNCS[dtype], 3, 2 + len(flat) + 1 + 4 + 2)
         _build.run(fn, dev, K, nv, nb, ctypes.addressof(table), ctypes.addressof(gains),
                    *(x.data_ptr() for x in flat + [lists] + out),

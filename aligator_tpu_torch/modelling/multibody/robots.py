@@ -249,12 +249,14 @@ def make_ur10_with_payload(mass=0.5, radius=0.05, height=0.12, dtype=torch.float
 
 
 def make_chain(n_revolute: int, free_flyer: bool = False, dtype=torch.float64,
-               device="cuda") -> RobotModel:
+               device="cuda", frame_stride: int = 4) -> RobotModel:
     """A synthetic serial chain of ``n_revolute`` revolute joints (axes
     cycling x, y, z, links of 8 cm, masses 0.5 + 0.01 i kg), on a fixed or a
-    free-flyer base, with a frame ``f<b>`` at the end of every fourth body
-    b = 3, 7, ...: a model past the kernels' register routes (64 joints and
-    70 dofs with a free-flyer base and 63 links)."""
+    free-flyer base, with a frame ``f<b>`` at the end of every
+    ``frame_stride``-th body b = stride - 1, 2 stride - 1, ... (every fourth
+    by default; every body with 1, as many contact frames as bodies): a
+    model past the kernels' register routes (64 joints and 70 dofs with a
+    free-flyer base and 63 links)."""
     joints = []
     if free_flyer:
         joints.append(dict(type=FREEFLYER, parent=-1, mass=5.0, com=(0.0, 0.0, 0.0),
@@ -265,5 +267,5 @@ def make_chain(n_revolute: int, free_flyer: bool = False, dtype=torch.float64,
                            placement_p=(0.0, 0.02, -0.08), mass=0.5 + 0.01 * i,
                            com=(0.01, 0.0, -0.04), inertia=_diag(2e-3, 3e-3, 1e-3)))
     frames = [dict(name=f"f{b}", parent=b, placement_p=(0.0, 0.0, -0.08))
-              for b in range(3, len(joints), 4)]
+              for b in range(frame_stride - 1, len(joints), frame_stride)]
     return _build(joints, frames, dtype, resolve(device))

@@ -24,7 +24,8 @@ any failed check raises and the script exits non-zero:
    shape and at cartpole's over 101 knots;
    K2 at every shape the paths launch (the LQ loop's at batch 16 and 256,
    the contact KKT's at both walk batches, the parallel legs' θ sweep, the
-   associative leaves and gain recovery), K5 at both walk batches; K3 and
+   associative leaves and gain recovery), K5 at both walk batches, at the
+   Solo's 4 contacts and past its old cap at 20 and 40 contacts; K3 and
    K4 also print their shared memory, registers and resident blocks per SM
    at the main shapes, and K3 its time at batches of 132 to 1024 (1 to 7.8
    scenarios for each of the 132 SMs); K2 and K4 also at the free-dynamics
@@ -192,11 +193,24 @@ any failed check raises and the script exits non-zero:
    (``tests/data/torch_ingest_ref.npz``), the first 4 against the CPU over
    4 iterations as in phase 11, the elbow's and the flange's least
    clearance to the post and the final flange error;
-17. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
+17. the mesh helpers and the sharded parallel-in-time solve over
+   ``torch.distributed`` (``parallel/mesh.py``, ``gar.parallel.
+   solve_sharded``), after the build so that no rank builds: a world of
+   one on NCCL, ``batched_solve`` of ``bench_scaling.py``'s SE(2) problem
+   (N = 50, fp32, 4 × 4 budget) at 4096 scenarios; four gloo processes
+   sharing the card (spawned; NCCL takes one rank a GPU), the same at 4 ×
+   4096 (each rank's K1 launches, iterations and controls against one
+   process solving the whole batch) and ``solve_sharded`` at
+   ``bench_scaling.py``'s medium dims (N = 511, nx = 36, nu = 12, fp32, 4
+   legs: one all-gather a rank, KKT in fp64 beside the serial solve on
+   the card); ms a solve for each world beside the one-process figures.
+   Ranks sharing one card measure the code path, not scaling;
+18. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line last.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -254,6 +268,7 @@ K2_FP32_TOL = 1e-4  # well-conditioned SPD systems (eigenvalues >= 1)
 K3_FP32_TOL = 1e-3
 K4_FP32_TOL = 1e-4
 K5_FP32_TOL = 1e-3
+K5_MANY_CONTACTS = (20, 40)  # past the kernel's old cap of 16 contacts
 
 # whole-body path (bench_talos.py:43-89)
 TALOS_T_DS, TALOS_T_SS = 4, 10  # N = 32
@@ -1700,56 +1715,72 @@ def k5_phase():
     ), dict(by_K=by_batch)
 
 
+def k5_chain_cases(dtype):
+    """K5's cases on free-flyer ``robots.make_chain`` models: past its old
+    bounds of nv, nb, nc <= 64 (nv = 70, nb = 65, ten 3D contacts: the
+    working set exceeds a block's shared memory and takes the global
+    workspace), and past its old cap of 16 contacts (20 and 40 contacts on
+    the chains of 20 and 40 links, a frame at every body, the last contact
+    6D). Yields ``(label, model, frames, dims)``."""
+    from aligator_tpu_torch.modelling.multibody import robots
+
+    model = robots.make_chain(64, True, dtype=dtype, device="cuda")
+    yield ("chain nv=70 nb=65, 10 3D contacts", model,
+           tuple(model.frame_id(f"f{b}") for b in range(3, 43, 4)), (3,) * 10)
+    for ncont in K5_MANY_CONTACTS:
+        model = robots.make_chain(ncont, True, dtype=dtype, device="cuda", frame_stride=1)
+        yield (f"{ncont} contacts nv={model.nv}", model, tuple(range(1, ncont + 1)),
+               (3,) * (ncont - 1) + (6,))
+
+
 def k5_chain_rows():
-    """K5 past its old bounds (8 contacts; nv, nb, nc <= 64): a free-flyer
-    chain of nv = 70, nb = 65 with ten 3D contacts, whose working set
-    exceeds a block's shared memory and takes the global workspace, fp64
-    and fp32 at K = 512, against its plain version, timed beside its bound."""
-    from aligator_tpu_torch.modelling.multibody import contact, fd_rows, robots
+    """K5 on :func:`k5_chain_cases`, fp64 and fp32 at K = 512, against its
+    plain version, timed beside its bound."""
+    from aligator_tpu_torch.modelling.multibody import contact, fd_rows
     from aligator_tpu_torch.modelling.multibody.derivatives import fd_rows_inputs
 
     rows = {}
     for dtype, tol in ((torch.float64, FP64_TOL), (torch.float32, 1e-3)):
-        model = robots.make_chain(64, True, dtype=dtype, device="cuda")
-        frames = tuple(model.frame_id(f"f{b}") for b in range(3, 43, 4))
-        dims = (3,) * len(frames)
-        bodies = tuple(model.frame_parents[f] for f in frames)
-        g = _gen(SEED + 43)
-        K, nv, nb = 512, model.nv, model.njoints
-        q = model.configuration_space().integrate(
-            model.neutral(torch.float64, "cuda")[None],
-            0.1 * torch.randn((K, nv), generator=g, device="cuda", dtype=torch.float64))
-        v, tau = (torch.randn((K, nv), generator=g, device="cuda", dtype=torch.float64)
-                  for _ in range(2))
-        q, v, tau = q.to(dtype), (0.2 * v).to(dtype), tau.to(dtype)
-        act = torch.ones((K, len(frames)), dtype=dtype, device="cuda")
-        act[::3, 0] = 0.0
-        out = contact.cfd_internals(model, q, v, tau, frames, act, prox_mu=1e-6, kd=10.0)
-        args = (model, q, v, out["a"], out["lam"], act, frames, dims)
-        got = fd_rows.fd_rows(*args, kd=10.0)
-        ref = fd_rows.fd_rows_plain(*args, kd=10.0)
-        torch.cuda.synchronize()
-        err = max(rel_err(a, b) for a, b in zip(got, ref))
-        check(all(torch.isfinite(t).all().item() for t in got), "fd_rows chain non-finite")
-        check(err <= tol, f"fd_rows chain {dtype}: {err}")
-        inputs = fd_rows_inputs(model, q, v, out["a"], frames)
-        inputs.update(v=v, lam=out["lam"], act=act)
-        ms = kernel_ms(lambda: fd_rows.launch(model, inputs, bodies, dims, 10.0, 0.0), 5,
-                       "fd_rows_kernel")
-        plain_ms = avg_time_ms(lambda: fd_rows.fd_rows_plain(*args, kd=10.0), 2)
-        nc, ncont, w = sum(dims), len(frames), torch.finfo(dtype).bits // 8
-        in_words = 4 * nv * 6 + nv + 5 * nb * 6 + nb * 36 + nc + 4 * ncont
-        out_words = 2 * nv * nv + 2 * nc * nv
-        nbytes = w * (K * (in_words + out_words) + nb * nv + nv * nv)
-        flops = k5_flops(model, bodies, dims, act.reshape(K, ncont).cpu())
-        bms, by = bound(nbytes, flops, fp64=dtype == torch.float64)
-        name = str(dtype)[6:]
-        print(f"[kernel] fd_rows {name} chain nv={nv} nb={nb}, {ncont} 3D contacts K={K} "
-              f"(global workspace): vs plain {err:.2e} (tol {tol:g}); kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms; bound {bms:.4f} ms ({by}; kernel {ms / bms:.1f}x)")
-        rows[f"chain {name} K={K}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                                           bound_by=by, err=err)
-        del got, ref, inputs, out, args
+        for label, model, frames, dims in k5_chain_cases(dtype):
+            bodies = tuple(model.frame_parents[f] for f in frames)
+            g = _gen(SEED + 43)
+            K, nv, nb = 512, model.nv, model.njoints
+            q = model.configuration_space().integrate(
+                model.neutral(torch.float64, "cuda")[None],
+                0.1 * torch.randn((K, nv), generator=g, device="cuda", dtype=torch.float64))
+            v, tau = (torch.randn((K, nv), generator=g, device="cuda", dtype=torch.float64)
+                      for _ in range(2))
+            q, v, tau = q.to(dtype), (0.2 * v).to(dtype), tau.to(dtype)
+            act = torch.ones((K, len(frames)), dtype=dtype, device="cuda")
+            act[::3, 0] = 0.0
+            out = contact.cfd_internals(model, q, v, tau, frames, act, prox_mu=1e-6,
+                                        kd=10.0, contact_dims=dims)
+            args = (model, q, v, out["a"], out["lam"], act, frames, dims)
+            got = fd_rows.fd_rows(*args, kd=10.0)
+            ref = fd_rows.fd_rows_plain(*args, kd=10.0)
+            torch.cuda.synchronize()
+            err = max(rel_err(a, b) for a, b in zip(got, ref))
+            check(all(torch.isfinite(t).all().item() for t in got),
+                  f"fd_rows {label} non-finite")
+            check(err <= tol, f"fd_rows {label} {dtype}: {err}")
+            inputs = fd_rows_inputs(model, q, v, out["a"], frames)
+            inputs.update(v=v, lam=out["lam"], act=act)
+            ms = kernel_ms(lambda: fd_rows.launch(model, inputs, bodies, dims, 10.0, 0.0),
+                           5, "fd_rows_kernel")
+            plain_ms = avg_time_ms(lambda: fd_rows.fd_rows_plain(*args, kd=10.0), 2)
+            nc, ncont, w = sum(dims), len(frames), torch.finfo(dtype).bits // 8
+            in_words = 4 * nv * 6 + nv + 5 * nb * 6 + nb * 36 + nc + 4 * ncont
+            out_words = 2 * nv * nv + 2 * nc * nv
+            nbytes = w * (K * (in_words + out_words) + nb * nv + nv * nv)
+            flops = k5_flops(model, bodies, dims, act.reshape(K, ncont).cpu())
+            bms, by = bound(nbytes, flops, fp64=dtype == torch.float64)
+            name = str(dtype)[6:]
+            print(f"[kernel] fd_rows {name} {label} K={K}: vs plain {err:.2e} (tol "
+                  f"{tol:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+                  f"{bms:.4f} ms ({by}; kernel {ms / bms:.1f}x)")
+            rows[f"{label} {name} K={K}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                                 bound_by=by, err=err)
+            del got, ref, inputs, out, args
     return rows
 
 
@@ -3824,6 +3855,250 @@ def panda_mjcf_phase(cpu_refs):
     return counts, out
 
 
+# ---------------------------------------------------------------- phase 17
+
+MESH_RANKS = 4
+MESH_BATCH = 4096  # a rank's scenarios (the world of one solves one such chunk)
+MESH_PIT = (511, 36, 12)  # bench_scaling.py's medium dims: N, nx, nu; 4 legs
+MESH_MU = 1e-3
+MESH_KKT_TOL = 1e-3
+# a rank's controls against one process solving the same chunk; against one
+# process solving the whole batch they part as the batch's size changes the
+# fp32 rounding (8.25e-4 at each rank's chunk on an H100, with every
+# iteration count equal), so there they are held to MESH_BATCH_TOL, which
+# scenarios swapped between ranks (differences of order 1) would fail
+MESH_TRAJ_TOL = 1e-6
+MESH_BATCH_TOL = 1e-2
+MESH_TIMEOUT_S = 300
+
+
+def mesh_se2():
+    """bench_scaling.py's batched SE(2) problem and options (N = 50, fp32,
+    4 × 4 budget, linear rollout) and a ``solve_batch`` for
+    ``parallel.batched_solve``: the controls and iterations of a batch of
+    initial states."""
+    import aligator_tpu_torch as at
+    from aligator_tpu_torch.examples.se2_car import create_se2_problem
+
+    cfg = at.solvers.ProxDDPConfig(tol=1e-3, mu_init=1e-3, max_iters=4, max_al_iters=4,
+                                   rollout="linear", ls_max_steps=6)
+    problem = create_se2_problem(nsteps=NSTEPS, dtype=torch.float32, device="cuda")
+
+    def solve_batch(x0s):
+        res = at.solvers.solve(dataclasses.replace(problem, x0=x0s), cfg)
+        return res.us, res.num_iters, res.newton_steps
+
+    return solve_batch
+
+
+def mesh_x0s(batch):
+    """bench_scaling.py's initial states (numpy in place of jax.random):
+    x = 0.7 + 0.2 N(0, 1), y = -0.1, heading 0.15355."""
+    x = 0.7 + 0.2 * np.random.default_rng(SEED + 60).standard_normal(batch)
+    th = np.full(batch, 0.15355)
+    return np.stack([x, np.full(batch, -0.1), np.cos(th), np.sin(th)], -1).astype(np.float32)
+
+
+def mesh_pit_problem():
+    from aligator_tpu_torch.gar import lqr_problem
+
+    N, nx, nu = MESH_PIT
+    return lqr_problem.random_convex_problem(np.random.default_rng(SEED + 61), 1, N, nx, nu,
+                                             0, dtype=torch.float32, device="cuda")
+
+
+def _mesh_timed(fn):
+    """``fn()`` once to warm up (its trial graphs captured), then counted:
+    launches and collectives from 0, the plain versions raising; returns
+    ``(out, ms, launches, collectives, host copies)``."""
+    from aligator_tpu_torch.parallel import mesh
+
+    fn()
+    torch.cuda.synchronize()
+    if torch.distributed.is_initialized():
+        torch.distributed.barrier()
+    with plain_versions_raise():
+        reset_counts()
+        mesh.COLLECTIVES.clear()
+        mesh.HOST_COPIES.clear()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = launch_counts()
+    return out, ms, launches, dict(mesh.COLLECTIVES), dict(mesh.HOST_COPIES)
+
+
+def mesh_rank(rank, world, init_file, out_dir):
+    """A rank of the gloo world that shares the card (spawned by
+    :func:`mesh_phase`): its chunk of the batched SE(2) solve and its leg of
+    the sharded LQ solve, each counted, saved for the main process. It
+    builds nothing: a missing library fails the rank."""
+    from aligator_tpu_torch import _build
+    from aligator_tpu_torch.gar import parallel as gar_parallel
+    from aligator_tpu_torch.parallel import mesh
+    from aligator_tpu_torch.solvers.proxddp import TrialGraphWarning
+
+    def refuse(variants):
+        missing = [v for v in variants if not _build._library_path(_build.variant(v)).exists()]
+        raise RuntimeError(f"rank {rank} would build {missing}: the build phase builds")
+
+    _build.build = refuse
+    torch.set_num_threads(2)  # four ranks on the host's eight cores
+    warnings.simplefilter("error", TrialGraphWarning)
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group("gloo", init_method=f"file://{init_file}",
+                                         rank=rank, world_size=world)
+    try:
+        bm = mesh.make_mesh(device="cuda:0")
+        solve_batch = mesh_se2()
+        x0s = torch.tensor(mesh_x0s(world * MESH_BATCH))
+        out, ms, launches, coll, copies = _mesh_timed(
+            lambda: mesh.batched_solve(solve_batch, x0s, mesh=bm))
+        steps = int(out[2][rank * MESH_BATCH:(rank + 1) * MESH_BATCH].max())
+        res = dict(batch=dict(us=out[0].cpu(), num_iters=out[1].cpu(), ms=ms,
+                              launches=launches, collectives=coll, host_copies=copies,
+                              steps=steps))
+        tm = mesh.make_mesh(("t",), device="cuda:0")
+        prob = mesh_pit_problem()
+        legs, ms, launches, coll, copies = _mesh_timed(
+            lambda: gar_parallel.solve_sharded(prob, MESH_MU, MESH_MU, tm,
+                                               assume_explicit=True))
+        res["pit"] = dict(legs=[t.cpu() for t in legs], ms=ms, launches=launches,
+                          collectives=coll, host_copies=copies)
+        torch.save(res, f"{out_dir}/rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def mesh_phase(card):
+    """The mesh helpers and the sharded parallel-in-time solve over
+    ``torch.distributed``: (i) a world of one on NCCL, the backend four
+    cards would use: ``batched_solve`` of bench_scaling.py's SE(2) problem
+    at MESH_BATCH scenarios; (ii) MESH_RANKS gloo processes sharing the card
+    (NCCL takes one rank a GPU): ``batched_solve`` at MESH_RANKS ×
+    MESH_BATCH, each rank's launches, iterations and controls against one
+    process solving its chunk and one solving the whole batch (whose fp32
+    rounding differs with the batch's size), and ``solve_sharded`` at
+    bench_scaling.py's medium dims (4 legs, fp32, B = 1) against the serial
+    solve on the card (KKT in fp64), one all-gather a rank. Ranks sharing
+    one card measure the code path, not scaling across cards."""
+    import torch.multiprocessing as tmp
+
+    from aligator_tpu_torch.gar import lqr_problem, riccati
+    from aligator_tpu_torch.parallel import mesh
+
+    out, counted = {}, []
+    solve_batch = mesh_se2()
+    with tempfile.TemporaryDirectory() as d:
+        # (i) the world of one on NCCL
+        torch.distributed.init_process_group("nccl", init_method=f"file://{d}/nccl",
+                                             rank=0, world_size=1)
+        try:
+            bm = mesh.make_mesh(device="cuda:0")
+            check(torch.distributed.get_backend(bm.group("batch")) == "nccl", "not NCCL")
+            x0s = torch.tensor(mesh_x0s(MESH_BATCH))
+            one, ms1, launches1, coll1, copies1 = _mesh_timed(
+                lambda: mesh.batched_solve(solve_batch, x0s, mesh=bm))
+        finally:
+            torch.distributed.destroy_process_group()
+        counted.append(launches1)
+        want = collections.Counter(("all_gather", 1, (1,) + tuple(t.shape)) for t in one)
+        check(coll1 == want and not copies1,
+              f"NCCL world of one: collectives {coll1}, copies {copies1}")
+        check(launches1["fused_riccati"] >= 1 and sum(launches1.values())
+              == launches1["fused_riccati"], f"NCCL world of one: launches {launches1}")
+        print(f"[mesh] NCCL world of one, SE(2) B={MESH_BATCH}: {ms1:.1f} ms a batched "
+              f"solve, launches {launches1}, collectives {coll1} ({card})")
+
+        # (ii) the gloo world sharing the card, while this process waits
+        ctx = tmp.start_processes(mesh_rank, args=(MESH_RANKS, f"{d}/gloo", d),
+                                  nprocs=MESH_RANKS, join=False, start_method="spawn")
+        try:
+            deadline = time.monotonic() + MESH_TIMEOUT_S
+            while not ctx.join(timeout=1):
+                check(time.monotonic() < deadline, f"the gloo world ran past {MESH_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        ranks = [torch.load(f"{d}/rank{r}.pt") for r in range(MESH_RANKS)]
+
+    # the one-process references on the card: the whole batch, each rank's
+    # chunk alone, the serial LQ
+    B = MESH_RANKS * MESH_BATCH
+    x0s = torch.tensor(mesh_x0s(B), device="cuda")
+    whole, ms_whole, launches_whole, _, _ = _mesh_timed(lambda: solve_batch(x0s))
+    counted.append(launches_whole)
+    us_ref, iters_ref, steps_ref = (t.cpu() for t in whole)
+    chunk_gaps, batch_gaps = [], []
+    for r, res in enumerate(ranks):
+        b = res["batch"]
+        chunk = slice(r * MESH_BATCH, (r + 1) * MESH_BATCH)
+        alone = solve_batch(x0s[chunk])
+        want = dict.fromkeys(KERNEL_NAMES, 0)
+        want["fused_riccati"] = int(alone[2].max())
+        check(b["launches"] == want and b["steps"] == want["fused_riccati"],
+              f"rank {r}: launches {b['launches']}, Newton steps {b['steps']}, want {want}")
+        check(torch.equal(b["num_iters"], iters_ref), f"rank {r}: iterations differ")
+        check(bool(torch.isfinite(b["us"]).all()), f"rank {r}: non-finite controls")
+        chunk_gaps.append((b["us"][chunk] - alone[0].cpu()).abs().max().item())
+        batch_gaps.append((b["us"] - us_ref).abs().max().item())
+        check(chunk_gaps[-1] <= MESH_TRAJ_TOL and batch_gaps[-1] <= MESH_BATCH_TOL,
+              f"rank {r}: controls {chunk_gaps[-1]:.3e} from one process solving its chunk, "
+              f"{batch_gaps[-1]:.3e} from one process solving all {B}")
+        want = collections.Counter(("all_gather", MESH_RANKS, (MESH_RANKS, MESH_BATCH)
+                                    + tuple(t.shape[1:])) for t in whole)
+        check(b["collectives"] == want, f"rank {r}: collectives {b['collectives']}")
+    ms_ranks = [res["batch"]["ms"] for res in ranks]
+    gaps = max(batch_gaps)
+    print(f"[mesh] gloo world of {MESH_RANKS} on one card, SE(2) B={B}: {max(ms_ranks):.1f} "
+          f"ms a batched solve (ranks {[round(m, 1) for m in ms_ranks]}), launches a rank "
+          f"{ranks[0]['batch']['launches']}; each rank's controls within "
+          f"{max(chunk_gaps):.2e} of one process solving its chunk (tol {MESH_TRAJ_TOL:g}), "
+          f"within {[f'{g:.2e}' for g in batch_gaps]} of one process solving the {B} "
+          f"(tol {MESH_BATCH_TOL:g}; {ms_whole:.1f} ms, launches {launches_whole}), "
+          f"iterations equal; ranks sharing one card measure the code path, not scaling "
+          f"({card})")
+
+    N, nx, nu = MESH_PIT
+    prob = mesh_pit_problem()
+    serial, ms_serial, launches_serial, _, _ = _mesh_timed(
+        lambda: riccati.solve(prob, MESH_MU, MESH_MU, True))
+    counted.append(launches_serial)
+    legs = [torch.cat([res["pit"]["legs"][k] for res in ranks], 1) for k in range(4)]
+    p64 = prob.map(lambda t: t.cpu().double())
+    kkt = {name: max(e.max().item() for e in lqr_problem.kkt_error(
+        p64, *(t.cpu().double() for t in sol), MESH_MU, MESH_MU))
+        for name, sol in (("sharded", legs), ("serial", serial))}
+    L = (N + 1) // MESH_RANKS
+    payload = (MESH_RANKS, 1, 4 * nx * nx + 2 * nx)
+    for r, res in enumerate(ranks):
+        pit = res["pit"]
+        check(pit["collectives"] == {("all_gather", MESH_RANKS, payload): 1},
+              f"rank {r}: the sharded solve's collectives {pit['collectives']}")
+        check(pit["host_copies"] == {("to_host", payload[1:]): 1, ("to_device", payload): 1},
+              f"rank {r}: host copies {pit['host_copies']}")
+        want = dict.fromkeys(KERNEL_NAMES, 0)  # the leg's θ sweep: K2 twice a stage
+        want.update(spd_solve=2 * (L - 1), fused_stage_forward=1)
+        check(pit["launches"] == want, f"rank {r}: sharded launches {pit['launches']}")
+    check(kkt["sharded"] <= MESH_KKT_TOL, f"sharded KKT {kkt['sharded']}")
+    ms_pit = [res["pit"]["ms"] for res in ranks]
+    print(f"[mesh] solve_sharded N={N} ({nx}, {nu}) fp32 B=1, {MESH_RANKS} legs on one card: "
+          f"{max(ms_pit):.1f} ms a solve (ranks {[round(m, 1) for m in ms_pit]}), launches a "
+          f"rank {ranks[0]['pit']['launches']}, one all-gather of {payload} a rank; serial "
+          f"on the card {ms_serial:.2f} ms (launches {launches_serial}); KKT in fp64 sharded "
+          f"{kkt['sharded']:.3e}, serial {kkt['serial']:.3e} (bound {MESH_KKT_TOL:g}) ({card})")
+    out = dict(nccl_world_of_one=dict(batch=MESH_BATCH, ms=ms1, launches=launches1),
+               gloo_world=dict(ranks=MESH_RANKS, batch=B, ms=max(ms_ranks), rank_ms=ms_ranks,
+                               one_process_ms=ms_whole, chunk_gaps=chunk_gaps,
+                               batch_gaps=batch_gaps),
+               sharded=dict(N=N, nx=nx, nu=nu, legs=MESH_RANKS, ms=max(ms_pit),
+                            rank_ms=ms_pit, serial_ms=ms_serial, kkt=kkt))
+    return counted, out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -3871,13 +4146,15 @@ def main():
         mpc_counts, mpc = timed("mpc", lambda: mpc_phase(smi))
         cent_counts, cent = timed("centroidal", lambda: centroidal_phase(smi))
         panda_counts, panda = timed("panda-mjcf", lambda: panda_mjcf_phase(cpu_refs))
+        mesh_counts, mesh_out = timed("mesh", lambda: mesh_phase(smi))
     finally:
         cpu_refs.stop()
         late.thread.join()
     # each kernel's launches: the sum over the paths' counted runs
     runs = [se2_counts, *medium_counts.values(), *talos_counts.values(), *pit_counts,
             *cart_counts.values(), inv_counts, *sens_counts, *free_counts.values(),
-            *contact_counts.values(), table_counts, *mpc_counts, *cent_counts, panda_counts]
+            *contact_counts.values(), table_counts, *mpc_counts, *cent_counts, panda_counts,
+            *mesh_counts]
     for k in (k1, k2, k3, k4, k5, k6):
         k["launches"] = sum(c[k["name"]] for c in runs)
     print(json.dumps({"slice": result, "fused_riccati": k1_times,
@@ -3890,7 +4167,8 @@ def main():
                       "contact_launches": contact_counts, "ur5_table": table,
                       "ur5_table_launches": table_counts, "mpc": mpc,
                       "centroidal": cent, "panda_mjcf": panda,
-                      "panda_mjcf_launches": panda_counts,
+                      "panda_mjcf_launches": panda_counts, "mesh": mesh_out,
+                      "mesh_launches": mesh_counts,
                       "spd_solve": k2_extra, "fused_stage_sweep": k3_extra,
                       "fused_stage_forward": k4_shapes,
                       "fd_rows": k5_extra, "free_fd": k6_extra, "phase_s": phase_s,

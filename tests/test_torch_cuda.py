@@ -627,13 +627,58 @@ def test_fd_rows_matches_plain_with_every_contact_inactive(cuda_device, dtype, r
 def test_fd_rows_rejects_what_it_does_not_take(cuda_device):
     model, ins, frames, dims, kd = _fd_rows_inputs("quadruped", 4, torch.float64,
                                                    cuda_device, 6)
-    with pytest.raises(ValueError, match="dim 3 or 6"):
+    with pytest.raises(ValueError, match="of dim 3 or 6"):
         fd_rows.fd_rows(model, *ins[:3], ins[3][:, :8], ins[4][:, :2], frames[:2],
                         (4, 4), kd=kd)
-    # 17 contacts: past kMaxContacts
-    with pytest.raises(ValueError, match="1 to 16 contacts"):
-        fd_rows.fd_rows(model, *ins[:3], ins[3][:, :1].expand(4, 51), ins[4][:, :1].expand(4, 17),
-                        frames[:1] * 17, (3,) * 17, kd=kd)
+    # 17 contacts, past the old cap of 16: taken, and equal to the plain rows
+    lam, act = ins[3][:, :1].expand(4, 51), ins[4][:, :1].expand(4, 17)
+    got = fd_rows.fd_rows(model, *ins[:3], lam, act, frames[:1] * 17, (3,) * 17, kd=kd)
+    ref = fd_rows.fd_rows_plain(model, *ins[:3], lam, act, frames[:1] * 17, (3,) * 17, kd=kd)
+    for g, r in zip(got, ref):
+        assert _rel(g, r) <= 1e-9
+
+
+def _many_contact_chain(n_rev):
+    """A free-flyer chain of ``n_rev`` revolute joints with a frame at the
+    end of every body, and contacts on bodies 1..n_rev: all 3D but the
+    last, which is 6D."""
+    from aligator_tpu_torch.modelling.multibody import robots
+
+    model = robots.make_chain(n_rev, True, device="cpu", frame_stride=1)
+    return model, tuple(range(1, n_rev + 1)), (3,) * (n_rev - 1) + (6,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ncont", [20, 40])
+def test_fd_rows_past_sixteen_contacts_matches_plain(cuda_device, dtype, ncont):
+    """K5 at 20 and 40 contacts (one 6D), past the old cap of 16: one
+    launch, against the plain rows at the tolerances of
+    test_fd_rows_matches_plain; an inactive contact's rows are zero."""
+    model, frames, dims = _many_contact_chain(ncont)
+    rng = np.random.default_rng(ncont)
+    K, nv, nc = 33, model.nv, sum(dims)
+    q = model.configuration_space().integrate(
+        model.neutral()[None], torch.tensor(0.3 * rng.standard_normal((K, nv))))
+    act = np.ones((K, ncont))
+    act[::3, 5] = 0.0
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=cuda_device)
+
+    ins = (t(q), t(0.2 * rng.standard_normal((K, nv))), t(rng.standard_normal((K, nv))),
+           t(5.0 * rng.standard_normal((K, nc))), t(act))
+    model = model.to(dtype, cuda_device)
+    before = _build.LAUNCHES["fd_rows"]
+    got = fd_rows.fd_rows(model, *ins, frames, dims, kd=10.0)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fd_rows"] == before + 1
+    ref = fd_rows.fd_rows_plain(model, *ins, frames, dims, kd=10.0)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert torch.isfinite(g).all()
+        assert _rel(g, r) <= {torch.float64: 1e-9, torch.float32: 1e-3}[dtype]
+    assert (got[2][::3, 15:18] == 0).all() and (got[3][::3, 15:18] == 0).all()
 
 
 def _chain(n_rev, free_flyer, device):
@@ -1855,3 +1900,172 @@ def test_gar_examples_card_match_cpu(cuda_device, k1_built, plain_versions_raise
     for got, ref in zip(card, cpu[1:]):
         for g, r in zip(got, ref):
             assert _rel(g.cpu(), r) <= 1e-9
+
+
+# (module, problem constructor, keyword arguments, the coordinates of x0
+# perturbed and by how much, the LQ route, whether the rollout's dynamics is the free-dynamics
+# kernel (semi-implicit Euler on a free ODE; RK2 and the implicit midpoint
+# rule differentiate model.aba)): the examples that ran on the CPU only before
+EARLIER_EXAMPLES = {
+    "pendulum": ("pendulum", "create_pendulum_problem", dict(nsteps=20), slice(0, 1), 0.05,
+                 "k1", True),
+    "double_pendulum": ("double_pendulum", "create_double_pendulum_problem", dict(nsteps=20),
+                        slice(0, 2), 0.05, "k1", True),
+    "flexible_double_pendulum": ("flexible_double_pendulum",
+                                 "create_flexible_pendulum_problem", dict(nsteps=20),
+                                 slice(0, 4), 0.05, "k1", False),
+    "ur10_midpoint": ("ur10_midpoint", "create_ur10_midpoint_problem", dict(nsteps=10),
+                      slice(0, 6), 0.1, "loop", False),
+    "solo_bend": ("solo_bend", "create_solo_bend_problem", dict(nsteps=6), slice(7, 19),
+                  0.02, "contact", False),
+    "biped_walk": ("biped_walk", "create_biped_walk_problem", dict(n_ds=2, n_ss=2),
+                   slice(7, 13), 0.02, "contact", False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(EARLIER_EXAMPLES))
+def test_earlier_example_card_matches_cpu(cuda_device, plain_versions_raise, case):
+    """The pendulum, double pendulum, flexible double pendulum, UR10
+    midpoint reach, Solo squat and biped walk, which earlier slices ran on
+    the CPU only: 4 perturbed scenarios, 4 iterations of the published
+    options, on the card against the CPU, each output to 1e-9 relative or
+    100 times the CPU's one-ulp spread; the plain versions raising, every
+    trial a CUDA-graph replay, and the route's launches: K1 once a Newton
+    step for the pendulums, the free-dynamics kernel once a stage of every
+    rollout and once a derivative evaluation where the rollout steps a free
+    ODE by semi-implicit Euler (the pendulum and the double pendulum; the
+    flexible pendulum's RK2 and the UR10's midpoint rule differentiate
+    model.aba); the per-stage loop's K2 twice
+    a stage and K4 once a step for the UR10 (general E at ndx = 12) and the
+    legged models, whose contact dynamics add K5 once and K2 twice a
+    derivative evaluation."""
+    import importlib
+
+    from aligator_tpu_torch.solvers import proxddp
+    from aligator_tpu_torch.solvers.proxddp import TrialGraphWarning
+
+    mod, fn, kw, coords, scale, route, fd_rollout = EARLIER_EXAMPLES[case]
+    ex = importlib.import_module(f"aligator_tpu_torch.examples.{mod}")
+
+    def create(dev):
+        out = getattr(ex, fn)(device=dev, **kw)
+        return out[0] if isinstance(out, tuple) else out
+
+    rng = np.random.default_rng(14)
+    x0 = create("cpu").x0.expand(4, -1).clone()
+    x0[:, coords] += torch.tensor(scale * rng.standard_normal((4, coords.stop - coords.start)))
+    cfg = at.solvers.ProxDDPConfig(**{**ex.SOLVE_OPTIONS, "max_iters": 4})
+
+    def solve(dev, s=1.0):
+        prob = dataclasses.replace(create(dev), x0=(x0 * s).to(dev))
+        init = {}
+        if hasattr(ex, "warm_start"):
+            init = dict(zip(("xs_init", "us_init"), ex.warm_start(prob)))
+        return prob, at.solvers.solve(prob, cfg, **init)
+
+    _, cpu = solve("cpu")
+    spread = [solve("cpu", s)[1] for s in (1.0 + 1e-15, 1.0 - 1e-15)]
+    plain_versions_raise()
+    before = _launches()
+    fd_before = _build.LAUNCHES["free_fd"]
+    trials_before = proxddp.NONLINEAR_TRIALS + proxddp.LINEAR_TRIALS
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", TrialGraphWarning)
+        prob, gpu = solve(cuda_device)
+    torch.cuda.synchronize()
+    counts = {k: v - before[k] for k, v in _launches().items()}
+    counts["free_fd"] = _build.LAUNCHES["free_fd"] - fd_before
+    trials = proxddp.NONLINEAR_TRIALS + proxddp.LINEAR_TRIALS - trials_before
+    steps, iters, N = int(gpu.newton_steps.max()), int(gpu.num_iters.max()), prob.nsteps
+    print(case, counts, dict(steps=steps, iters=iters, trials=trials, N=N))
+    for name in ("num_iters", "conv"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+    for name in ("xs", "us", "lams", "prim_infeas", "dual_infeas"):
+        ref = getattr(cpu, name)
+        s = max(1.0, ref.abs().max().item())
+        apart = max((getattr(r, name) - ref).abs().max().item() for r in spread) / s
+        gap = (getattr(gpu, name).cpu() - ref).abs().max().item() / s
+        assert gap <= max(1e-9, 100 * apart), (name, gap, apart)
+    assert steps > 0
+    if route == "k1":
+        want = dict(k1=steps, k2=0, k4=0, k5=0)
+    elif route == "loop":
+        want = dict(k1=0, k2=2 * N * steps, k4=steps, k5=0)
+    else:
+        want = dict(k1=0, k2=2 * N * steps + 2 * (iters + 1), k4=steps, k5=iters + 1)
+    want["free_fd"] = N * (trials + 1) + iters + 1 if fd_rollout else 0
+    assert counts == dict(want, k3=0)
+
+
+@pytest.mark.cuda
+def test_panda_mujoco_mpc_solver_half_card_matches_cpu(cuda_device, plain_versions_raise,
+                                                       tmp_path, monkeypatch):
+    """The solver half of examples/mpc_panda_mujoco.py on the card (the
+    card machine has no MuJoCo): the first solve and 5 warm cycles from the
+    simulator states of tests/data/torch_mujoco_ref.npz (the JAX package's
+    closed loop on the stand-in Panda), against the CPU port's cycles from
+    the same states, each cycle's first control and gain and its
+    trajectories to 1e-9 relative or 100 times the CPU's one-ulp spread;
+    the plain versions raising, every trial a CUDA-graph replay captured at
+    the first solve and replayed by the cycles; the route: K2 twice a stage
+    and K4 once a Newton step (ndx = 14, general E), the free-dynamics
+    kernel once a stage of every rollout, once a derivative evaluation and
+    once a warm start's tail."""
+    import json
+    import pathlib
+
+    from aligator_tpu_torch.examples import mpc_panda_mujoco as ex
+    from aligator_tpu_torch.modelling.multibody import robots
+    from aligator_tpu_torch.solvers import proxddp
+    from aligator_tpu_torch.solvers.proxddp import TrialGraphWarning
+
+    path = str(tmp_path / "panda_nohand.xml")
+    ex.write_mujoco_panda(path)
+    monkeypatch.setattr(robots, "PANDA_MJCF_PATH", path)
+    ref = np.load(pathlib.Path(__file__).resolve().parent / "data" / "torch_mujoco_ref.npz")
+    pr = json.loads(str(ref["protocol"]))
+    cfg_init, cfg = ex.solver_configs(pr["init_iters"], pr["cycle_iters"])
+    N, cycles = pr["nsteps"], 6
+
+    def run(dev, s=1.0):
+        problem = ex.create_mpc_problem(nsteps=N, timestep=pr["timestep"],
+                                        p_target=pr["p_target"], device=dev)[0]
+        res = [ex.first_solve(problem, cfg_init, ref["states"][0] * s)]
+        for c in range(1, cycles):
+            res.append(ex.cycle_solve(problem, cfg, ref["states"][c] * s, res[-1]))
+        return res
+
+    cpu = run("cpu")
+    spread = [run("cpu", s) for s in (1.0 + 1e-15, 1.0 - 1e-15)]
+    plain_versions_raise()
+    before = _launches()
+    fd_before = _build.LAUNCHES["free_fd"]
+    trials_before = proxddp.NONLINEAR_TRIALS
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", TrialGraphWarning)
+        gpu = run(cuda_device)
+    torch.cuda.synchronize()
+    counts = {k: v - before[k] for k, v in _launches().items()}
+    trials = proxddp.NONLINEAR_TRIALS - trials_before
+    steps = sum(int(r.newton_steps.max()) for r in gpu)
+    iters = sum(int(r.num_iters.max()) for r in gpu)
+    fd = _build.LAUNCHES["free_fd"] - fd_before
+    print("panda mpc", counts, dict(steps=steps, iters=iters, trials=trials, free_fd=fd))
+    for c, (g, r) in enumerate(zip(gpu, cpu)):
+        for name in ("num_iters", "conv"):
+            assert torch.equal(getattr(g, name).cpu(), getattr(r, name)), (c, name)
+        for name in ("xs", "us", "lams", "K", "prim_infeas"):
+            want = getattr(r, name)
+            s = max(1.0, want.abs().max().item())
+            apart = max((getattr(sp[c], name) - want).abs().max().item()
+                        for sp in spread) / s
+            gap = (getattr(g, name).cpu() - want).abs().max().item() / s
+            assert gap <= max(1e-9, 100 * apart), (c, name, gap, apart)
+    assert steps > 0
+    assert counts == dict(k1=0, k2=2 * N * steps, k3=0, k4=steps, k5=0)
+    # a stage of every trial and of the warm-up of each configuration's trial
+    # graph (two: the problem keeps one a configuration across the cycles);
+    # one for every derivative evaluation (iterations + 1 a solve); one for
+    # each warm start's rolled-out tail (cycle_warm_start)
+    assert fd == N * (trials + 2) + iters + cycles + (cycles - 1)

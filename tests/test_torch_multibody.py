@@ -6,7 +6,15 @@ dynamics' Jacobians and the semi-implicit Euler assembly of (A, B, E), and
 the SPD solve (K2) at the contact-KKT shapes. The CUDA kernels themselves
 are checked against the same plain versions on the card by
 tests/test_torch_cuda.py.
+
+The jitted JAX references of the rigid-body algorithms, the primal contact
+solve with K5's rows and the contact dynamics' Jacobians (the ``jax_*``
+functions below) are ``tests/data/torch_multibody_ref.npz``, written by
+``tools/torch_jax_refs_fixture.py --only multibody`` (their compiles took
+most of this file's time); the ``slow`` test reruns them live.
 """
+
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +44,20 @@ from aligator_tpu_torch.modelling.spaces.se3 import SE3, SO3
 
 torch.set_num_threads(2)
 TOL = 1e-10  # float64 on both sides; the JAX and torch sums run in other orders
+REFS = pathlib.Path(__file__).resolve().parent / "data" / "torch_multibody_ref.npz"
+ROWS = ("ra1_q", "ra1_v", "r2_q", "r2_v")  # K5's outputs
+
+
+def _refs(prefix):
+    """The fixture's arrays under ``prefix``, the prefix dropped."""
+    with np.load(REFS) as f:
+        return {k[len(prefix):]: f[k] for k in f.files if k.startswith(prefix)}
+
+
+def _same_inputs(ref, **inputs):
+    """The inputs this test draws are the fixture's, bit for bit."""
+    for k, v in inputs.items():
+        assert np.array_equal(np.asarray(v), ref[k]), k
 
 
 def _rel_err(got, ref):
@@ -113,11 +135,11 @@ def test_se3_and_tangent_bundle_match_jax():
 # ---------------------------------------------------------------- rigid bodies
 
 
-@pytest.mark.parametrize("robot", ["humanoid", "quadruped"])
-def test_rigid_body_algorithms_match_jax(robot):
+def jax_rbd_refs(robot):
+    """The JAX package's kinematics, RNEA, mass matrix and frame placements
+    and Jacobians at 4 random states, jitted; numpy."""
     jm, tm, q0, _, _, _ = _robot(robot)
     qs, vs, a = _states(tm, q0, 4, 1)
-    tq, tv, ta = (torch.tensor(x) for x in (qs, vs, a))
     nf = len(jm.frame_names)
 
     @jax.jit
@@ -130,14 +152,31 @@ def test_rigid_body_algorithms_match_jax(robot):
                 jax.vmap(lambda q: jrbd.mass_matrix(jm, q))(qs), frames)
 
     jkin, tau, M, frames = reference(qs, vs, a)
+    out = dict(qs=qs, vs=vs, a=a, tau=tau, M=M, q0=q0)
+    out.update({f"kin_{k}": jkin[k] for k in ("R", "p", "Phi", "V")})
+    for i, name in enumerate(("frame_R", "frame_p", "frame_J")):
+        out[name] = np.stack([np.asarray(f[i]) for f in frames])
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("robot", ["humanoid", "quadruped"])
+def test_rigid_body_algorithms_match_jax(robot):
+    """Kinematics, RNEA, the mass matrix and every frame's placement and
+    Jacobian against the JAX package's (the fixture of jax_rbd_refs)."""
+    ref = _refs(f"rbd_{robot}_")
+    jm, tm, q0, _, _, _ = _robot(robot)
+    qs, vs, a = _states(tm, q0, 4, 1)
+    _same_inputs(ref, qs=qs, vs=vs, a=a)
+    tq, tv, ta = (torch.tensor(x) for x in (qs, vs, a))
     kin = rbd.kinematics(tm, tq, tv)
     # the masks are row-major, as the sums over them were pinned with
     assert all(rbd.tables(tm, tq)[k].is_contiguous() for k in ("A", "D"))
     for k in ("R", "p", "Phi", "V"):
-        assert _rel_err(kin[k], jkin[k]) < TOL, k
-    assert _rel_err(rbd.rnea(tm, tq, tv, ta), tau) < TOL
-    assert _rel_err(rbd.mass_matrix(tm, tq), M) < TOL
-    for f, (jR, jp, jJ) in enumerate(frames):
+        assert _rel_err(kin[k], ref[f"kin_{k}"]) < TOL, k
+    assert _rel_err(rbd.rnea(tm, tq, tv, ta), ref["tau"]) < TOL
+    assert _rel_err(rbd.mass_matrix(tm, tq), ref["M"]) < TOL
+    assert len(ref["frame_R"]) == len(jm.frame_names)
+    for f, (jR, jp, jJ) in enumerate(zip(ref["frame_R"], ref["frame_p"], ref["frame_J"])):
         R, p = rbd.frame_placement(tm, tq, f)
         assert _rel_err(R, jR) < TOL and _rel_err(p, jp) < TOL
         assert _rel_err(rbd.frame_jacobian_lwa(tm, tq, f), jJ) < TOL
@@ -172,16 +211,21 @@ def test_robot_models_default_to_the_card(monkeypatch, build):
 PROX_MU = {"humanoid": 1e-9, "quadruped": 1e-5}
 
 
-@pytest.mark.parametrize("robot", ["humanoid", "quadruped"])
-def test_primal_contact_solve_and_fd_rows_plain_match_jax(robot, K=4):
-    """The primal solve (a, λ) against ``contact._cfd_internals``; then, at
-    the JAX primal solution, the plain version of K5 against the JAX
-    reference rows (``derivatives._fd_rows_std``) and the Pallas kernel in
-    interpret mode (``pallas_tensors.fd_rows_lanes``)."""
+def _contact_inputs(robot, K=4):
     jm, tm, q0, frames, dims, kd = _robot(robot)
     qs, vs, taus = _states(tm, q0, K, 3)
     active = np.ones((K, len(frames)))
     active[0, 0] = active[2, -1] = 0.0  # a swing foot in two instances
+    return jm, tm, frames, dims, kd, qs, vs, taus, active
+
+
+def jax_contact_refs(robot):
+    """The JAX package's primal contact solve (``contact._cfd_internals``)
+    at 4 random states, and at its solution the reference rows
+    (``derivatives._fd_rows_std``) and the Pallas kernel's in interpret mode
+    (``pallas_tensors.fd_rows_lanes``), jitted; numpy."""
+    jm, tm, frames, dims, kd, qs, vs, taus, active = _contact_inputs(robot)
+    K = len(qs)
     prefs = np.zeros((K, len(frames), 3))
     bodies = tuple(jm.frame_parents[f] for f in frames)
     top = jrbd._topology(jm.joint_types, jm.parents)
@@ -210,17 +254,34 @@ def test_primal_contact_solve_and_fd_rows_plain_match_jax(robot, K=4):
         return a, lam, std, ker
 
     a, lam, std, ker = reference(qs, vs, taus, active, prefs)
+    out = dict(qs=qs, vs=vs, taus=taus, active=active, a=a, lam=lam)
+    for name, g, k in zip(ROWS, std, ker):
+        out[f"std_{name}"], out[f"ker_{name}"] = g, k
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("robot", ["humanoid", "quadruped"])
+def test_primal_contact_solve_and_fd_rows_plain_match_jax(robot):
+    """The primal solve (a, λ) against ``contact._cfd_internals``; then, at
+    the JAX primal solution, the plain version of K5 against the JAX
+    reference rows (``derivatives._fd_rows_std``) and the Pallas kernel in
+    interpret mode (``pallas_tensors.fd_rows_lanes``): the fixture of
+    jax_contact_refs."""
+    ref = _refs(f"contact_{robot}_")
+    jm, tm, frames, dims, kd, qs, vs, taus, active = _contact_inputs(robot)
+    _same_inputs(ref, qs=qs, vs=vs, taus=taus, active=active)
+    mu = PROX_MU[robot]
     tq, tv, tt, tact = (torch.tensor(x) for x in (qs, vs, taus, active))
     out = contact.cfd_internals(tm, tq, tv, tt, frames, tact, prox_mu=mu, kd=kd,
                                 contact_dims=dims)
-    assert _rel_err(out["a"], a) < 1e-9
-    assert _rel_err(out["lam"], lam) < 1e-9
+    assert _rel_err(out["a"], ref["a"]) < 1e-9
+    assert _rel_err(out["lam"], ref["lam"]) < 1e-9
 
-    got = fd_rows.fd_rows(tm, tq, tv, torch.tensor(np.asarray(a)),
-                          torch.tensor(np.asarray(lam)), tact, frames, dims, kd=kd)
-    for name, g, r, k in zip(("ra1_q", "ra1_v", "r2_q", "r2_v"), got, std, ker):
-        assert _rel_err(g, r) < TOL, name
-        assert _rel_err(g, k) < TOL, name
+    got = fd_rows.fd_rows(tm, tq, tv, torch.tensor(ref["a"]), torch.tensor(ref["lam"]),
+                          tact, frames, dims, kd=kd)
+    for name, g in zip(ROWS, got):
+        assert _rel_err(g, ref[f"std_{name}"]) < TOL, name
+        assert _rel_err(g, ref[f"ker_{name}"]) < TOL, name
 
 
 def test_fd_rows_cpu_wrapper_is_the_plain_version():
@@ -289,11 +350,88 @@ def test_fd_rows_support_lists_match_the_masks(robot):
     assert list(np.diff(eb_off)) == sorted(np.diff(eb_off), reverse=True)
 
 
-def test_contact_dynamics_jacobians_match_jax():
-    """acc_derivatives and the semi-implicit Euler (A, B, E) against the JAX
-    package's direct assembly, on the quadruped's 4×3D contacts (the
-    humanoid's run through the whole Talos problem in
-    tests/test_torch_talos.py)."""
+def _many_contact_chain():
+    """A free-flyer ``robots.make_chain`` of 20 revolute joints with a frame
+    at the end of every body, the port's model and the JAX package's with
+    the same leaves, and a contact configuration past the old 16-contact
+    cap of the CUDA kernel: twenty 3D contacts and one 6D."""
+    from aligator_tpu_torch.modelling.multibody import robots
+
+    tm = robots.make_chain(20, True, device="cpu", frame_stride=1)
+    leaves = {k: jnp.asarray(getattr(tm, k).numpy()) for k in rbd.LEAVES
+              if getattr(tm, k) is not None}
+    jm = jrbd.RobotModel(**leaves, joint_types=tm.joint_types, parents=tm.parents,
+                         frame_parents=tm.frame_parents, frame_names=tm.frame_names)
+    nb = tm.njoints
+    return jm, tm, tuple(range(1, nb)) + (nb - 1,), (3,) * (nb - 1) + (6,)
+
+
+def _many_contact_inputs(K=2):
+    jm, tm, frames, dims = _many_contact_chain()
+    rng = np.random.default_rng(20)
+    nv = tm.nv
+    qs = tm.configuration_space().integrate(
+        tm.neutral()[None], torch.tensor(0.3 * rng.standard_normal((K, nv)))).numpy()
+    vs, a = 0.2 * rng.standard_normal((K, nv)), rng.standard_normal((K, nv))
+    lam = 5.0 * rng.standard_normal((K, sum(dims)))
+    active = np.ones((K, len(frames)))
+    active[0, 3] = active[1, -1] = 0.0
+    return jm, tm, frames, dims, qs, vs, a, lam, active
+
+
+def jax_many_contact_refs(kd=10.0):
+    """The JAX reference rows and the Pallas kernel's in interpret mode on
+    :func:`_many_contact_chain`'s 21 contacts, jitted; numpy."""
+    jm, tm, frames, dims, qs, vs, a, lam, active = _many_contact_inputs()
+    prefs = np.zeros(active.shape + (3,))
+    bodies = tuple(jm.frame_parents[f] for f in frames)
+    top = jrbd._topology(jm.joint_types, jm.parents)
+    A_np = np.asarray(top["A"], np.float64)
+    D_np = A_np[top["dof_joint"], :]
+
+    @jax.jit
+    def reference(qs, vs, a, lam, active, prefs):
+        std = jax.vmap(lambda q, v, a, lam, act, pr: jder._fd_rows_std(
+            jm, q, v, a, lam, act, pr, frames, dims, 0.0, kd, False))(
+            qs, vs, a, lam, active, prefs)
+        S, Vb, Vpar, Vdof, Ca, Capar, Accb, h, y, I6, pcs = jax.vmap(
+            lambda q, v, a: jder._prep_lane_inputs(jm, q, v, a, frames))(qs, vs, a)
+        ker = pallas_tensors.fd_rows_lanes(
+            S, vs, Vb, Vpar, Vdof, Ca, Capar, Accb, h, y, I6, lam, pcs, active,
+            prefs, jnp.asarray(A_np), jnp.asarray(D_np), jnp.asarray(D_np.T),
+            contact_bodies=bodies, contact_dims=dims, kd=kd, kp=0.0,
+            has_prefs=False, interpret=True)
+        return std, ker
+
+    std, ker = reference(qs, vs, a, lam, active, prefs)
+    out = dict(qs=qs, vs=vs, a=a, lam=lam, active=active)
+    for name, g, k in zip(ROWS, std, ker):
+        out[f"std_{name}"], out[f"ker_{name}"] = g, k
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def test_fd_rows_plain_past_sixteen_contacts_matches_jax():
+    """K5's plain rows on 21 contacts (twenty 3D, one 6D) against the JAX
+    reference rows and the Pallas kernel in interpret mode (the fixture of
+    jax_many_contact_refs), to 1e-12 in float64; the wrapper takes the
+    contacts on the CPU (the CUDA kernel's old cap of 16 contacts is gone;
+    tests/test_torch_cuda.py holds the kernel to these rows at 20 and 40
+    contacts)."""
+    ref = _refs("many_")
+    jm, tm, frames, dims, qs, vs, a, lam, active = _many_contact_inputs()
+    assert len(frames) == 21 and sum(dims) == 66
+    _same_inputs(ref, qs=qs, vs=vs, a=a, lam=lam, active=active)
+    before = _build.LAUNCHES["fd_rows"]
+    got = fd_rows.fd_rows(tm, *(torch.tensor(x) for x in (qs, vs, a, lam, active)),
+                          frames, dims, kd=10.0)
+    assert _build.LAUNCHES["fd_rows"] == before
+    for name, g in zip(ROWS, got):
+        assert _rel_err(g, ref[f"std_{name}"]) < 1e-12, name
+        assert _rel_err(g, ref[f"ker_{name}"]) < 1e-12, name
+    assert (got[2][0, 9:12] == 0).all()  # the inactive contact's rows
+
+
+def _jacobian_inputs():
     jm, tm, q0, frames, dims, kd = _robot("quadruped")
     K, nv = 3, jm.nv
     nu = nv - 6
@@ -301,11 +439,17 @@ def test_contact_dynamics_jacobians_match_jax():
     rng = np.random.default_rng(6)
     us = rng.standard_normal((K, nu))
     xs = np.concatenate([qs, vs], -1)
-    ys = np.asarray(jax.vmap(lambda x, d: jm.phase_space().integrate(x, d))(
-        xs, 0.01 * rng.standard_normal((K, 2 * nv))))
+    dys = 0.01 * rng.standard_normal((K, 2 * nv))
     act = np.ones(len(frames))
     act[-1] = 0.0
-    Bm = np.eye(nv, nu, -6)
+    return jm, tm, frames, dims, kd, qs, vs, us, xs, dys, act, np.eye(nv, nu, -6)
+
+
+def jax_jacobian_refs():
+    """The JAX package's semi-implicit Euler (A, B, E) of the quadruped's
+    contact dynamics, jitted; numpy."""
+    jm, tm, frames, dims, kd, qs, vs, us, xs, dys, act, Bm = _jacobian_inputs()
+    ys = np.asarray(jax.vmap(lambda x, d: jm.phase_space().integrate(x, d))(xs, dys))
     jode = jcontact.MultibodyConstraintFwdDynamics(
         model=jm, actuation=jnp.asarray(Bm), active=jnp.asarray(act),
         contact_frames=frames, contact_dims=dims, kd=kd, prox_mu=1e-9)
@@ -313,6 +457,19 @@ def test_contact_dynamics_jacobians_match_jax():
     jspace = jm.phase_space()
     A, B, E = jax.jit(jax.vmap(lambda x, u, y: jdyn.jacobians(jspace, x, u, y)))(
         xs, us, ys)
+    return {k: np.asarray(v) for k, v in dict(xs=xs, us=us, ys=ys, A=A, B=B, E=E).items()}
+
+
+def test_contact_dynamics_jacobians_match_jax():
+    """acc_derivatives and the semi-implicit Euler (A, B, E) against the JAX
+    package's direct assembly (the fixture of jax_jacobian_refs), on the
+    quadruped's 4×3D contacts (the humanoid's run through the whole Talos
+    problem in tests/test_torch_talos.py)."""
+    ref = _refs("jac_")
+    jm, tm, frames, dims, kd, qs, vs, us, xs, dys, act, Bm = _jacobian_inputs()
+    _same_inputs(ref, xs=xs, us=us)
+    nv = jm.nv
+    ys = ref["ys"]
     ode = contact.MultibodyConstraintFwdDynamics(
         model=tm, actuation=torch.tensor(Bm), active=torch.tensor(act),
         contact_frames=frames, contact_dims=dims, kd=kd, prox_mu=1e-9)
@@ -320,12 +477,12 @@ def test_contact_dynamics_jacobians_match_jax():
     dyn = IntegratorSemiImplEuler(ode=ode, timestep=torch.tensor(h, dtype=torch.float64))
     space = tm.phase_space()
     tx, tu, ty = (torch.tensor(x) for x in (xs, us, ys))
-    for name, g, r in zip("ABE", dyn.jacobians(space, tx, tu, ty), (A, B, E)):
-        assert _rel_err(g, r) < 1e-9, name
+    for name, g in zip("ABE", dyn.jacobians(space, tx, tu, ty)):
+        assert _rel_err(g, ref[name]) < 1e-9, name
     # acc_derivatives against the JAX package's through the velocity rows of
-    # (A, B): h ∂a/∂q, I + h ∂a/∂v and h ∂a/∂u (one JAX compile, not two)
+    # (A, B): h ∂a/∂q, I + h ∂a/∂v and h ∂a/∂u
     a, da_dq, da_dv, da_du = ode.acc_derivatives(space, tx, tu)
-    A, B = np.asarray(A), np.asarray(B)
+    A, B = ref["A"], ref["B"]
     assert _rel_err(h * da_dq, A[:, nv:, :nv]) < 1e-9
     assert _rel_err(torch.eye(nv) + h * da_dv, A[:, nv:, nv:]) < 1e-9
     assert _rel_err(h * da_du, B[:, nv:]) < 1e-9
@@ -333,6 +490,26 @@ def test_contact_dynamics_jacobians_match_jax():
     v_next = torch.tensor(vs) + h * a
     q_next = tm.configuration_space().integrate(torch.tensor(qs), h * v_next)
     assert _rel_err(dyn.forward(space, tx, tu), torch.cat([q_next, v_next], -1)) < 1e-14
+
+
+JAX_REFS = {
+    **{f"rbd_{r}": (jax_rbd_refs, (r,)) for r in ("humanoid", "quadruped")},
+    **{f"contact_{r}": (jax_contact_refs, (r,)) for r in ("humanoid", "quadruped")},
+    "jac": (jax_jacobian_refs, ()),
+    "many": (jax_many_contact_refs, ()),
+}
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("group", sorted(JAX_REFS))
+def test_fixture_matches_live_jax_refs(group):
+    """The fixture's JAX references computed again, live."""
+    fn, args = JAX_REFS[group]
+    ref = _refs(f"{group}_")
+    live = fn(*args)
+    assert sorted(live) == sorted(ref)
+    for k, v in live.items():
+        np.testing.assert_allclose(v, ref[k], rtol=1e-12, atol=1e-12, err_msg=k)
 
 
 def test_stage_varying_parameter_rejects_one_stage_input():

@@ -1,8 +1,14 @@
 """The port's SE(2)-car ProxDDP slice against the JAX package, float64 on
 the CPU: the Lie group, the problem's derivatives, and the whole batched
-solve at the bench.py configuration."""
+solve at the bench.py configuration.
+
+The JAX package's batched solves (``jax_solve_refs``, whose compiles took
+most of this file's time) are ``tests/data/torch_se2_ref.npz``, written by
+``tools/torch_jax_refs_fixture.py --only se2``; the ``slow`` test reruns
+them live."""
 
 import dataclasses
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +30,9 @@ from aligator_tpu_torch.examples.se2_car import create_se2_problem
 from aligator_tpu_torch.modelling import SE2, SO2
 
 torch.set_num_threads(2)
+REFS = pathlib.Path(__file__).resolve().parent / "data" / "torch_se2_ref.npz"
+RESULT_FIELDS = ("num_iters", "al_iter", "conv", "xs", "us", "vs", "lams", "prim_infeas",
+                 "dual_infeas", "traj_cost")
 
 BENCH_CFG = dict(
     tol=1e-3, mu_init=1e-3, max_iters=4, max_al_iters=4, rollout="linear",
@@ -122,58 +131,87 @@ def test_compute_derivatives_match_jax():
                                    err_msg=f.name)
 
 
-def test_batched_proxddp_matches_jax_vmap():
-    """The whole slice: 8 scenarios through the port's batched solve and
-    jax.vmap(solvers.solve) at the bench.py configuration, float64."""
-    B, N = 8, 50
-    jprob = jax_se2_problem(nsteps=N, dtype=jnp.float64)
-    x0s = _bench_x0s(B)
-    jcfg = jsolvers.ProxDDPConfig(**BENCH_CFG)
+# the two solves: (scenarios, horizon, x0 seed, u_bound, options)
+SOLVES = {
+    "bench": (8, 50, 0, None, BENCH_CFG),
+    "backtracking": (4, 20, 3, 0.05, dict(BENCH_CFG, ls_strategy="nonmonotone",
+                                          multiplier_update_mode="primal_dual",
+                                          max_iters=8)),
+}
+
+
+def jax_solve_refs(name):
+    """``jax.vmap(solvers.solve)`` of the JAX package on the solve ``name``
+    of SOLVES, jitted; numpy results and the problems' parameters."""
+    B, N, seed, u_bound, opts = SOLVES[name]
+    jprob = jax_se2_problem(nsteps=N, dtype=jnp.float64, u_bound=u_bound)
+    x0s = _bench_x0s(B, seed)
+    jcfg = jsolvers.ProxDDPConfig(**opts)
     ref = jax.jit(jax.vmap(
         lambda x0: jsolvers.solve(replace(jprob, x0=x0), jcfg)
     ))(jnp.asarray(x0s))
+    out = {f"param_{k}": v for k, v in _se2_params(jprob, x0s).items()}
+    out.update({k: getattr(ref, k) for k in RESULT_FIELDS})
+    return {k: np.asarray(v) for k, v in out.items()}
 
-    tprob = convert.se2_problem_from_numpy(_se2_params(jprob, x0s), nsteps=N,
-                                           device="cpu")
-    got = at.solvers.solve(tprob, at.solvers.ProxDDPConfig(**BENCH_CFG))
 
-    np.testing.assert_array_equal(got.num_iters.numpy(), np.asarray(ref.num_iters))
-    np.testing.assert_array_equal(got.al_iter.numpy(), np.asarray(ref.al_iter))
-    np.testing.assert_array_equal(got.conv.numpy(), np.asarray(ref.conv))
+def _refs(name):
+    with np.load(REFS) as f:
+        return {k[len(name) + 1:]: f[k] for k in f.files if k.startswith(name + "_")}
+
+
+def _solve_fixture(name):
+    """The fixture's JAX results of the solve ``name`` and the port's solve
+    of the same problems."""
+    B, N, seed, u_bound, opts = SOLVES[name]
+    ref = _refs(name)
+    assert np.array_equal(ref["param_x0"], _bench_x0s(B, seed))
+    params = {k[len("param_"):]: v for k, v in ref.items() if k.startswith("param_")}
+    kw = {} if u_bound is None else dict(u_bound=u_bound)
+    tprob = convert.se2_problem_from_numpy(params, nsteps=N, device="cpu", **kw)
+    return ref, at.solvers.solve(tprob, at.solvers.ProxDDPConfig(**opts))
+
+
+def test_batched_proxddp_matches_jax_vmap():
+    """The whole slice: 8 scenarios through the port's batched solve and
+    jax.vmap(solvers.solve) at the bench.py configuration, float64."""
+    ref, got = _solve_fixture("bench")
+    np.testing.assert_array_equal(got.num_iters.numpy(), ref["num_iters"])
+    np.testing.assert_array_equal(got.al_iter.numpy(), ref["al_iter"])
+    np.testing.assert_array_equal(got.conv.numpy(), ref["conv"])
     assert got.conv.all()
     for name in ("xs", "us", "lams"):
-        np.testing.assert_allclose(getattr(got, name).numpy(),
-                                   np.asarray(getattr(ref, name)), atol=1e-8,
+        np.testing.assert_allclose(getattr(got, name).numpy(), ref[name], atol=1e-8,
                                    err_msg=name)
     for name in ("prim_infeas", "dual_infeas", "traj_cost"):
-        np.testing.assert_allclose(getattr(got, name).numpy(),
-                                   np.asarray(getattr(ref, name)), atol=1e-10,
+        np.testing.assert_allclose(getattr(got, name).numpy(), ref[name], atol=1e-10,
                                    err_msg=name)
 
 
 def test_batched_proxddp_backtracking_bounds_matches_jax():
     """Nonmonotone line search with cubic interpolation, primal-dual
     multiplier updates and control bounds (nc = 2), float64."""
-    B, N = 4, 20
-    opts = dict(BENCH_CFG, ls_strategy="nonmonotone",
-                multiplier_update_mode="primal_dual", max_iters=8)
-    jprob = jax_se2_problem(nsteps=N, dtype=jnp.float64, u_bound=0.05)
-    x0s = _bench_x0s(B, seed=3)
-    jcfg = jsolvers.ProxDDPConfig(**opts)
-    ref = jax.jit(jax.vmap(
-        lambda x0: jsolvers.solve(replace(jprob, x0=x0), jcfg)
-    ))(jnp.asarray(x0s))
-    tprob = convert.se2_problem_from_numpy(_se2_params(jprob, x0s), nsteps=N,
-                                           device="cpu", u_bound=0.05)
-    got = at.solvers.solve(tprob, at.solvers.ProxDDPConfig(**opts))
-    np.testing.assert_array_equal(got.num_iters.numpy(), np.asarray(ref.num_iters))
-    np.testing.assert_array_equal(got.al_iter.numpy(), np.asarray(ref.al_iter))
-    np.testing.assert_array_equal(got.conv.numpy(), np.asarray(ref.conv))
+    ref, got = _solve_fixture("backtracking")
+    np.testing.assert_array_equal(got.num_iters.numpy(), ref["num_iters"])
+    np.testing.assert_array_equal(got.al_iter.numpy(), ref["al_iter"])
+    np.testing.assert_array_equal(got.conv.numpy(), ref["conv"])
     assert (got.vs.numpy() != 0.0).any()  # some bounds are active
     for name in ("xs", "us", "vs", "lams"):
-        np.testing.assert_allclose(getattr(got, name).numpy(),
-                                   np.asarray(getattr(ref, name)), atol=1e-8,
+        np.testing.assert_allclose(getattr(got, name).numpy(), ref[name], atol=1e-8,
                                    err_msg=name)
+
+
+JAX_REFS = {name: (jax_solve_refs, (name,)) for name in SOLVES}
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", sorted(SOLVES))
+def test_fixture_matches_live_jax_refs(name):
+    """The fixture's JAX solves run again, live."""
+    live, ref = jax_solve_refs(name), _refs(name)
+    assert sorted(live) == sorted(ref)
+    for k, v in live.items():
+        np.testing.assert_allclose(v, ref[k], rtol=1e-12, atol=1e-12, err_msg=k)
 
 
 @pytest.mark.parametrize("option", [

@@ -101,24 +101,50 @@ def test_builder_defaults_to_cuda():
             create_talos_walk_problem(T_DS, T_SS)
 
 
-def test_compute_derivatives_matches_jax():
-    """Every field of ``compute_derivatives`` along the JAX solution of the
-    second scenario: costs and their derivatives, the contact dynamics'
-    residuals and (A, B, E) through ``IntegratorSemiImplEuler.jacobians``,
-    the control box. (The JAX side is jitted for one scenario: a vmapped
-    reference compiles twice as long.)"""
+DERIVS = ROOT / "tests" / "data" / "torch_talos_derivs_ref.npz"
+
+
+def jax_derivative_refs():
+    """Every field of the JAX package's ``compute_derivatives`` along the
+    fixture's JAX solution of the second scenario, jitted for that one
+    scenario; numpy."""
     fix = _fixture()
     jprob, _, _ = jax_talos_problem(t_ds=T_DS, t_ss=T_SS, dtype=jnp.float64)
     xs, us, x0 = fix["res_xs"], fix["res_us"], fix["x0"]
     ref = jax.jit(lambda x0, xs, us: jproblem.compute_derivatives(
         replace(jprob, x0=x0), xs, us))(x0[1], xs[1], us[1])
+    return {f.name: np.asarray(getattr(ref, f.name)) for f in dataclasses.fields(ref)
+            if getattr(ref, f.name) is not None}
+
+
+JAX_REFS = {"derivs": (jax_derivative_refs, ())}
+
+
+def test_compute_derivatives_matches_jax():
+    """Every field of ``compute_derivatives`` along the JAX solution of the
+    second scenario: costs and their derivatives, the contact dynamics'
+    residuals and (A, B, E) through ``IntegratorSemiImplEuler.jacobians``,
+    the control box, against the JAX package's (jax_derivative_refs, in
+    ``tests/data/torch_talos_derivs_ref.npz``, written by
+    ``tools/torch_jax_refs_fixture.py --only talos``: its compile took most
+    of this file's time; the ``slow`` test below reruns it)."""
+    fix = _fixture()
+    ref = _fixture(DERIVS)
+    xs, us = fix["res_xs"], fix["res_us"]
     problem = convert.talos_problem_from_numpy(fix, device="cpu")
     got = problem_mod.compute_derivatives(problem, torch.tensor(xs), torch.tensor(us))
-    for f in dataclasses.fields(got):
-        g = getattr(got, f.name)
-        if g is None:
-            continue
-        assert _rel_err(g[1], getattr(ref, f.name)) < TOL, f.name
+    names = [f.name for f in dataclasses.fields(got) if getattr(got, f.name) is not None]
+    assert sorted(names) == sorted(ref)
+    for name in names:
+        assert _rel_err(getattr(got, name)[1], ref[name]) < TOL, name
+
+
+@pytest.mark.slow
+def test_derivative_fixture_matches_live_jax():
+    live, ref = jax_derivative_refs(), _fixture(DERIVS)
+    assert sorted(live) == sorted(ref)
+    for k, v in live.items():
+        np.testing.assert_allclose(v, ref[k], rtol=1e-12, atol=1e-12, err_msg=k)
 
 
 def _check_against(res, fix):
